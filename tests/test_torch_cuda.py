@@ -1,0 +1,120 @@
+"""Tests of the port's CUDA kernels; they need an NVIDIA GPU and nvcc and
+skip without them. Run on a GPU machine from the repository root with
+
+    python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
+
+The file imports no JAX (the GPU machine has none): each kernel is held
+against its plain PyTorch version on the card. Tolerance: abs 1e-4 +
+rel 1e-4, f32 through up to 15 euler steps summed in another order.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from vae_gp_ode_tpu_torch import ops
+from vae_gp_ode_tpu_torch.gp.svgp import draw_fn_sample, init_svgp_params
+from vae_gp_ode_tpu_torch.models.odegpvae import init_model
+from vae_gp_ode_tpu_torch.ops import flow_fused
+from vae_gp_ode_tpu_torch.ops.pathwise import rbf_fused_operands
+from vae_gp_ode_tpu_torch.serving import make_forecast_fn
+
+pytestmark = pytest.mark.gpu
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA GPU')
+    return torch.device('cuda')
+
+
+def _packed(dev, q, order, N, L, S=256, M=100, seed=0):
+    rng = np.random.default_rng(seed)
+    gp = init_svgp_params(rng, q * order, q, M, lengthscale=2.0,
+                          variance=0.7, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sample = draw_fn_sample(gp, gen, S, L=L)
+    packed = flow_fused._pack_operands(*rbf_fused_operands(gp, sample))
+    z0 = torch.randn(N, q * order, generator=gen, device=dev)
+    return z0, packed, gen
+
+
+@pytest.mark.parametrize('order,N,L', [(1, 20, 5), (2, 20, 5), (1, 300, 2),
+                                       (1, 3, 1)])
+def test_kernel_matches_plain(cuda, order, N, L):
+    T = 16
+    z0, packed, gen = _packed(cuda, 6, order, N, L)
+    dts = torch.rand(T - 1, generator=gen, device=cuda) * 0.15 + 0.05
+    with torch.no_grad():
+        out = flow_fused.packed_euler_flow(z0, *packed, dts, T, order)
+        ref = flow_fused.packed_flow_reference(z0, *packed, dts, T, order)
+    torch.cuda.synchronize()
+    assert out.shape == (L, T, N, 6 * order)
+    torch.testing.assert_close(out, ref, **TOL)
+
+
+def test_kernel_single_draw_and_shared_operands(cuda):
+    """Operands without a leading draw dim give (T, N, D)."""
+    T = 8
+    z0, packed, gen = _packed(cuda, 6, 1, 20, 1)
+    packed = tuple(p[0] if p.dim() == 3 else p for p in packed)
+    dts = torch.full((T - 1,), 0.1, device=cuda)
+    with torch.no_grad():
+        out = flow_fused.packed_euler_flow(z0, *packed, dts, T, 1)
+        ref = flow_fused.packed_flow_reference(z0, *packed, dts, T, 1)
+    assert out.shape == (T, 20, 6)
+    torch.testing.assert_close(out, ref, **TOL)
+
+
+def test_kernel_counts_launches_and_rejects_bad_inputs(cuda):
+    T = 8
+    z0, packed, _ = _packed(cuda, 6, 1, 20, 2)
+    dts = torch.full((T - 1,), 0.1, device=cuda)
+    before = ops.LAUNCHES['flow_fused_fwd']
+    with torch.no_grad():
+        flow_fused.packed_euler_flow(z0, *packed, dts, T, 1)
+    assert ops.LAUNCHES['flow_fused_fwd'] == before + 1
+    with pytest.raises(TypeError, match='float32'):
+        flow_fused.packed_euler_flow(z0.double(), *packed, dts, T, 1)
+    with pytest.raises(ValueError, match='contiguous'):
+        flow_fused.packed_euler_flow(z0.T.contiguous().T, *packed, dts, T, 1)
+    with pytest.raises(ValueError, match='dts'):
+        flow_fused.packed_euler_flow(z0, *packed, dts[:-1], T, 1)
+    with pytest.raises(ValueError, match='z0 on'):
+        flow_fused.packed_euler_flow(z0, *packed, dts.cpu(), T, 1)
+    with pytest.raises(NotImplementedError, match='backward'):
+        flow_fused.packed_euler_flow(z0.requires_grad_(), *packed, dts, T, 1)
+    assert ops.LAUNCHES['flow_fused_fwd'] == before + 1
+
+
+def test_forecaster_runs_through_the_kernel(cuda):
+    model, gp = init_model(0, device='cuda', lengthscale=2.0, variance=0.7)
+    fn = make_forecast_fn(model, None, gp, L=5, T_custom=32,
+                          normalize_input=True, device='cuda')
+    X = np.random.default_rng(1).random((20, 16, 1, 28, 28)).astype(
+        np.float32)
+    before = ops.LAUNCHES['flow_fused_fwd']
+    out = fn(X, 0)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES['flow_fused_fwd'] == before + 1
+    assert out.shape == (5, 20, 32, 1, 28, 28)
+    assert torch.isfinite(out).all()
+    # the same forward on the CPU, plain version, same noise
+    cpu_fn = make_forecast_fn(model, None, gp, L=5, T_custom=32,
+                              normalize_input=True, device='cpu')
+    rng = np.random.default_rng(2)
+    noise = {'z0': rng.standard_normal((20, 6)),
+             'omega': rng.standard_normal((5, 6, 256, 6)),
+             'phase_u': rng.random((5, 1, 256, 6)),
+             'weights': rng.standard_normal((5, 256, 6)),
+             'epsilon': rng.standard_normal((5, 100, 6))}
+    noise = {k: torch.as_tensor(v, dtype=torch.float32)
+             for k, v in noise.items()}
+    cpu_out = cpu_fn(X, 0, noise=noise)
+    fn = make_forecast_fn(model, None, gp, L=5, T_custom=32,
+                          normalize_input=True, device='cuda')
+    gpu_out = fn(X, 0, noise={k: v.to(cuda) for k, v in noise.items()})
+    torch.testing.assert_close(gpu_out.cpu(), cpu_out, **TOL)

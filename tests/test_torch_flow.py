@@ -1,0 +1,188 @@
+"""Parity of the port's fused euler trajectory (ops.flow_fused) and
+dynamics.flow with the JAX package, on the CPU at small sizes.
+
+On the CPU the port's wrapper computes its kernel's plain version; it is
+held against the JAX Pallas kernel run in interpret mode and against the
+JAX `packed_flow_reference`, at orders 1 and 2, with uniform and
+non-uniform step sizes. Tolerance 1e-5 (rtol and atol): f32 over 7 euler
+steps of O(1) states.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from vae_gp_ode_tpu.dynamics import flow as jflow
+from vae_gp_ode_tpu.gp import svgp as jsvgp
+from vae_gp_ode_tpu.kernels import rbf as jrbf
+from vae_gp_ode_tpu.ops import flow_fused as jff
+
+from vae_gp_ode_tpu_torch import ops
+from vae_gp_ode_tpu_torch.dynamics import flow as tflow
+from vae_gp_ode_tpu_torch.gp import svgp as tsvgp
+from vae_gp_ode_tpu_torch.ops import flow_fused as tff
+from vae_gp_ode_tpu_torch.utils.jax_import import gp_from_jax
+
+Q, S, M, N, T, L = 3, 32, 16, 5, 8, 2
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _operands(rng, order, lead=()):
+    """Raw flow operands (z0, omega, phase, weights, Z, nu, ls, var)."""
+    D = Q * order
+    f = np.float32
+    return (rng.standard_normal((N, D)).astype(f) * 0.5,
+            rng.standard_normal(lead + (D, S, Q)).astype(f),
+            rng.uniform(0, 2 * np.pi, lead + (1, S, Q)).astype(f),
+            rng.standard_normal(lead + (S, Q)).astype(f),
+            rng.standard_normal((M, D)).astype(f),
+            rng.standard_normal(lead + (Q, M)).astype(f) * 0.1,
+            rng.uniform(0.8, 2.0, (Q, D)).astype(f),
+            rng.uniform(0.3, 1.0, (Q,)).astype(f))
+
+
+def _dts(rng, uniform):
+    if uniform:
+        return np.full(T - 1, 0.1, np.float32)
+    return rng.uniform(0.03, 0.2, T - 1).astype(np.float32)
+
+
+def _t(args):
+    return [torch.as_tensor(a) for a in args]
+
+
+@pytest.mark.parametrize('order', [1, 2])
+@pytest.mark.parametrize('uniform', [True, False])
+def test_flow_plain_matches_jax(order, uniform):
+    rng = np.random.default_rng(10 * order + uniform)
+    args = _operands(rng, order)
+    dts = _dts(rng, uniform)
+    before = dict(ops.LAUNCHES)
+    out = tff.fused_euler_flow(*_t(args), torch.as_tensor(dts), T, order)
+    assert ops.LAUNCHES == before           # CPU tensors: plain version
+    assert out.shape == (T, N, Q * order)
+    pallas = jff.fused_euler_flow(*map(jnp.asarray, args), jnp.asarray(dts),
+                                  T, order, True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(pallas), **TOL)
+    jpacked = jff._pack_operands(*map(jnp.asarray, args[1:]))
+    ref = jff.packed_flow_reference(jnp.asarray(args[0]), *jpacked,
+                                    jnp.asarray(dts), T, order)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    # the port's own reference composition agrees too
+    eref = tff.euler_flow_reference(*_t(args), torch.as_tensor(dts), T,
+                                    order)
+    np.testing.assert_allclose(out.numpy(), eref.numpy(), **TOL)
+
+
+@pytest.mark.parametrize('order', [1, 2])
+def test_pack_operands_match_jax(order):
+    rng = np.random.default_rng(20 + order)
+    args = _operands(rng, order)
+    mine = tff._pack_operands(*_t(args[1:]))
+    ref = jff._pack_operands(*map(jnp.asarray, args[1:]))
+    for a, b in zip(mine, ref):
+        assert a.is_contiguous()
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize('order', [1, 2])
+def test_batched_draws_match_per_draw_jax(order):
+    """One call over a leading batch of L draws (shared z0 and GP
+    operands) equals L single-draw JAX kernel runs."""
+    rng = np.random.default_rng(30 + order)
+    args = _operands(rng, order, lead=(L,))
+    dts = _dts(rng, False)
+    out = tff.fused_euler_flow(*_t(args), torch.as_tensor(dts), T, order)
+    assert out.shape == (L, T, N, Q * order)
+    for l in range(L):
+        one = [a[l] if i in (1, 2, 3, 5) else a for i, a in enumerate(args)]
+        ref = jff.fused_euler_flow(*map(jnp.asarray, one), jnp.asarray(dts),
+                                   T, order, True)
+        np.testing.assert_allclose(out[l].numpy(), np.asarray(ref), **TOL)
+
+
+def _gp_pair(rng, order):
+    D = Q * order
+    leaves = {'kernel': {
+        'unconstrained_lengthscales':
+            rng.uniform(0.0, 1.0, (Q, D)).astype(np.float32),
+        'unconstrained_variance':
+            rng.uniform(-1.0, 0.0, (Q,)).astype(np.float32)},
+        'inducing_loc': rng.standard_normal((M, D)).astype(np.float32),
+        'Um': (rng.standard_normal((M, Q)) * 0.3).astype(np.float32),
+        'Us_sqrt': np.asarray(jsvgp.init_svgp_params(
+            jax.random.PRNGKey(0), D, Q, M).Us_sqrt)}
+    jgp = jsvgp.SVGPParams(
+        kernel=jrbf.RBFParams(*(jnp.asarray(leaves['kernel'][k]) for k in (
+            'unconstrained_lengthscales', 'unconstrained_variance'))),
+        inducing_loc=jnp.asarray(leaves['inducing_loc']),
+        Um=jnp.asarray(leaves['Um']), Us_sqrt=jnp.asarray(leaves['Us_sqrt']))
+    return jgp, gp_from_jax(leaves)
+
+
+@pytest.mark.parametrize('order', [1, 2])
+def test_flow_forward_matches_jax(order):
+    rng = np.random.default_rng(40 + order)
+    jgp, tgp = _gp_pair(rng, order)
+    D = Q * order
+    noise = {'omega': rng.standard_normal((L, D, S, Q)),
+             'phase_u': rng.random((L, 1, S, Q)),
+             'weights': rng.standard_normal((L, S, Q)),
+             'epsilon': rng.standard_normal((L, M, Q))}
+    noise = {k: v.astype(np.float32) for k, v in noise.items()}
+    z0 = (rng.standard_normal((N, D)) * 0.5).astype(np.float32)
+    ts = 0.1 * np.arange(T, dtype=np.float32)
+    sample = tsvgp.draw_fn_sample(
+        tgp, None, S, noise={k: torch.as_tensor(v) for k, v in noise.items()})
+    zs, nfe = tflow.flow_forward(tgp, sample, torch.as_tensor(z0),
+                                 torch.as_tensor(ts), order=order,
+                                 device='cpu')
+    assert zs.shape == (L, N, T, D) and nfe == L * (T - 1)
+    for l in range(L):
+        js = jsvgp.draw_fn_sample(
+            jgp, None, S, noise={k: jnp.asarray(v[l])
+                                 for k, v in noise.items()})
+        ref, jnfe = jflow.flow_forward(jgp, js, jnp.asarray(z0),
+                                       jnp.asarray(ts), order=order)
+        assert int(jnfe) == T - 1
+        np.testing.assert_allclose(zs[l].numpy(), np.asarray(ref),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_flow_forward_rejects_what_is_not_ported():
+    rng = np.random.default_rng(50)
+    _, tgp = _gp_pair(rng, 1)
+    z0 = torch.zeros(N, Q)
+    ts = torch.arange(T, dtype=torch.float32) * 0.1
+    for kw in ({'solver': 'rk4'}, {'solver': 'dopri5'}, {'dense': 2}):
+        with pytest.raises(NotImplementedError, match='ROADMAP'):
+            tflow.flow_forward(tgp, None, z0, ts, device='cpu', **kw)
+    with pytest.raises(ValueError):
+        tflow.flow_forward(tgp, None, z0, ts, order=3, device='cpu')
+    with pytest.raises(ValueError, match='2 time points'):
+        tflow.flow_forward(tgp, None, z0, ts[:1], device='cpu')
+
+
+def test_cuda_default_raises_without_a_gpu(monkeypatch):
+    """The entry point defaults to the GPU; with none present it raises
+    instead of silently computing on the CPU."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    rng = np.random.default_rng(51)
+    _, tgp = _gp_pair(rng, 1)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        tflow.flow_forward(tgp, None, torch.zeros(N, Q),
+                           torch.arange(T, dtype=torch.float32))
+
+
+def test_packed_wrapper_rejects_mixed_devices():
+    rng = np.random.default_rng(52)
+    args = _operands(rng, 1)
+    packed = tff._pack_operands(*_t(args[1:]))
+    dts = torch.full((T - 1,), 0.1)
+    meta = torch.zeros(N, Q, device='meta')
+    with pytest.raises(ValueError, match='unsupported device'):
+        tff.packed_euler_flow(meta, *packed, dts, T, 1)

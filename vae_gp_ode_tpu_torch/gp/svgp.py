@@ -1,0 +1,175 @@
+"""Sparse variational GP with decoupled pathwise posterior sampling (port
+of `vae_gp_ode_tpu/gp/svgp.py`, dimwise-RBF kernel).
+
+  * whitened variational posterior q(u) = N(m, L L^T), full-Cholesky
+    (packed lower-tri vectors) or diagonal,
+  * `draw_fn_sample`: a pathwise posterior function sample, optionally a
+    leading batch of L draws in one call,
+  * closed-form whitened KL(q(u) || N(0, I)).
+
+f(x) = Phi(x) w + K(x, Z) nu,  nu = K(Z,Z)^{-1}(u - f_prior(Z)).
+
+The divergence-free (DF) kernel is not ported yet (ROADMAP Queue A item
+10): asking for it raises.
+"""
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from vae_gp_ode_tpu_torch.core.transforms import (
+    softplus, invsoftplus, unpack_tril, pack_tril,
+)
+from vae_gp_ode_tpu_torch.kernels import rbf as rbfk
+
+@dataclasses.dataclass
+class SVGPParams:
+    """SVGP state.
+
+    kernel:        RBFParams
+    inducing_loc:  (M, D_in)
+    Um:            (M, D_out) variational mean (whitened)
+    Us_sqrt:       packed scale: (D_out, M(M+1)/2) full-Cholesky, or
+                   (M, D_out) unconstrained diag (softplus-constrained)
+    """
+
+    kernel: rbfk.RBFParams
+    inducing_loc: torch.Tensor
+    Um: torch.Tensor
+    Us_sqrt: torch.Tensor
+    q_diag: bool = False
+
+    @property
+    def M(self):
+        return self.inducing_loc.shape[0]
+
+    @property
+    def D_in(self):
+        return self.inducing_loc.shape[1]
+
+    @property
+    def D_out(self):
+        return self.Um.shape[1]
+
+    def to(self, device):
+        return dataclasses.replace(
+            self, kernel=self.kernel.to(device),
+            inducing_loc=self.inducing_loc.to(device),
+            Um=self.Um.to(device), Us_sqrt=self.Us_sqrt.to(device))
+
+
+@dataclasses.dataclass
+class FnSample:
+    """Pathwise posterior function sample(s): RFF draw + update
+    coefficients nu (..., D_out, M, 1); `...` is the batch of draws."""
+
+    rff: rbfk.RFFState
+    nu: torch.Tensor
+
+
+def init_svgp_params(rng, D_in, D_out, M, kernel='RBF', q_diag=False,
+                     lengthscale=0.2, variance=0.1, dtype=torch.float32,
+                     device='cpu') -> SVGPParams:
+    """Random initialisation at the reference's scales, drawn with the
+    numpy Generator `rng`: inducing_loc ~ N(0,1), Um ~ N(0,1)*0.1,
+    Us_sqrt = I*1e-3 (packed), or a softplus-1e-3 diagonal for q_diag."""
+    if kernel == 'DF':
+        raise NotImplementedError('the divergence-free (DF) kernel is not '
+                                  'ported yet (ROADMAP Queue A item 10)')
+    if kernel != 'RBF':
+        raise ValueError(f'Invalid kernel selection: {kernel!r}')
+    kern = rbfk.init_rbf_params(D_in, D_out, lengthscale=lengthscale,
+                                variance=variance, dtype=dtype,
+                                device=device)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    inducing_loc = t(rng.standard_normal((M, D_in)))
+    Um = t(rng.standard_normal((M, D_out)) * 0.1)
+    if q_diag:
+        Us_sqrt = torch.full((M, D_out),
+                             float(invsoftplus(torch.tensor(1e-3, dtype=dtype))),
+                             dtype=dtype, device=device)
+    else:
+        eye = torch.eye(M, dtype=dtype, device=device) * 1e-3
+        Us_sqrt = pack_tril(eye.expand(D_out, M, M))
+    return SVGPParams(kernel=kern, inducing_loc=inducing_loc, Um=Um,
+                      Us_sqrt=Us_sqrt, q_diag=q_diag)
+
+
+def _scale_tril(p: SVGPParams):
+    """Constrained scale of q(u): (D_out, M, M) lower-tri."""
+    return unpack_tril(p.Us_sqrt, p.M)
+
+
+def sample_inducing(p: SVGPParams, generator=None, epsilon=None, L=None):
+    """Draw u ~ q(u) = N(m, L L^T) (whitened): (..., M, D_out).
+
+    `epsilon` (..., M, D_out) injects the standard-normal draw; otherwise
+    `generator` draws it, with a leading batch of `L` when `L` is given.
+    """
+    if epsilon is None:
+        lead = () if L is None else (L,)
+        epsilon = torch.randn(lead + (p.M, p.D_out), generator=generator,
+                              dtype=p.Um.dtype, device=p.Um.device)
+    if p.q_diag:
+        ZS = softplus(p.Us_sqrt) * epsilon
+    else:
+        e = epsilon.transpose(-1, -2)[..., None]         # (..., D, M, 1)
+        ZS = (_scale_tril(p) @ e)[..., 0].transpose(-1, -2)
+    return ZS + p.Um
+
+
+def draw_fn_sample(p: SVGPParams, generator, S,
+                   noise: Optional[dict] = None, L=None) -> FnSample:
+    """Draw pathwise posterior sample(s):
+
+    1. RFF parameters (omega, phase, weights),
+    2. u ~ q(u),
+    3. nu = K(Z,Z)^{-1}(u - f_prior(Z)) via Cholesky + triangular solves.
+
+    `noise` injects the raw draws {omega, phase_u, weights, epsilon}, whose
+    leading dims (if any) batch the draws. Otherwise `generator` draws
+    them: one sample, or a leading batch of `L` samples in one call.
+    """
+    eps = None if noise is None else noise['epsilon']
+    rff = rbfk.rbf_sample_rff(p.kernel, generator, S, p.D_in, p.D_out,
+                              noise=noise, L=L)
+    u = sample_inducing(p, generator, epsilon=eps, L=L)
+    Z = p.inducing_loc
+    Ku = rbfk.rbf_gram(p.kernel, Z)
+    u_prior = rbfk.rbf_rff_eval(p.kernel, rff, Z)
+    nu = rbfk.rbf_compute_nu(p.kernel, Ku, u_prior, u)
+    return FnSample(rff=rff, nu=nu)
+
+
+def fn_eval(p: SVGPParams, s: FnSample, x):
+    """Evaluate the sampled posterior function(s): prior + update.
+
+    The plain PyTorch evaluation. The per-step Hopper kernel that the JAX
+    package's Pallas `fused_pathwise_eval` becomes is the next slice
+    (ROADMAP Queue B); the euler trajectory of the main path does not
+    call this function (dynamics.flow runs the fused trajectory kernel).
+    """
+    f_prior = rbfk.rbf_rff_eval(p.kernel, s.rff, x)
+    f_up = rbfk.rbf_f_update(p.kernel, s.nu, x, p.inducing_loc)
+    return f_prior + f_up
+
+
+def svgp_kl(p: SVGPParams):
+    """Whitened KL(q(u) || N(0, I)) in closed form."""
+    alpha = p.Um                                         # (M, D)
+    if p.q_diag:
+        Lq_diag = softplus(p.Us_sqrt)                    # (M, D)
+        trace = torch.sum(Lq_diag ** 2, dim=0)           # (D,)
+    else:
+        Lq = _scale_tril(p)                              # (D, M, M)
+        Lq_diag = torch.diagonal(Lq, dim1=1, dim2=2).T   # (M, D)
+        trace = torch.sum(Lq ** 2, dim=(1, 2))           # (D,)
+    mahalanobis = torch.sum(alpha ** 2, dim=0)           # (D,)
+    logdet_qcov = torch.sum(torch.log(Lq_diag ** 2), dim=0)
+    twoKL = -logdet_qcov + mahalanobis + trace - float(p.M)
+    return 0.5 * torch.sum(twoKL)

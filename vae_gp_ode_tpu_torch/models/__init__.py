@@ -1,0 +1,6 @@
+from vae_gp_ode_tpu_torch.models.vae import (  # noqa: F401
+    Encoder, Decoder, bernoulli_log_prob,
+)
+from vae_gp_ode_tpu_torch.models.odegpvae import (  # noqa: F401
+    ODEGPVAE, init_model,
+)

@@ -1,0 +1,118 @@
+"""Carry weights of the JAX package over to the port.
+
+`from_jax` takes the JAX model's `variables` (params + batch_stats) and
+its `SVGPParams` leaves as nested dicts of numpy arrays and returns the
+port's state dict and `SVGPParams`. Layout rules (the reverse of
+`vae_gp_ode_tpu/utils/torch_import.py`):
+
+  flax Conv kernel (kH, kW, I, O)                -> (O, I, kH, kW)
+  flax ConvTranspose kernel (kH, kW, I, O),
+      spatially flipped                          -> (I, O, kH, kW)
+  flax Dense kernel (in, out)                    -> (out, in), with the
+      channel-minor (h, w, c) <-> channel-major (c, h, w) flatten
+      permutation at the conv/dense boundary
+  BatchNorm scale/bias + batch_stats mean/var    -> weight/bias/running_*
+  SVGP leaves                                    -> unchanged
+"""
+
+import numpy as np
+import torch
+
+from vae_gp_ode_tpu_torch.gp.svgp import SVGPParams
+from vae_gp_ode_tpu_torch.kernels.rbf import RBFParams
+
+
+def _t(a):
+    return torch.tensor(np.ascontiguousarray(a))
+
+
+def _conv(k):
+    return _t(np.transpose(np.asarray(k), (3, 2, 0, 1)))
+
+
+def _convT(k):
+    return _t(np.transpose(np.asarray(k)[::-1, ::-1], (2, 3, 0, 1)))
+
+
+def _bn(sd, prefix, p, s):
+    sd[f'{prefix}.weight'] = _t(p['scale'])
+    sd[f'{prefix}.bias'] = _t(p['bias'])
+    sd[f'{prefix}.running_mean'] = _t(s['mean'])
+    sd[f'{prefix}.running_var'] = _t(s['var'])
+    sd[f'{prefix}.num_batches_tracked'] = torch.tensor(0)
+
+
+def encoder_from_jax(params, stats, prefix):
+    """flax Encoder (Conv_0..2, BatchNorm_0..1, Dense_0) -> the port's
+    `cnn.{0,1,3,4,6}` / `fc` keys under `prefix`."""
+    sd = {}
+    for i, (ci, bi) in enumerate([(0, 1), (3, 4)]):
+        sd[f'{prefix}.cnn.{ci}.weight'] = _conv(params[f'Conv_{i}']['kernel'])
+        sd[f'{prefix}.cnn.{ci}.bias'] = _t(params[f'Conv_{i}']['bias'])
+        _bn(sd, f'{prefix}.cnn.{bi}', params[f'BatchNorm_{i}'],
+            stats[f'BatchNorm_{i}'])
+    sd[f'{prefix}.cnn.6.weight'] = _conv(params['Conv_2']['kernel'])
+    sd[f'{prefix}.cnn.6.bias'] = _t(params['Conv_2']['bias'])
+    K = np.asarray(params['Dense_0']['kernel'])          # (16*C, 2q), (h,w,c)
+    C = K.shape[0] // 16
+    W = K.T.reshape(-1, 4, 4, C).transpose(0, 3, 1, 2).reshape(K.shape[1], -1)
+    sd[f'{prefix}.fc.weight'] = _t(W)
+    sd[f'{prefix}.fc.bias'] = _t(params['Dense_0']['bias'])
+    return sd
+
+
+def decoder_from_jax(params, stats, prefix):
+    """flax Decoder (Dense_0, ConvTranspose_0..3, BatchNorm_0..2) -> the
+    port's `fc` / `decnn.{1,2,4,5,7,8,10}` keys under `prefix`."""
+    sd = {}
+    K = np.asarray(params['Dense_0']['kernel'])          # (q, 16*C), (h,w,c)
+    b = np.asarray(params['Dense_0']['bias'])
+    C = K.shape[1] // 16
+    W = K.T.reshape(4, 4, C, -1).transpose(2, 0, 1, 3).reshape(16 * C, -1)
+    sd[f'{prefix}.fc.weight'] = _t(W)
+    sd[f'{prefix}.fc.bias'] = _t(b.reshape(4, 4, C).transpose(2, 0, 1)
+                                  .reshape(-1))
+    for i, ci in enumerate([1, 4, 7, 10]):
+        sd[f'{prefix}.decnn.{ci}.weight'] = _convT(
+            params[f'ConvTranspose_{i}']['kernel'])
+        sd[f'{prefix}.decnn.{ci}.bias'] = _t(
+            params[f'ConvTranspose_{i}']['bias'])
+    for i, bi in enumerate([2, 5, 8]):
+        _bn(sd, f'{prefix}.decnn.{bi}', params[f'BatchNorm_{i}'],
+            stats[f'BatchNorm_{i}'])
+    return sd
+
+
+def gp_from_jax(gp_np):
+    """SVGPParams from a nested dict of the JAX SVGPParams leaves
+    ({'kernel': {'unconstrained_lengthscales', 'unconstrained_variance'},
+    'inducing_loc', 'Um', 'Us_sqrt'}) of a dimwise-RBF GP. A full-Cholesky
+    q(u) scale is packed as (D_out, M(M+1)/2), a diagonal one is
+    (M, D_out): the shape tells q_diag (for M > 1)."""
+    kern = gp_np['kernel']
+    Um = _t(gp_np['Um'])
+    Us = _t(gp_np['Us_sqrt'])
+    M, D_out = Um.shape
+    return SVGPParams(
+        kernel=RBFParams(
+            unconstrained_lengthscales=_t(kern['unconstrained_lengthscales']),
+            unconstrained_variance=_t(kern['unconstrained_variance'])),
+        inducing_loc=_t(gp_np['inducing_loc']), Um=Um, Us_sqrt=Us,
+        q_diag=tuple(Us.shape) != (D_out, M * (M + 1) // 2))
+
+
+def from_jax(variables_np, gp_np):
+    """(model_state_dict, gp) for `models.odegpvae.ODEGPVAE` from the JAX
+    ODEGPVAE `variables` and SVGP leaves, as nested dicts of numpy
+    arrays (CPU tensors out)."""
+    params = variables_np['params']
+    stats = variables_np.get('batch_stats', {})
+    sd = {}
+    sd.update(encoder_from_jax(params['encoder'], stats['encoder'],
+                               'encoder'))
+    sd.update(decoder_from_jax(params['decoder'], stats['decoder'],
+                               'decoder'))
+    if 'encoder_v' in params:
+        sd.update(encoder_from_jax(params['encoder_v'], stats['encoder_v'],
+                                   'encoder_v'))
+    return sd, gp_from_jax(gp_np)

@@ -4,8 +4,10 @@ skip without them. Run on a GPU machine from the repository root with
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 
 The file imports no JAX (the GPU machine has none): each kernel is held
-against its plain PyTorch version on the card. Tolerance: abs 1e-4 +
-rel 1e-4, f32 through up to 15 euler steps summed in another order.
+against its plain PyTorch version on the card. Tolerances: the trajectory
+abs 1e-4 + rel 1e-4, f32 through up to 15 euler steps summed in another
+order; each adjoint cotangent 1e-4 (1 + its largest plain entry), sums
+over up to 300 rows, 15 steps and 1536 columns in another order.
 """
 
 import numpy as np
@@ -13,11 +15,13 @@ import pytest
 import torch
 
 from vae_gp_ode_tpu_torch import ops
+from vae_gp_ode_tpu_torch.core.transforms import invsoftplus
 from vae_gp_ode_tpu_torch.gp.svgp import draw_fn_sample, init_svgp_params
 from vae_gp_ode_tpu_torch.models.odegpvae import init_model
 from vae_gp_ode_tpu_torch.ops import flow_fused
 from vae_gp_ode_tpu_torch.ops.pathwise import rbf_fused_operands
 from vae_gp_ode_tpu_torch.serving import make_forecast_fn
+from vae_gp_ode_tpu_torch.training import trainer
 
 pytestmark = pytest.mark.gpu
 
@@ -85,9 +89,83 @@ def test_kernel_counts_launches_and_rejects_bad_inputs(cuda):
         flow_fused.packed_euler_flow(z0, *packed, dts[:-1], T, 1)
     with pytest.raises(ValueError, match='z0 on'):
         flow_fused.packed_euler_flow(z0, *packed, dts.cpu(), T, 1)
-    with pytest.raises(NotImplementedError, match='backward'):
-        flow_fused.packed_euler_flow(z0.requires_grad_(), *packed, dts, T, 1)
     assert ops.LAUNCHES['flow_fused_fwd'] == before + 1
+    # inputs that require grad: the forward kernel, and reverse mode
+    # through the adjoint kernel, once each
+    inputs = [x.clone().requires_grad_() for x in (z0, *packed)]
+    bwd = ops.LAUNCHES['flow_fused_bwd']
+    zs = flow_fused.packed_euler_flow(*inputs, dts, T, 1)
+    grads = torch.autograd.grad(zs.sum(), inputs)
+    assert ops.LAUNCHES['flow_fused_fwd'] == before + 2
+    assert ops.LAUNCHES['flow_fused_bwd'] == bwd + 1
+    ref = flow_fused.packed_flow_vjp_reference(
+        zs.detach(), torch.ones_like(zs), *packed, dts, T, 1)
+    _assert_cotangents(grads, (ref[0].sum(0),) + tuple(ref[1:-1]))
+
+
+def _assert_cotangents(out, ref):
+    for i, (a, b) in enumerate(zip(out, ref)):
+        assert a.shape == b.shape, (i, a.shape, b.shape)
+        err = float((a - b).abs().max())
+        assert err <= 1e-4 * (1.0 + float(b.abs().max())), (i, err)
+
+
+@pytest.mark.parametrize('order,N,L,uniform,z0_per_draw', [
+    (1, 20, 1, True, False), (1, 20, 5, True, False),
+    (1, 20, 5, True, True), (2, 20, 5, False, False),
+    (1, 300, 5, True, False)])
+def test_adjoint_kernel_matches_plain(cuda, order, N, L, uniform,
+                                      z0_per_draw):
+    """The adjoint kernel, through the autograd Function as the train step
+    runs it, against autograd through the plain version, at the shapes of
+    chip_smoke.py's kernel phase (z0 shared by the draws gets their
+    sum)."""
+    T = 16
+    z0, packed, gen = _packed(cuda, 6, order, N, L)
+    if z0_per_draw:
+        z0 = torch.randn((L,) + z0.shape, generator=gen, device=cuda)
+    dts = (torch.full((T - 1,), 0.1, device=cuda) if uniform else
+           torch.rand(T - 1, generator=gen, device=cuda) * 0.15 + 0.05)
+    inputs = [x.clone().requires_grad_() for x in (z0, *packed, dts)]
+    before = ops.LAUNCHES['flow_fused_bwd']
+    zs = flow_fused.packed_euler_flow(*inputs, T, order)
+    zsbar = torch.randn(zs.shape, generator=gen, device=cuda)
+    out = torch.autograd.grad(zs, inputs, zsbar)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES['flow_fused_bwd'] == before + 1
+    ref = list(flow_fused.packed_flow_vjp_reference(
+        zs.detach(), zsbar, *packed, dts, T, order))
+    if not z0_per_draw:
+        ref[0] = ref[0].sum(0)
+    _assert_cotangents(out, ref)
+    # the kernel's own wrapper, same arguments as the plain version
+    vjp = flow_fused.packed_flow_vjp(zs.detach(), zsbar, *packed, dts, T,
+                                     order)
+    _assert_cotangents(vjp, flow_fused.packed_flow_vjp_reference(
+        zs.detach(), zsbar, *packed, dts, T, order))
+
+
+def test_train_step_launches_each_kernel_once(cuda):
+    """One full-width train step (q=6, n_filt=8, S=256, M=100, batch 20,
+    T=16, L=5): one trajectory launch, one adjoint launch, finite
+    metrics."""
+    model, gp = init_model(0, device='cuda')
+    with torch.no_grad():       # main.py's --lengthscale 2.0 --variance 0.7
+        gp.kernel.unconstrained_lengthscales.fill_(
+            float(invsoftplus(torch.tensor(2.0))))
+        gp.kernel.unconstrained_variance.fill_(
+            float(invsoftplus(torch.tensor(0.7))))
+    state = trainer.create_train_state(model, gp)
+    step = trainer.make_train_step(360.0, eps_guard=True)
+    X = (torch.rand(20, 16, 1, 28, 28, generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda) - 0.1307) / 0.3081
+    before = dict(ops.LAUNCHES)
+    metrics = step(state, X, 5)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES['flow_fused_fwd'] == before['flow_fused_fwd'] + 1
+    assert ops.LAUNCHES['flow_fused_bwd'] == before['flow_fused_bwd'] + 1
+    assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
+    assert int(state.step) == 1 and int(metrics['nfe']) == 5 * 15
 
 
 def test_forecaster_runs_through_the_kernel(cuda):

@@ -186,3 +186,137 @@ def test_packed_wrapper_rejects_mixed_devices():
     meta = torch.zeros(N, Q, device='meta')
     with pytest.raises(ValueError, match='unsupported device'):
         tff.packed_euler_flow(meta, *packed, dts, T, 1)
+
+
+# -- the backward: the port's plain adjoint against the JAX Pallas kernel #2
+# (interpret mode); tolerance 1e-5 of each cotangent's largest entry: f32
+# sums over N rows, 7 steps and K*S columns taken in different orders
+
+_VJP_NAMES = ('z0', 'omf', 'phf', 'ws', 'Zb', 'zn', 'il2', 'nus', 'dts')
+
+
+def _assert_cotangents(mine, ref, rel=1e-5):
+    assert len(mine) == len(ref) == len(_VJP_NAMES)
+    for name, a, b in zip(_VJP_NAMES, mine, ref):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape, (name, a.shape, b.shape)
+        tol = rel * max(np.abs(b).max(), 1e-30)
+        err = np.abs(a - b).max()
+        assert err <= tol, f'{name}: max err {err:.3e} > {tol:.3e}'
+
+
+def _packed_case(seed, order, uniform, lead=()):
+    rng = np.random.default_rng(seed)
+    args = _operands(rng, order, lead=lead)
+    dts = _dts(rng, uniform)
+    packed = [p.numpy() for p in tff._pack_operands(*_t(args[1:]))]
+    return rng, args[0], packed, dts
+
+
+def _jax_vjp(z0, packed, dts, zsbar, order):
+    _, vjp = jax.vjp(
+        lambda *a: jff.packed_euler_flow(*a, T, order, True),
+        *map(jnp.asarray, [z0] + list(packed) + [dts]))
+    return vjp(jnp.asarray(zsbar))
+
+
+@pytest.mark.parametrize('order', [1, 2])
+@pytest.mark.parametrize('uniform', [True, False])
+def test_flow_vjp_reference_matches_jax_kernel(order, uniform):
+    rng, z0, packed, dts = _packed_case(60 + 10 * order + uniform, order,
+                                        uniform)
+    zs = tff.packed_flow_reference(*_t([z0] + packed + [dts]), T, order)
+    zsbar = rng.standard_normal(zs.shape).astype(np.float32)
+    mine = tff.packed_flow_vjp_reference(
+        zs, torch.as_tensor(zsbar), *_t(packed + [dts]), T, order)
+    _assert_cotangents(mine, _jax_vjp(z0, packed, dts, zsbar, order))
+
+
+@pytest.mark.parametrize('order', [1, 2])
+def test_flow_vjp_reference_matches_jax_tiled_slabs(order, monkeypatch):
+    """The JAX kernel's grid-tiled variant (one cotangent slab per batch
+    tile, summed by its wrapper; N=5 in tiles of 2 with a padded row)."""
+    monkeypatch.setattr(jff, '_SINGLE_BLOCK_N', 2)
+    monkeypatch.setattr(jff, '_TILE_N', 2)
+    rng, z0, packed, dts = _packed_case(80 + order, order, False)
+    zs = tff.packed_flow_reference(*_t([z0] + packed + [dts]), T, order)
+    zsbar = rng.standard_normal(zs.shape).astype(np.float32)
+    mine = tff.packed_flow_vjp_reference(
+        zs, torch.as_tensor(zsbar), *_t(packed + [dts]), T, order)
+    _assert_cotangents(mine, _jax_vjp(z0, packed, dts, zsbar, order))
+
+
+def test_flow_vjp_over_draws_sums_shared_operands():
+    """L draws in one call: per-draw operands get per-draw cotangents, the
+    operands all draws share (Zb, zn, il2, dts) get the sum of the
+    per-draw JAX cotangents, and z0bar comes out per draw."""
+    order = 1
+    rng, z0, packed, dts = _packed_case(90, order, False, lead=(L,))
+    zs = tff.packed_flow_reference(*_t([z0] + packed + [dts]), T, order)
+    assert zs.shape == (L, T, N, Q)
+    zsbar = rng.standard_normal(zs.shape).astype(np.float32)
+    mine = tff.packed_flow_vjp_reference(
+        zs, torch.as_tensor(zsbar), *_t(packed + [dts]), T, order)
+    per_draw = [_jax_vjp(z0, [p[l] if p.ndim == 3 else p for p in packed],
+                         dts, zsbar[l], order) for l in range(L)]
+    ref = []
+    for i, name in enumerate(_VJP_NAMES):
+        if name in ('z0', 'omf', 'phf', 'ws', 'nus'):
+            ref.append(np.stack([np.asarray(c[i]) for c in per_draw]))
+        else:
+            ref.append(sum(np.asarray(c[i]) for c in per_draw))
+    _assert_cotangents(mine, ref)
+
+
+@pytest.mark.parametrize('lead', [(), (L,)])
+def test_slab_split_matches_the_adjoint(lead):
+    """The CUDA wrapper's reduction (`_split_slabs`) on slabs laid out as
+    csrc/flow_fused_bwd.cu writes them - one per (draw, row tile) - built
+    here from the plain adjoint of each tile's rows, gives the plain
+    adjoint of the whole batch."""
+    order, tile = 2, 2
+    rng, z0, packed, dts = _packed_case(95, order, False, lead=lead)
+    packed = _t(packed)
+    dts = torch.as_tensor(dts)
+    zs = tff.packed_flow_reference(torch.as_tensor(z0), *packed, dts, T,
+                                   order)
+    zs4 = zs.reshape((-1,) + zs.shape[-3:])
+    zsbar = torch.as_tensor(
+        rng.standard_normal(zs4.shape).astype(np.float32))
+    slabs = []
+    for l in range(zs4.shape[0]):
+        ops_l = [p[l] if p.dim() == 3 and p.shape[0] > 1 else p
+                 for p in packed]
+        tiles = []
+        for r in range(0, N, tile):
+            bars = tff.packed_flow_vjp_reference(
+                zs4[l, :, r:r + tile], zsbar[l, :, r:r + tile], *ops_l,
+                dts, T, order)[1:]
+            tiles.append(torch.cat([b.reshape(-1) for b in bars]))
+        slabs.append(torch.stack(tiles))
+    split = tff._split_slabs(torch.stack(slabs).sum(dim=1), packed, dts)
+    ref = tff.packed_flow_vjp_reference(zs4, zsbar, *packed, dts, T, order)
+    _assert_cotangents((ref[0],) + split, ref)
+
+
+def test_cpu_autograd_and_vjp_take_the_plain_version():
+    """On CPU tensors, autograd through packed_euler_flow and
+    packed_flow_vjp both give packed_flow_vjp_reference, launching
+    nothing."""
+    order = 1
+    rng, z0, packed, dts = _packed_case(97, order, True, lead=(L,))
+    inputs = [torch.as_tensor(x).requires_grad_()
+              for x in [z0] + packed + [dts]]
+    before = dict(ops.LAUNCHES)
+    zs = tff.packed_euler_flow(*inputs, T, order)
+    zsbar = torch.as_tensor(rng.standard_normal(zs.shape).astype(np.float32))
+    grads = torch.autograd.grad(zs, inputs, zsbar)
+    vjp = tff.packed_flow_vjp(zs.detach(), zsbar, *_t(packed + [dts]), T,
+                              order)
+    assert ops.LAUNCHES == before
+    ref = tff.packed_flow_vjp_reference(zs.detach(), zsbar,
+                                        *_t(packed + [dts]), T, order)
+    # z0 is shared by the draws: its cotangent is their sum
+    _assert_cotangents(grads, (ref[0].sum(0),) + tuple(ref[1:]), rel=1e-6)
+    for a, b in zip(vjp, ref):
+        assert torch.equal(a, b)

@@ -54,6 +54,10 @@ def test_no_forbidden_import_statements():
 def test_every_module_imports_with_jax_blocked():
     """Import every module of the port and chip_smoke.py in a fresh
     interpreter where importing jax, flax or the JAX package fails."""
+    for mod in ('main', 'data.mnist', 'data.synthetic', 'training.trainer',
+                'training.checkpoint', 'training.meters', 'ops.flow_fused',
+                'utils.jax_import'):
+        assert f'vae_gp_ode_tpu_torch.{mod}' in _port_modules()
     code = (
         'import sys\n'
         f'for name in {FORBIDDEN!r}:\n'
@@ -78,7 +82,7 @@ def test_cuda_sources_are_plain_cuda():
     torch.utils.cpp_extension."""
     csrc = os.path.join(PKG, 'csrc')
     sources = [f for f in os.listdir(csrc) if f.endswith(('.cu', '.cuh'))]
-    assert 'flow_fused.cu' in sources
+    assert {'flow_fused.cu', 'flow_fused_bwd.cu'} <= set(sources)
     for fn in sources:
         with open(os.path.join(csrc, fn)) as f:
             text = f.read()

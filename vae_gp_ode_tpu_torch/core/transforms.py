@@ -1,7 +1,6 @@
 """Constrained <-> unconstrained parameter transforms (port of
 `vae_gp_ode_tpu/core/transforms.py`)."""
 
-import numpy as np
 import torch
 
 from vae_gp_ode_tpu_torch.core.settings import SOFTPLUS_LOWER
@@ -21,17 +20,18 @@ def invsoftplus(y):
     return ys + torch.log(-torch.expm1(-ys))
 
 
-def tril_indices(n):
+def tril_indices(n, device=None):
     """Row/col indices of the lower triangle, `np.tril_indices` row-major
-    order (the packing order of the reference and the JAX package)."""
-    rows, cols = np.tril_indices(n)
-    return torch.as_tensor(rows), torch.as_tensor(cols)
+    order (the packing order of the reference and the JAX package), made
+    on `device` (no copy from the host)."""
+    rows, cols = torch.tril_indices(n, n, device=device)
+    return rows, cols
 
 
 def unpack_tril(v, n):
     """Unpack `(..., n(n+1)/2)` packed vectors into `(..., n, n)`
     lower-triangular matrices."""
-    rows, cols = tril_indices(n)
+    rows, cols = tril_indices(n, v.device)
     out = v.new_zeros(v.shape[:-1] + (n, n))
     out[..., rows, cols] = v
     return out
@@ -39,5 +39,5 @@ def unpack_tril(v, n):
 
 def pack_tril(m):
     """Pack `(..., n, n)` lower-triangular matrices into `(..., n(n+1)/2)`."""
-    rows, cols = tril_indices(m.shape[-1])
+    rows, cols = tril_indices(m.shape[-1], m.device)
     return m[..., rows, cols]

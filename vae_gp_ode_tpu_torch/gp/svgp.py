@@ -59,6 +59,40 @@ class SVGPParams:
             inducing_loc=self.inducing_loc.to(device),
             Um=self.Um.to(device), Us_sqrt=self.Us_sqrt.to(device))
 
+    #: leaf names in the JAX pytree's leaf order
+    LEAVES = ('kernel.unconstrained_lengthscales',
+              'kernel.unconstrained_variance', 'inducing_loc', 'Um',
+              'Us_sqrt')
+
+    def parameters(self):
+        """The trainable leaves in the JAX pytree's leaf order (`LEAVES`),
+        so optimiser and checkpoint order are fixed."""
+        return [self.kernel.unconstrained_lengthscales,
+                self.kernel.unconstrained_variance, self.inducing_loc,
+                self.Um, self.Us_sqrt]
+
+    def named_parameters(self):
+        return list(zip(self.LEAVES, self.parameters()))
+
+    def detach(self):
+        """A copy whose leaves are detached clones (new leaf tensors)."""
+        return dataclasses.replace(
+            self, kernel=dataclasses.replace(
+                self.kernel,
+                unconstrained_lengthscales=(
+                    self.kernel.unconstrained_lengthscales.detach().clone()),
+                unconstrained_variance=(
+                    self.kernel.unconstrained_variance.detach().clone())),
+            inducing_loc=self.inducing_loc.detach().clone(),
+            Um=self.Um.detach().clone(),
+            Us_sqrt=self.Us_sqrt.detach().clone())
+
+    def requires_grad_(self, requires_grad=True):
+        """Set requires_grad on every leaf in place; returns self."""
+        for p in self.parameters():
+            p.requires_grad_(requires_grad)
+        return self
+
 
 @dataclasses.dataclass
 class FnSample:

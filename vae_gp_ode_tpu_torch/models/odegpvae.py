@@ -119,45 +119,80 @@ class ODEGPVAE(nn.Module):
         return self.decode(ztL), s_stats, v_stats, nfe
 
 
-def _init_weights(model, rng):
-    """Overwrite every parameter and BatchNorm statistic with draws from
-    the numpy Generator `rng`, at scales that keep activations O(1)."""
+#: std of a standard normal truncated to [-2, 2] (flax's lecun_normal
+#: divides by it so the truncated draw keeps variance 1/fan_in)
+_TRUNC_STD = 0.87962566103423978
+
+
+def _truncated_normal(rng, shape, std):
+    """Normal(0, std^2) draws truncated to two standard deviations and
+    rescaled to keep std (jax.nn.initializers.variance_scaling with
+    'truncated_normal')."""
+    x = rng.standard_normal(shape)
+    bad = np.abs(x) > 2.0
+    while bad.any():
+        x[bad] = rng.standard_normal(int(bad.sum()))
+        bad = np.abs(x) > 2.0
+    return x * (std / _TRUNC_STD)
+
+
+def _fan_in(mod):
+    """Fan-in of the flax kernel that `mod` stands for: flax Conv and
+    ConvTranspose kernels are (kH, kW, in, out), Dense (in, out)."""
+    w = mod.weight
+    if isinstance(mod, nn.ConvTranspose2d):          # (in, out, kH, kW)
+        return w.shape[0] * w.shape[2] * w.shape[3]
+    return w[0].numel()                              # (out, in[, kH, kW])
+
+
+def _init_weights(model, rng, random_bn=False):
+    """Initialise the VAE as flax's defaults do: lecun_normal kernels
+    (truncated normal, variance 1/fan_in), zero biases, BatchNorm scale 1,
+    bias 0, running mean 0 and variance 1. With `random_bn`, BatchNorm
+    scale, bias and running statistics are drawn instead (scale ~1, bias
+    and mean ~0, variance 0.5..1.5), so eval-mode BatchNorm is not the
+    identity. Draws come from the numpy Generator `rng`."""
     for mod in model.modules():
         if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             w = mod.weight
-            fan_in = w[0].numel()
-            if isinstance(mod, nn.ConvTranspose2d):
-                fan_in = w.shape[0] * w[0, 0].numel() / mod.stride[0] ** 2
             with torch.no_grad():
-                w.copy_(torch.as_tensor(
-                    rng.standard_normal(w.shape) / np.sqrt(fan_in)))
-                mod.bias.copy_(torch.as_tensor(
-                    rng.standard_normal(mod.bias.shape) * 0.1))
+                w.copy_(torch.as_tensor(_truncated_normal(
+                    rng, tuple(w.shape), 1.0 / np.sqrt(_fan_in(mod)))))
+                mod.bias.zero_()
         elif isinstance(mod, nn.BatchNorm2d):
             C = mod.num_features
             with torch.no_grad():
-                mod.weight.copy_(torch.as_tensor(
-                    1.0 + 0.1 * rng.standard_normal(C)))
-                mod.bias.copy_(torch.as_tensor(0.1 * rng.standard_normal(C)))
-                mod.running_mean.copy_(torch.as_tensor(
-                    0.1 * rng.standard_normal(C)))
-                mod.running_var.copy_(torch.as_tensor(
-                    rng.uniform(0.5, 1.5, C)))
+                if random_bn:
+                    mod.weight.copy_(torch.as_tensor(
+                        1.0 + 0.1 * rng.standard_normal(C)))
+                    mod.bias.copy_(torch.as_tensor(
+                        0.1 * rng.standard_normal(C)))
+                    mod.running_mean.copy_(torch.as_tensor(
+                        0.1 * rng.standard_normal(C)))
+                    mod.running_var.copy_(torch.as_tensor(
+                        rng.uniform(0.5, 1.5, C)))
+                else:
+                    mod.reset_parameters()
 
 
 def init_model(seed=0, *, latent_dim=6, n_filt=8, order=1, frames=5,
                dt=0.1, num_features=256, num_inducing=100, q_diag=False,
-               lengthscale=0.2, variance=0.1, device='cuda'):
-    """Build (model, gp) at the given widths with random weights and a
-    random dimwise-RBF GP drawn from numpy with `seed`, wired as the
-    reference wires it: the GP maps q*order inputs to q outputs.
+               lengthscale=0.2, variance=0.1, random_bn=False,
+               device='cuda'):
+    """Build (model, gp) as the JAX package's `init_model` does, from the
+    numpy seed `seed`: flax-default VAE initialisers (see `_init_weights`;
+    `random_bn=True` draws non-trivial BatchNorm statistics), and a
+    dimwise-RBF GP that maps q*order inputs to q outputs with
+    inducing_loc ~ N(0, 1), Um ~ 0.1 N(0, 1), Us_sqrt = 1e-3 I and the
+    kernel at `lengthscale`/`variance` (the JAX package's 0.2/0.1; the
+    training CLI then sets its own, as `main.py` does).
     """
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     model = ODEGPVAE(latent_dim=latent_dim, n_filt=n_filt, order=order,
                      frames=frames, dt=dt, num_features=num_features,
                      device='cpu')
-    _init_weights(model, rng)
+    _init_weights(model, rng, random_bn=random_bn)
     gp = init_svgp_params(rng, latent_dim * order, latent_dim, num_inducing,
                           q_diag=q_diag, lengthscale=lengthscale,
                           variance=variance)

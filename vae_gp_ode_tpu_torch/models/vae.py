@@ -13,14 +13,42 @@ ConvT(8nf, k3, s1, p0) -> 6, ConvT(4nf, k5, s2, p1) -> 13,
 ConvT(2nf, k5, s2, p1, output_padding 1) -> 28, ConvT(1, k5, s1, p2) -> 28,
 sigmoid; BatchNorm+ReLU between the deconvolutions.
 
-BatchNorm: torch momentum 0.1 (flax 0.9), eps 1e-5. Eval mode
-(`module.eval()`) normalises with the running statistics.
+BatchNorm (`BatchNorm2d` below): flax's `nn.BatchNorm(momentum=0.9,
+epsilon=1e-5)`. Train mode normalises with the batch's biased variance and
+moves the running statistics 0.1 of the way to the batch mean and the
+biased batch variance (torch's own BatchNorm2d puts the unbiased variance
+there); eval mode (`module.eval()`) normalises with the running
+statistics.
 """
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from vae_gp_ode_tpu_torch.core.settings import BERNOULLI_EPS
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` (same parameters, buffers and eval mode) whose
+    train mode updates `running_var` with the biased batch variance, as
+    flax does. The update runs in place under no_grad, also for
+    `torch.no_grad()` callers (the per-epoch monitoring eval).
+    `num_batches_tracked` stays 0: with a fixed momentum nothing reads it,
+    and flax keeps no such count."""
+
+    def __init__(self, num_features):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        return y
 
 
 class Encoder(nn.Module):
@@ -28,8 +56,8 @@ class Encoder(nn.Module):
         super().__init__()
         nf = n_filt
         self.cnn = nn.Sequential(
-            nn.Conv2d(frames, nf, 5, 2, 2), nn.BatchNorm2d(nf), nn.ReLU(),
-            nn.Conv2d(nf, nf * 2, 5, 2, 2), nn.BatchNorm2d(nf * 2),
+            nn.Conv2d(frames, nf, 5, 2, 2), BatchNorm2d(nf), nn.ReLU(),
+            nn.Conv2d(nf, nf * 2, 5, 2, 2), BatchNorm2d(nf * 2),
             nn.ReLU(),
             nn.Conv2d(nf * 2, nf * 4, 5, 2, 2), nn.ReLU(), nn.Flatten())
         self.fc = nn.Linear(nf * 4 ** 3, 2 * latent_dim)
@@ -48,11 +76,11 @@ class Decoder(nn.Module):
         self.decnn = nn.Sequential(
             nn.Unflatten(1, (nf * 4, 4, 4)),
             nn.ConvTranspose2d(nf * 4, nf * 8, 3, 1, 0),
-            nn.BatchNorm2d(nf * 8), nn.ReLU(),
+            BatchNorm2d(nf * 8), nn.ReLU(),
             nn.ConvTranspose2d(nf * 8, nf * 4, 5, 2, 1),
-            nn.BatchNorm2d(nf * 4), nn.ReLU(),
+            BatchNorm2d(nf * 4), nn.ReLU(),
             nn.ConvTranspose2d(nf * 4, nf * 2, 5, 2, 1, output_padding=1),
-            nn.BatchNorm2d(nf * 2), nn.ReLU(),
+            BatchNorm2d(nf * 2), nn.ReLU(),
             nn.ConvTranspose2d(nf * 2, 1, 5, 1, 2), nn.Sigmoid())
 
     def forward(self, z):

@@ -1,5 +1,6 @@
 """Whole euler trajectory of the dimwise-RBF pathwise GP sample in one
-CUDA kernel (port of the forward of `vae_gp_ode_tpu/ops/flow_fused.py`).
+CUDA kernel, and its discrete adjoint in another (port of
+`vae_gp_ode_tpu/ops/flow_fused.py`).
 
 The per-output-dim operands are packed k-major (`_pack_operands`) so each
 euler step is five products on flat operands:
@@ -16,10 +17,11 @@ L draws (or be shared by all draws): one launch integrates all L
 Monte-Carlo trajectories, as the JAX package's vmap over `pallas_call`
 does.
 
-`packed_euler_flow` launches `csrc/flow_fused.cu` for CUDA tensors and
-computes `packed_flow_reference`, its plain PyTorch version, for CPU
-tensors. It has no backward yet (the discrete-adjoint kernel is ROADMAP
-Queue B): on CUDA it refuses inputs that require grad.
+`packed_euler_flow` launches `csrc/flow_fused.cu` for CUDA tensors inside
+a `torch.autograd.Function` whose backward launches
+`csrc/flow_fused_bwd.cu` (`packed_flow_vjp`); CPU tensors take the plain
+versions, `packed_flow_reference` and autograd through it
+(`packed_flow_vjp_reference`).
 """
 
 import ctypes
@@ -35,10 +37,19 @@ SOURCE = 'vae_gp_ode_tpu_torch/csrc/flow_fused.cu'
 #: the TPU kernel this one replaces
 REPLACES = 'vae_gp_ode_tpu/ops/flow_fused.py:116'
 
+BWD_KERNEL = 'flow_fused_bwd'
+BWD_SOURCE = 'vae_gp_ode_tpu_torch/csrc/flow_fused_bwd.cu'
+BWD_REPLACES = 'vae_gp_ode_tpu/ops/flow_fused.py:284'
+#: the backward kernel keeps per-row partials in registers up to this D
+BWD_MAX_D = 16
+
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _ARGTYPES = ([_P, _LL] * 8 + [_P, _P] + [_I] * 9 + [_P])
+_BWD_ARGTYPES = ([_P, _P] + [_P, _LL] * 7 + [_P, _P, _P] + [_I] * 9 + [_P])
+
+_NAMES = ('omf', 'phf', 'ws', 'Zb', 'zn', 'il2', 'nus')
 
 
 def euler_flow_reference(z0, omega, phase, weights, Z, nu, ls, var, dt,
@@ -83,7 +94,7 @@ def _pack_operands(omega, phase, weights, Z, nu, ls, var):
     Zb = (Z[None, :, :] * inv_ls2[:, None, :]).reshape(K * M, D).T
     zn = torch.sum((Z[None, :, :] / ls[:, None, :]) ** 2,
                    dim=2).reshape(1, K * M)
-    il2 = torch.repeat_interleave(inv_ls2, M, dim=0).T             # (D, K*M)
+    il2 = inv_ls2[:, None, :].expand(K, M, D).reshape(K * M, D).T  # (D, KM)
     nus = (nu * var[:, None]).reshape(nu.shape[:-2] + (1, K * M))
     return tuple(x.contiguous() for x in (omf, phf, ws, Zb, zn, il2, nus))
 
@@ -127,47 +138,44 @@ def packed_flow_reference(z0, omf, phf, ws, Zb, zn, il2, nus, dts, T,
     return torch.stack(zs, dim=-3)
 
 
-def _kernel():
-    fn = _build.load('flow_fused').flow_fused_fwd
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+def packed_flow_vjp_reference(zs, zsbar, omf, phf, ws, Zb, zn, il2, nus,
+                              dts, T, order=1):
+    """Plain version of the backward kernel: autograd through
+    :func:`packed_flow_reference` from z0 = zs[..., 0, :, :].
+
+    Returns (z0bar, omfbar, phfbar, wsbar, Zbbar, znbar, il2bar, nusbar,
+    dtsbar): z0bar in zs[..., 0, :, :]'s shape (one per draw), the others
+    in their operands' shapes (summed over the draws an operand is shared
+    by).
+    """
+    with torch.enable_grad():
+        z0 = zs[..., 0, :, :].detach().requires_grad_()
+        inputs = [z0] + [x.detach().requires_grad_() for x in (
+            omf, phf, ws, Zb, zn, il2, nus, dts)]
+        out = packed_flow_reference(*inputs, T, order)
+        return torch.autograd.grad(out, inputs, zsbar)
 
 
-def _launch(z0, omf, phf, ws, Zb, zn, il2, nus, dts, T, order):
-    args = (z0, omf, phf, ws, Zb, zn, il2, nus)
-    names = ('z0', 'omf', 'phf', 'ws', 'Zb', 'zn', 'il2', 'nus')
-    device = z0.device
-    for name, x in zip(names + ('dts',), args + (dts,)):
-        if x.device != device:
-            raise ValueError(f'{name} is on {x.device}, z0 on {device}')
-        if x.dtype != torch.float32:
-            raise TypeError(f'{name} must be float32, got {x.dtype}')
-        if not x.is_contiguous():
-            raise ValueError(f'{name} must be contiguous')
-    if torch.is_grad_enabled() and any(
-            x.requires_grad for x in args + (dts,)):
-        raise NotImplementedError(
-            'the backward of the fused trajectory kernel is not ported yet '
-            '(ROADMAP Queue B, kernel #2); run it under torch.no_grad()')
+def _check(z0_shape, operands, dts, T, order):
+    """Validate packed operands against a state of shape z0_shape
+    (..., N, D). Returns (L, N, D, K, S, M, draw strides)."""
     if order not in (1, 2):
         raise ValueError(f'ODE order must be 1 or 2, got {order}')
-
-    N, D = z0.shape[-2:]
+    N, D = z0_shape[-2:]
     K = D // order
     if K * order != D:
         raise ValueError(f'order {order} needs an even state dim, got {D}')
+    omf, phf, ws, Zb, zn, il2, nus = operands
     if ws.shape[-1] % K or nus.shape[-1] % K:
         raise ValueError('ws/nus widths must be multiples of K')
     S, M = ws.shape[-1] // K, nus.shape[-1] // K
-    base = {'z0': (N, D), 'omf': (D, K * S), 'phf': (1, K * S),
-            'ws': (1, K * S), 'Zb': (D, K * M), 'zn': (1, K * M),
-            'il2': (D, K * M), 'nus': (1, K * M)}
-    lead = [x.shape[0] for x in args if x.dim() == 3]
-    L = max(lead, default=1)
+    base = {'omf': (D, K * S), 'phf': (1, K * S), 'ws': (1, K * S),
+            'Zb': (D, K * M), 'zn': (1, K * M), 'il2': (D, K * M),
+            'nus': (1, K * M)}
+    lead = [x.shape[0] for x in operands if x.dim() == 3]
+    L = max(lead + ([z0_shape[0]] if len(z0_shape) == 3 else []), default=1)
     strides = []
-    for name, x in zip(names, args):
+    for name, x in zip(_NAMES, operands):
         shape = tuple(x.shape[-2:])
         if shape != base[name] or x.dim() not in (2, 3) or (
                 x.dim() == 3 and x.shape[0] not in (1, L)):
@@ -178,19 +186,150 @@ def _launch(z0, omf, phf, ws, Zb, zn, il2, nus, dts, T, order):
     if tuple(dts.shape) != (T - 1,):
         raise ValueError(f'dts has shape {tuple(dts.shape)}, expected '
                          f'({T - 1},)')
+    return L, N, D, K, S, M, strides
+
+
+def _check_tensors(device, named):
+    for name, x in named:
+        if x.device != device:
+            raise ValueError(f'{name} is on {x.device}, z0 on {device}')
+        if x.dtype != torch.float32:
+            raise TypeError(f'{name} must be float32, got {x.dtype}')
+        if not x.is_contiguous():
+            raise ValueError(f'{name} must be contiguous')
+
+
+def _kernel():
+    fn = _build.load('flow_fused').flow_fused_fwd
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_lib():
+    lib = _build.load('flow_fused_bwd')
+    if lib.flow_fused_bwd.argtypes is None:
+        lib.flow_fused_bwd.argtypes = _BWD_ARGTYPES
+        lib.flow_fused_bwd.restype = ctypes.c_int
+        lib.flow_fused_bwd_slab_floats.argtypes = [_I] * 5
+        lib.flow_fused_bwd_slab_floats.restype = ctypes.c_longlong
+        lib.flow_fused_bwd_rows.argtypes = []
+        lib.flow_fused_bwd_rows.restype = ctypes.c_int
+    return lib
+
+
+def _launch(z0, omf, phf, ws, Zb, zn, il2, nus, dts, T, order):
+    """Launch the trajectory kernel; returns zs (L, T, N, D)."""
+    operands = (omf, phf, ws, Zb, zn, il2, nus)
+    _check_tensors(z0.device, zip(('z0',) + _NAMES + ('dts',),
+                                  (z0,) + operands + (dts,)))
+    L, N, D, K, S, M, strides = _check(z0.shape, operands, dts, T, order)
+    if z0.dim() not in (2, 3) or (z0.dim() == 3 and z0.shape[0] not in (1,
+                                                                        L)):
+        raise ValueError(f'z0 has shape {tuple(z0.shape)}, expected '
+                         f'([L or 1,] {N}, {D})')
+    z0_ls = N * D if z0.dim() == 3 and z0.shape[0] == L and L > 1 else 0
 
     fn = _kernel()
-    zs = torch.empty((L, T, N, D), dtype=torch.float32, device=device)
-    flat = []
-    for x, ls in zip(args, strides):
+    zs = torch.empty((L, T, N, D), dtype=torch.float32, device=z0.device)
+    flat = [z0.data_ptr(), z0_ls]
+    for x, ls in zip(operands, strides):
         flat += [x.data_ptr(), ls]
-    stream = torch.cuda.current_stream(device).cuda_stream
+    stream = torch.cuda.current_stream(z0.device).cuda_stream
     rc = fn(*flat, dts.data_ptr(), zs.data_ptr(), L, N, D, K, S, M, T,
-            order, device.index, stream)
+            order, z0.device.index, stream)
     if rc != 0:
         raise RuntimeError(f'{KERNEL} launch failed: CUDA error {rc}')
     ops.LAUNCHES[KERNEL] += 1
-    return zs if lead else zs[0]
+    return zs
+
+
+def _launch_bwd(zs, zsbar, operands, dts, T, order):
+    """Launch the adjoint kernel on zs, zsbar (L, T, N, D). Returns z0bar
+    (L, N, D) and the cotangents of `operands` and dts, each in its
+    operand's shape."""
+    device = zs.device
+    _check_tensors(device, zip(('zs', 'zsbar') + _NAMES + ('dts',),
+                               (zs, zsbar) + tuple(operands) + (dts,)))
+    L, N, D, K, S, M, strides = _check(zs.shape[:1] + zs.shape[2:],
+                                       operands, dts, T, order)
+    if zs.shape != (L, T, N, D) or zsbar.shape != zs.shape:
+        raise ValueError(f'zs {tuple(zs.shape)} and zsbar '
+                         f'{tuple(zsbar.shape)} must be ({L}, {T}, {N}, '
+                         f'{D})')
+    if D > BWD_MAX_D:
+        raise NotImplementedError(
+            f'the backward kernel takes state dims up to {BWD_MAX_D}, got '
+            f'{D}')
+
+    lib = _bwd_lib()
+    P = lib.flow_fused_bwd_slab_floats(D, K, S, M, T)
+    rows = lib.flow_fused_bwd_rows()
+    n_tiles = -(-N // rows)
+    z0bar = torch.empty((L, N, D), dtype=torch.float32, device=device)
+    slab = torch.empty((L, n_tiles, P), dtype=torch.float32, device=device)
+    flat = [zs.data_ptr(), zsbar.data_ptr()]
+    for x, ls in zip(operands, strides):
+        flat += [x.data_ptr(), ls]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = lib.flow_fused_bwd(*flat, dts.data_ptr(), z0bar.data_ptr(),
+                            slab.data_ptr(), L, N, D, K, S, M, T, order,
+                            device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f'{BWD_KERNEL} launch failed: CUDA error {rc} '
+                           f'(L={L} N={N} D={D} K={K} S={S} M={M} T={T})')
+    ops.LAUNCHES[BWD_KERNEL] += 1
+    return (z0bar,) + _split_slabs(slab.sum(dim=1), operands, dts)
+
+
+def _split_slabs(per_draw, operands, dts):
+    """Cut the (L, P) tile-summed slabs into the operands' cotangents,
+    laid out [omf | phf | ws | Zb | zn | il2 | nus | dts] as in
+    csrc/flow_fused_bwd.cu, summing over the draws an operand is shared
+    by."""
+    L = per_draw.shape[0]
+    out, o = [], 0
+    for x in tuple(operands) + (dts,):
+        inner = x.shape[-2:] if x.dim() >= 2 else x.shape
+        n = inner.numel()
+        part = per_draw[:, o:o + n].reshape((L,) + tuple(inner))
+        o += n
+        if x.dim() == 3 and x.shape[0] == L:
+            out.append(part)
+        else:
+            out.append(part.sum(dim=0).reshape(x.shape))
+    if o != per_draw.shape[1]:
+        raise AssertionError(f'slab holds {per_draw.shape[1]} floats, '
+                             f'operands {o}')
+    return tuple(out)
+
+
+class _PackedEulerFlow(torch.autograd.Function):
+    """The trajectory kernel with the adjoint kernel as its backward."""
+
+    @staticmethod
+    def forward(ctx, z0, omf, phf, ws, Zb, zn, il2, nus, dts, T, order):
+        zs = _launch(z0, omf, phf, ws, Zb, zn, il2, nus, dts, T, order)
+        ctx.save_for_backward(zs, omf, phf, ws, Zb, zn, il2, nus, dts)
+        ctx.T, ctx.order, ctx.z0_shape = T, order, z0.shape
+        lead = z0.dim() == 3 or any(
+            x.dim() == 3 for x in (omf, phf, ws, Zb, zn, il2, nus))
+        ctx.lead = lead
+        return zs if lead else zs[0]
+
+    @staticmethod
+    def backward(ctx, zsbar):
+        zs, *operands, dts = ctx.saved_tensors
+        zsbar = zsbar.reshape(zs.shape).contiguous()
+        z0bar, *bars = _launch_bwd(zs, zsbar, operands, dts, ctx.T,
+                                   ctx.order)
+        if z0bar.shape != ctx.z0_shape:          # z0 shared by the draws
+            z0bar = z0bar.sum(dim=0).reshape(ctx.z0_shape)
+        grads = [z0bar] + bars
+        grads = [g if need else None
+                 for g, need in zip(grads, ctx.needs_input_grad)]
+        return (*grads, None, None)
 
 
 def packed_euler_flow(z0, omf, phf, ws, Zb, zn, il2, nus, dts, T, order=1):
@@ -198,8 +337,9 @@ def packed_euler_flow(z0, omf, phf, ws, Zb, zn, il2, nus, dts, T, order=1):
     dts (T-1,). Returns zs (L, T, N, D), or (T, N, D) when no operand has
     a leading dim of draws.
 
-    CUDA tensors launch the kernel; CPU tensors take the plain version.
-    Anything else raises.
+    CUDA tensors launch the trajectory kernel, and reverse mode launches
+    the adjoint kernel; CPU tensors take the plain version and autograd
+    through it. Anything else raises.
     """
     tensors = (z0, omf, phf, ws, Zb, zn, il2, nus, dts)
     if all(x.device.type == 'cpu' for x in tensors):
@@ -207,7 +347,27 @@ def packed_euler_flow(z0, omf, phf, ws, Zb, zn, il2, nus, dts, T, order=1):
                                      dts, T, order)
     if z0.device.type != 'cuda':
         raise ValueError(f'unsupported device {z0.device}')
-    return _launch(z0, omf, phf, ws, Zb, zn, il2, nus, dts, T, order)
+    return _PackedEulerFlow.apply(z0, omf, phf, ws, Zb, zn, il2, nus, dts,
+                                  T, order)
+
+
+def packed_flow_vjp(zs, zsbar, omf, phf, ws, Zb, zn, il2, nus, dts, T,
+                    order=1):
+    """The backward of :func:`packed_euler_flow` as a function: the
+    cotangents of :func:`packed_flow_vjp_reference` (same arguments, same
+    outputs). CUDA tensors launch the adjoint kernel; CPU tensors take
+    the plain version."""
+    tensors = (zs, zsbar, omf, phf, ws, Zb, zn, il2, nus, dts)
+    if all(x.device.type == 'cpu' for x in tensors):
+        return packed_flow_vjp_reference(zs, zsbar, omf, phf, ws, Zb, zn,
+                                         il2, nus, dts, T, order)
+    if zs.device.type != 'cuda':
+        raise ValueError(f'unsupported device {zs.device}')
+    lead = zs.dim() == 4
+    zs4 = zs if lead else zs[None]
+    z0bar, *bars = _launch_bwd(zs4, zsbar.reshape(zs4.shape), (
+        omf, phf, ws, Zb, zn, il2, nus), dts, T, order)
+    return (z0bar if lead else z0bar[0],) + tuple(bars)
 
 
 def fused_euler_flow(z0, omega, phase, weights, Z, nu, ls, var, dt, T,
@@ -217,6 +377,7 @@ def fused_euler_flow(z0, omega, phase, weights, Z, nu, ls, var, dt, T,
     z0 (N, D) or (L, N, D); draw operands omega (..., D, S, K), phase
     (..., 1, S, K), weights (..., S, K), nu (..., K, M); GP operands
     Z (M, D), ls (K, D), var (K,); dt a scalar or (T-1,) step sizes.
+    Differentiable in every tensor argument.
     """
     packed = _pack_operands(omega, phase, weights, Z, nu, ls, var)
     dts = torch.as_tensor(dt, dtype=z0.dtype, device=z0.device)

@@ -1,9 +1,12 @@
-"""Carry weights of the JAX package over to the port.
+"""Carry weights and train states of the JAX package over to the port.
 
 `from_jax` takes the JAX model's `variables` (params + batch_stats) and
 its `SVGPParams` leaves as nested dicts of numpy arrays and returns the
-port's state dict and `SVGPParams`. Layout rules (the reverse of
-`vae_gp_ode_tpu/utils/torch_import.py`):
+port's state dict and `SVGPParams`; `train_state_from_jax` carries a
+whole JAX `TrainState` (with optax's Adam moments) into the port's
+`TrainState`, so both packages can continue from the same state. Layout
+rules (the reverse of `vae_gp_ode_tpu/utils/torch_import.py`; Adam's
+moments follow their parameters' rules):
 
   flax Conv kernel (kH, kW, I, O)                -> (O, I, kH, kW)
   flax ConvTranspose kernel (kH, kW, I, O),
@@ -37,20 +40,22 @@ def _convT(k):
 def _bn(sd, prefix, p, s):
     sd[f'{prefix}.weight'] = _t(p['scale'])
     sd[f'{prefix}.bias'] = _t(p['bias'])
-    sd[f'{prefix}.running_mean'] = _t(s['mean'])
-    sd[f'{prefix}.running_var'] = _t(s['var'])
-    sd[f'{prefix}.num_batches_tracked'] = torch.tensor(0)
+    if s is not None:
+        sd[f'{prefix}.running_mean'] = _t(s['mean'])
+        sd[f'{prefix}.running_var'] = _t(s['var'])
+        sd[f'{prefix}.num_batches_tracked'] = torch.tensor(0)
 
 
 def encoder_from_jax(params, stats, prefix):
     """flax Encoder (Conv_0..2, BatchNorm_0..1, Dense_0) -> the port's
-    `cnn.{0,1,3,4,6}` / `fc` keys under `prefix`."""
+    `cnn.{0,1,3,4,6}` / `fc` keys under `prefix` (parameters only when
+    `stats` is None)."""
     sd = {}
     for i, (ci, bi) in enumerate([(0, 1), (3, 4)]):
         sd[f'{prefix}.cnn.{ci}.weight'] = _conv(params[f'Conv_{i}']['kernel'])
         sd[f'{prefix}.cnn.{ci}.bias'] = _t(params[f'Conv_{i}']['bias'])
         _bn(sd, f'{prefix}.cnn.{bi}', params[f'BatchNorm_{i}'],
-            stats[f'BatchNorm_{i}'])
+            None if stats is None else stats[f'BatchNorm_{i}'])
     sd[f'{prefix}.cnn.6.weight'] = _conv(params['Conv_2']['kernel'])
     sd[f'{prefix}.cnn.6.bias'] = _t(params['Conv_2']['bias'])
     K = np.asarray(params['Dense_0']['kernel'])          # (16*C, 2q), (h,w,c)
@@ -63,7 +68,8 @@ def encoder_from_jax(params, stats, prefix):
 
 def decoder_from_jax(params, stats, prefix):
     """flax Decoder (Dense_0, ConvTranspose_0..3, BatchNorm_0..2) -> the
-    port's `fc` / `decnn.{1,2,4,5,7,8,10}` keys under `prefix`."""
+    port's `fc` / `decnn.{1,2,4,5,7,8,10}` keys under `prefix`
+    (parameters only when `stats` is None)."""
     sd = {}
     K = np.asarray(params['Dense_0']['kernel'])          # (q, 16*C), (h,w,c)
     b = np.asarray(params['Dense_0']['bias'])
@@ -79,7 +85,7 @@ def decoder_from_jax(params, stats, prefix):
             params[f'ConvTranspose_{i}']['bias'])
     for i, bi in enumerate([2, 5, 8]):
         _bn(sd, f'{prefix}.decnn.{bi}', params[f'BatchNorm_{i}'],
-            stats[f'BatchNorm_{i}'])
+            None if stats is None else stats[f'BatchNorm_{i}'])
     return sd
 
 
@@ -101,18 +107,57 @@ def gp_from_jax(gp_np):
         q_diag=tuple(Us.shape) != (D_out, M * (M + 1) // 2))
 
 
+def _vae_from_jax(params, stats):
+    sd = {}
+    for name, conv in (('encoder', encoder_from_jax),
+                       ('decoder', decoder_from_jax),
+                       ('encoder_v', encoder_from_jax)):
+        if name in params:
+            sd.update(conv(params[name],
+                           None if stats is None else stats[name], name))
+    return sd
+
+
 def from_jax(variables_np, gp_np):
     """(model_state_dict, gp) for `models.odegpvae.ODEGPVAE` from the JAX
     ODEGPVAE `variables` and SVGP leaves, as nested dicts of numpy
     arrays (CPU tensors out)."""
-    params = variables_np['params']
-    stats = variables_np.get('batch_stats', {})
-    sd = {}
-    sd.update(encoder_from_jax(params['encoder'], stats['encoder'],
-                               'encoder'))
-    sd.update(decoder_from_jax(params['decoder'], stats['decoder'],
-                               'decoder'))
-    if 'encoder_v' in params:
-        sd.update(encoder_from_jax(params['encoder_v'], stats['encoder_v'],
-                                   'encoder_v'))
+    sd = _vae_from_jax(variables_np['params'],
+                       variables_np.get('batch_stats', {}))
     return sd, gp_from_jax(gp_np)
+
+
+def train_state_from_jax(state_np, *, latent_dim=6, n_filt=8, order=1,
+                         frames=5, dt=0.1, num_features=256, lr=1e-3,
+                         fix_kernel=False, device='cuda'):
+    """The port's `training.trainer.TrainState` from a JAX `TrainState`
+    given as nested dicts of numpy arrays:
+
+        {'step': int,
+         'variables': {'params': ..., 'batch_stats': ...},
+         'gp': SVGP leaves (as for `gp_from_jax`),
+         'adam': {'count': int,            # optax ScaleByAdamState
+                  'mu': {'params': ..., 'gp': SVGP leaves},
+                  'nu': {'params': ..., 'gp': SVGP leaves}}}
+
+    The model is built at the given widths on `device`."""
+    from vae_gp_ode_tpu_torch.models.odegpvae import ODEGPVAE
+    from vae_gp_ode_tpu_torch.training.trainer import create_train_state
+    sd, gp = from_jax(state_np['variables'], state_np['gp'])
+    model = ODEGPVAE(latent_dim=latent_dim, n_filt=n_filt, order=order,
+                     frames=frames, dt=dt, num_features=num_features,
+                     device=device)
+    model.load_state_dict(sd)
+    state = create_train_state(model, gp.to(model.device), lr=lr,
+                               fix_kernel=fix_kernel)
+    adam = state_np['adam']
+    with torch.no_grad():
+        for k, views in zip(('mu', 'nu'), state.optimizer.moments()):
+            named = _vae_from_jax(adam[k]['params'], None)
+            named.update({f'gp.{n}': v for n, v in gp_from_jax(
+                adam[k]['gp']).named_parameters()})
+            for name, view in zip(state.param_names(), views):
+                view.copy_(named[name])
+        state.optimizer.count.fill_(int(adam['count']))
+        state.step.fill_(int(state_np['step']))
+    return state

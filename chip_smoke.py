@@ -31,10 +31,25 @@ Run from the repository root on a machine with an NVIDIA H100:
    checkpoint round trip (one more step from the restored and from the
    original state gives the same loss), two steps under
    `torch.cuda.set_sync_debug_mode('error')`, and one step's gradients on
-   the GPU against the port's CPU step with the same noise;
+   the GPU against the port's CPU step in float64 with the same noise
+   and the GPU run's ReLU branches (each leaf within 1e-3 of its largest
+   entry; RELU_FLIP);
+6b. the solvers' paths, each run with the counts set to 0 just before
+   and read just after: the per-step kernel and its VJP against their
+   plain versions (L=1 and 5, N=20 and 600, D=6, 12 and K=12, S=256 and
+   2048); the two repairs (cuSOLVER's Cholesky of a gram that is not
+   positive definite gives NaN; the fused pair's dispatch rule at the
+   shapes the adjoint kernel refuses, and one train step at order 1,
+   q=6, S=2048 through the per-step kernels against autograd through
+   the plain version on the card, both sharing cuSOLVER's factor, and
+   against the CPU step in float64); the training CLI's run() with --solver rk4 for 2 epochs
+   (every step through the per-step kernels and never the fused pair,
+   GPU vs CPU gradients, a sync check, step times); three train steps
+   each with dopri5 and with the rk4 continuous adjoint (whose gradients
+   are held to rk4 backprop); one dopri5 forecast request;
 7. times kernels, requests and train steps with CUDA events, and traces
-   one request and one L=5 train step with torch.profiler (device kernels
-   by time, the device's idle share);
+   one request, one L=5 train step and one L=5 rk4 train step with
+   torch.profiler (device kernels by time, the device's idle share);
 8. prints one JSON line on the kernels and, as the last line,
    {"ok": true, "device": {...}}.
 
@@ -44,7 +59,9 @@ of the repository; it imports nothing of JAX.
 """
 
 import argparse
+import contextlib
 import copy
+import dataclasses
 import faulthandler
 import json
 import os
@@ -52,7 +69,7 @@ import subprocess
 import sys
 import time
 
-WATCHDOG_S = 600
+WATCHDOG_S = 1100
 # kernel vs plain version, f32, through up to 31 euler steps: the two sum
 # in different orders; measured differences are recorded in PERF.md
 TOL_ABS = 1e-4
@@ -64,9 +81,20 @@ TOL_FORWARD = 1e-4
 # rows, 15 steps and 1536 columns in different orders
 TOL_BWD = 1e-4
 # GPU vs CPU train-step gradients, per leaf: |gpu - cpu| <= TOL_GRAD max
-# |cpu| (cuDNN's f32 convolution gradients sum in another order)
+# |cpu| with the CPU step in float64 (cuDNN's f32 convolution gradients
+# sum in another order); the same tolerance holds the rk4 adjoint to rk4
+# backprop and the S=2048 step to the plain version, both on the card
 TOL_GRAD = 1e-3
 TRAIN_EPOCHS = 2
+# RELU_FLIP: a ReLU's derivative jumps at 0, so where a unit's input is
+# within rounding of 0 the f32 and the float64 step can take different
+# branches, and one such unit moves a decoder weight's gradient by
+# 1e-3..2e-2 of its largest entry on any device (PERF.md, PR 6). Each
+# gradient comparison therefore gives the reference run the tested run's
+# branch of every ReLU, and requires every unit whose branch the two
+# runs' own inputs disagree on to have a reference input within
+# RELU_FLIP of its layer's largest |input|.
+RELU_FLIP = 1e-4
 
 CONFIG = dict(latent_dim=6, n_filt=8, num_features=256, num_inducing=100,
               dt=0.1, lengthscale=2.0, variance=0.7)
@@ -187,11 +215,11 @@ def flow_bwd_bound(L_, N, D, K, S, M, T_, tensors):
                                  else 'bytes')
 
 
-def compare_bwd(out, ref, what):
+def compare_bwd(out, ref, what, names=('z0', 'omf', 'phf', 'ws', 'Zb', 'zn',
+                                        'il2', 'nus', 'dts')):
     """Per-cotangent max |kernel - plain| against TOL_BWD (1 + max
     |plain|); raises on a miss. Returns the largest error."""
     import torch
-    names = ('z0', 'omf', 'phf', 'ws', 'Zb', 'zn', 'il2', 'nus', 'dts')
     parts, worst, ok = [], 0.0, True
     for name, a, b in zip(names, out, ref):
         if a.shape != b.shape:
@@ -212,12 +240,524 @@ def compare_bwd(out, ref, what):
     return worst
 
 
-def train_args(save):
+def step_noise(seed, q, S, M, L_=1, batch=None, order=1):
+    """Raw draws for one train step (z0 and L_ GP draws) from a numpy
+    seed, the same for the GPU and the CPU step."""
+    import numpy as np
+    rs = np.random.default_rng(seed)
+    return {'z0': rs.standard_normal((batch or BATCH, q)),
+            'omega': rs.standard_normal((L_, q * order, S, q)),
+            'phase_u': rs.random((L_, 1, S, q)),
+            'weights': rs.standard_normal((L_, S, q)),
+            'epsilon': rs.standard_normal((L_, M, q))}
+
+
+def step_grads(model, gp, batch, noise_np, ndata, eps_guard, where,
+               L_=1, dtype=None, relu_in=None, relu_pin=None):
+    """Loss and gradients (by name, as f32 on the CPU) of one train step's
+    loss on `where` for copies of model and gp, with the injected noise;
+    in `dtype` (float64 for a CPU reference) or the model's own f32.
+    `relu_in` (a dict) receives each ReLU's input, on the CPU in float64;
+    `relu_pin` (such a dict from another run) makes each ReLU pass its
+    input where the pinned input was > 0 and give 0 elsewhere, that is
+    take that run's branch (RELU_FLIP)."""
+    import torch
+    from torch import nn
+    from vae_gp_ode_tpu_torch.training import trainer
+    dtype = dtype or torch.float32
+    g = gp.detach()
+    g = dataclasses.replace(
+        g, kernel=dataclasses.replace(g.kernel, **{
+            k: getattr(g.kernel, k).to(where, dtype) for k in (
+                'unconstrained_lengthscales', 'unconstrained_variance')}),
+        **{k: getattr(g, k).to(where, dtype) for k in (
+            'inducing_loc', 'Um', 'Us_sqrt')})
+    st = trainer.TrainState(
+        model=copy.deepcopy(model).to(where, dtype).train(),
+        gp=g.requires_grad_(), optimizer=None, step=None)
+    for p in st.model.parameters():
+        p.grad = None
+
+    def relu_hook(name, mod, inp, out):
+        x = inp[0]
+        if relu_in is not None:
+            if name in relu_in:
+                raise AssertionError(f'{name} ran twice in one step')
+            relu_in[name] = x.detach().to('cpu', torch.float64)
+        if relu_pin is not None:
+            return x * (relu_pin[name] > 0).to(x.device, x.dtype)
+        return None
+
+    for name, mod in st.model.named_modules():
+        if isinstance(mod, nn.ReLU):
+            mod.register_forward_hook(
+                lambda mod, inp, out, name=name: relu_hook(name, mod, inp,
+                                                           out))
+    noise = {k: torch.as_tensor(v, dtype=dtype, device=where)
+             for k, v in noise_np.items()}
+    loss, aux = trainer.loss_fn(st, batch.to(where, dtype), L_, ndata,
+                                eps_guard, noise=noise)
+    loss.backward()
+    return loss.detach().cpu(), aux, st, dict(zip(
+        st.param_names(), (p.grad.float().cpu() for p in st.params())))
+
+
+def relu_flips(tested, ref):
+    """Units whose ReLU branch differs between two runs' inputs: (their
+    count, the largest |reference input| among them relative to its
+    layer's largest |reference input|)."""
+    count, worst = 0, 0.0
+    for name, a in tested.items():
+        b = ref[name]
+        flip = (a > 0) != (b > 0)
+        count += int(flip.sum())
+        if flip.any():
+            worst = max(worst, float(b[flip].abs().max() / b.abs().max()))
+    return count, worst
+
+
+def worst_grad_error(grads, ref, model):
+    """max over leaves of max |grads - ref| / max |ref|; a convolution
+    bias that feeds a train-mode BatchNorm has gradient 0 (the
+    normalisation removes it): both sides are rounding noise there, held
+    to the scale of the same layer's weight gradient instead."""
+    from vae_gp_ode_tpu_torch.training import trainer
+    scale = {n: float(g.abs().max()) for n, g in ref.items()}
+    for n in trainer.bias_before_batchnorm(model):
+        scale[n] = scale[n[:-len('bias')] + 'weight']
+    worst, worst_name = 0.0, None
+    for n, gr in ref.items():
+        rel = float((grads[n] - gr).abs().max()) / max(scale[n], 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, n
+    return worst, worst_name
+
+
+def pinned_grads(model, gp, batch, noise_np, ndata, eps_guard, tested,
+                 reference, L_=1, ref_model=None):
+    """One train step's gradients by `tested` and by `reference` (each
+    (device, dtype) for step_grads) with the same noise, the reference
+    (with `ref_model` in place of `model` where given) on the tested
+    run's ReLU branches (RELU_FLIP). Returns (the tested
+    run's loss, the reference's, the worst leaf's max error relative to
+    its largest entry, that leaf, the ReLU units whose branch the two
+    runs' own inputs disagree on, the largest relative input among
+    them)."""
+    relu_t, relu_r = {}, {}
+    loss_t, _, _, g_t = step_grads(model, gp, batch, noise_np, ndata,
+                                   eps_guard, tested[0], L_, tested[1],
+                                   relu_in=relu_t)
+    loss_r, _, _, g_r = step_grads(ref_model or model, gp, batch, noise_np,
+                                   ndata, eps_guard, reference[0], L_,
+                                   reference[1], relu_in=relu_r,
+                                   relu_pin=relu_t)
+    worst, name = worst_grad_error(g_t, g_r, model)
+    flips, flip_at = relu_flips(relu_t, relu_r)
+    return float(loss_t), float(loss_r), worst, name, flips, flip_at
+
+
+def check_grads(what, res):
+    """Log and hold a pinned_grads result: every leaf within TOL_GRAD of
+    its largest entry, every flipped ReLU unit within RELU_FLIP of 0."""
+    loss_t, loss_r, worst, name, flips, flip_at = res
+    rel = abs(loss_t - loss_r) / abs(loss_r)
+    log(f'{what}: loss {loss_t:.6f} vs {loss_r:.6f} (rel {rel:.2e}); '
+        f'gradients max |err| / max |ref| {worst:.3e} at {name} (tol '
+        f'{TOL_GRAD:g}, conv biases before a BatchNorm against their '
+        f'weight gradient); ReLU units on the other branch in the '
+        f'reference\'s own run: {flips}, largest |input| {flip_at:.2e} of '
+        f'the layer\'s largest (tol {RELU_FLIP:g})')
+    require(rel <= 1e-4 and worst <= TOL_GRAD and flip_at <= RELU_FLIP,
+            f'{what}: the gradients disagree')
+
+
+def pathwise_bound(tensors, rows, D, K, S, M, bwd=False):
+    """Least time (ms) on an H100 for one per-step eval launch (or its VJP
+    with bwd): the larger of its f32 operations (per row K*S*(2D+4) +
+    K*M*(4D+4) forward, K*S*(6D+10) + K*M*(12D+10) for recompute and VJP)
+    over the f32 peak and the bytes of `tensors` (its inputs, each read
+    once, and its outputs, each written once) over the memory rate."""
+    if bwd:
+        per_row = K * S * (6 * D + 10) + K * M * (12 * D + 10)
+    else:
+        per_row = K * S * (2 * D + 4) + K * M * (4 * D + 4)
+    t_ops = rows * per_row / H100_FP32_FLOPS * 1e3
+    t_bytes = sum(4 * t.numel() for t in tensors) / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ('operations' if t_ops >= t_bytes
+                                 else 'bytes')
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms, for two GPU runs that are compared
+    with each other: their difference is then the one under test, not
+    cuDNN's summation order."""
+    import torch
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def deltas(before, after):
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def solver_paths(args, card, batch, targs, slice_launches):
+    """The paths of this slice: kernels #3/#4 against their plain
+    versions, the two repairs, training with rk4, dopri5 and the rk4
+    adjoint, and the dopri5 forecaster. Adds each path run's launches to
+    `slice_launches` (counts set to 0 just before it, read just after)
+    and returns what the summary line needs."""
+    import numpy as np
+    import torch
+    from vae_gp_ode_tpu_torch import main as train_cli
+    from vae_gp_ode_tpu_torch import ops
+    from vae_gp_ode_tpu_torch.core import linalg
+    from vae_gp_ode_tpu_torch.core.settings import JITTER
+    from vae_gp_ode_tpu_torch.gp.svgp import draw_fn_sample, init_svgp_params
+    from vae_gp_ode_tpu_torch.kernels.rbf import rbf_gram
+    from vae_gp_ode_tpu_torch.models.odegpvae import init_model
+    from vae_gp_ode_tpu_torch.ops import flow_fused, pathwise
+    from vae_gp_ode_tpu_torch.serving import make_forecast_fn
+    from vae_gp_ode_tpu_torch.training import trainer
+
+    dev = torch.device('cuda')
+    q, S, M = CONFIG['latent_dim'], CONFIG['num_features'], \
+        CONFIG['num_inducing']
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 11)
+    rng = np.random.default_rng(args.seed + 11)
+    out = {}
+
+    def run_path(fn):
+        ops.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        d = dict(ops.LAUNCHES)
+        for k in slice_launches:
+            slice_launches[k] += d[k]
+        return res, d
+
+    # -- kernels #3 and #4 against their plain versions ------------------
+    log('kernels pathwise_fwd / pathwise_bwd vs pathwise_eval_reference '
+        '(and autograd through it) on the card:')
+    gps = {}
+    fwd_errs, bwd_errs, main_ops = [], [], {}
+    for name, L_, N_, D_, K_, S_ in (
+            ('L=1, N=20, D=K=6 (main, order 1)', 1, BATCH, q, q, S),
+            ('L=5, N=20, D=K=6 (main, order 1)', L, BATCH, q, q, S),
+            ('L=5, N=20, D=12, K=6 (order 2)', L, BATCH, 2 * q, q, S),
+            ('L=5, N=600', L, 600, q, q, S),
+            ('L=5, S=2048', L, BATCH, q, q, 2048),
+            ('L=5, q=12 (D=K=12)', L, BATCH, 12, 12, S)):
+        if (D_, K_) not in gps:
+            gps[D_, K_] = init_svgp_params(rng, D_, K_, M, lengthscale=2.0,
+                                           variance=0.7, device='cuda')
+        g = gps[D_, K_]
+        with torch.no_grad():
+            operands = pathwise.rbf_fused_operands(
+                g, draw_fn_sample(g, gen, S_, L=L_))
+        x = torch.randn((L_, N_, D_), generator=gen, device=dev)
+        with torch.no_grad():
+            o = pathwise.fused_pathwise_eval(x, *operands)
+            r = pathwise.pathwise_eval_reference(x, *operands)
+        torch.cuda.synchronize()
+        require(o.shape == (L_, N_, K_), f'shape {o.shape}')
+        fwd_errs.append(compare(o, r, 'fwd ' + name))
+        inputs = [t.clone().requires_grad_() for t in (x,) + operands]
+        o = pathwise.fused_pathwise_eval(*inputs)
+        gbar = torch.randn(o.shape, generator=gen, device=dev)
+        bars = torch.autograd.grad(o, inputs, gbar)
+        ref = pathwise.pathwise_vjp_reference(x, *operands, gbar)
+        torch.cuda.synchronize()
+        bwd_errs.append(compare_bwd(bars, ref, 'bwd ' + name,
+                                    ('x',) + pathwise.NAMES))
+        if name.startswith('L=') and 'main' in name:
+            main_ops[L_] = (x, operands, gbar)
+    out['pathwise_err'] = (max(fwd_errs), max(bwd_errs))
+
+    # -- the two repairs ---------------------------------------------------
+    A = torch.tensor([[[2.5, 0.5, 0.5, 0.5], [0.5, 2.5, 0.5, 0.5],
+                       [0.5, 0.5, 2.5, 0.5], [0.5, 0.5, 0.5, 2.5]],
+                      [[1., 2., 0., 0.], [2., 1., 0., 0.], [0., 0., 1., 0.],
+                       [0., 0., 0., 1.]]], device=dev)
+    Lc = linalg.cholesky(A)
+    lower = torch.tril(torch.ones(4, 4, dtype=torch.bool, device=dev))
+    require(bool(torch.isnan(Lc[1][lower]).all()) and not bool(
+        torch.isnan(Lc[0]).any()) and not bool((Lc[1][~lower] != 0).any()),
+        f'the non-PD block did not give NaN on the card: {Lc}')
+    log('repair 1: cuSOLVER Cholesky of a (2,4,4) gram whose second block '
+        'is not positive definite: NaN on and below its diagonal, the '
+        'first block finite')
+    lib = flow_fused._bwd_lib()
+    optin = lib.flow_fused_bwd_smem_optin(0)
+    for (order, q_, S_), fits in (((1, 6, 256), True), ((1, 6, 1024), True),
+                                  ((1, 6, 2048), False),
+                                  ((1, 12, 256), False),
+                                  ((2, 8, 256), False)):
+        D_ = q_ * order
+        nbytes = lib.flow_fused_bwd_smem_bytes(D_, q_, S_, M, T)
+        got = flow_fused.fused_pair_fits(D_, q_, S_, M, T, dev)
+        require(got == fits, f'rule at order {order} q={q_} S={S_}: {got}')
+        log(f'  rule: order {order}, q={q_}, S={S_}: adjoint block '
+            f'{nbytes} B of {optin} B opt-in -> '
+            f'{"fused pair" if got else "per-step kernels"}')
+    # one train step at order 1, q=6, S=2048: the per-step kernels
+    wide, wide_gp = init_model(args.seed + 5, device='cuda',
+                               **dict(CONFIG, num_features=2048))
+    noise = step_noise(args.seed + 6, q, 2048, M)
+    relu_k = {}
+    with cudnn_deterministic():
+        (loss_g, _, _, g_gpu), d = run_path(lambda: step_grads(
+            wide, wide_gp, batch, noise, targs.Ndata, targs.eps_guard,
+            'cuda', relu_in=relu_k))
+    require(d['pathwise_fwd'] > 0 and d['pathwise_bwd'] > 0 and
+            d['flow_fused_fwd'] == 0 and d['flow_fused_bwd'] == 0,
+            f'the S=2048 step launched {d}')
+    # the same step with autograd through the plain version on the card
+    # (the per-step eval's wrapper swapped for pathwise_eval_reference),
+    # so that both sides share cuSOLVER's factor of the untrained GP's
+    # gram
+    kernel_eval = pathwise.fused_pathwise_eval
+    pathwise.fused_pathwise_eval = pathwise.pathwise_eval_reference
+    relu_p = {}
+    try:
+        with cudnn_deterministic():
+            (loss_p, _, _, g_plain), dp = run_path(lambda: step_grads(
+                wide, wide_gp, batch, noise, targs.Ndata, targs.eps_guard,
+                'cuda', relu_in=relu_p, relu_pin=relu_k))
+    finally:
+        pathwise.fused_pathwise_eval = kernel_eval
+    require(not any(dp.values()), f'the plain S=2048 step launched {dp}')
+    worst, name = worst_grad_error(g_gpu, g_plain, wide)
+    check_grads(f'repair 2: one train step at order 1, q=6, S=2048 (L=1), '
+                f'launches {d}, against autograd through the plain version '
+                f'on the card', (float(loss_g), float(loss_p), worst, name,
+                                 *relu_flips(relu_k, relu_p)))
+    # and against the CPU step in float64 on the kernel run's ReLU
+    # branches, held like the other GPU-vs-CPU checks; the CPU's own f32
+    # step on the same branches and the condition number of the untrained
+    # GP's gram (both f32 steps factor it: cuSOLVER, LAPACK) beside it
+    relu_64 = {}
+    loss_64, _, _, g64 = step_grads(wide, wide_gp, batch, noise,
+                                    targs.Ndata, targs.eps_guard, 'cpu', 1,
+                                    torch.float64, relu_in=relu_64,
+                                    relu_pin=relu_k)
+    check_grads('  the same step against the CPU step in float64', (
+        float(loss_g), float(loss_64), *worst_grad_error(g_gpu, g64, wide),
+        *relu_flips(relu_k, relu_64)))
+    g32 = step_grads(wide, wide_gp, batch, noise, targs.Ndata,
+                     targs.eps_guard, 'cpu', relu_pin=relu_k)[3]
+    with torch.no_grad():
+        Ku = rbf_gram(wide_gp.kernel, wide_gp.inducing_loc).to(
+            'cpu', torch.float64)
+        cond = float(torch.linalg.cond(
+            Ku + JITTER * torch.eye(M, dtype=torch.float64)).max())
+    w32, n32 = worst_grad_error(g32, g64, wide)
+    log(f'  the CPU f32 step against the float64 one on the same branches: '
+        f'{w32:.3e} at {n32}; condition number of K(Z,Z) + jitter (largest '
+        f'over output dims) {cond:.3e}')
+    del wide, wide_gp
+
+    # -- training with rk4: the CLI's run() -------------------------------
+    save = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
+                        'chip_smoke', 'rk4')
+    rargs = train_args(save, '--solver', 'rk4')
+    steps, seen = [], {}
+
+    def on_step(ep, L_):
+        now = dict(ops.LAUNCHES)
+        steps.append((ep, L_, deltas(seen, now)))
+        seen.update(now)
+
+    t0 = time.perf_counter()
+    result, d = run_path(lambda: train_cli.run(rargs, on_step=on_step))
+    train_s = time.perf_counter() - t0
+    require(result['bailout'] is None, 'NaN bailout in the rk4 run')
+    losses = np.concatenate([e['loss'] for e in result['epochs']])
+    require(np.isfinite(losses).all(), f'rk4 losses {losses}')
+    per_step = {}
+    for i, (ep, L_, dd) in enumerate(steps):
+        require(dd['pathwise_fwd'] > 0 and dd['pathwise_bwd'] > 0 and
+                dd['flow_fused_fwd'] == 0 and dd['flow_fused_bwd'] == 0,
+                f'rk4 train step {i} launched {dd}')
+        if i % 18 != 0:             # not counting a monitoring eval
+            per_step[L_] = (dd['pathwise_fwd'], dd['pathwise_bwd'])
+    log(f'training path, --solver rk4: run() for {TRAIN_EPOCHS} epochs, '
+        f'{len(steps)} steps in {train_s:.1f} s; launches {d}; per step '
+        f'(fwd, bwd): ' + ', '.join(f'L={k}: {v}' for k, v in
+                                    sorted(per_step.items()))
+        + f'; losses first {losses[0]:.2f} last {losses[-1]:.2f}')
+    out['rk4_per_step'] = per_step
+    rstate = result['state']
+    rstep = trainer.make_train_step(rargs.Ndata, eps_guard=rargs.eps_guard)
+    # GPU vs CPU (float64) gradients, same noise: at the initial state of
+    # seed + 7 and at the trained state
+    init7 = init_model(args.seed + 7, device='cuda',
+                       **dict(CONFIG, solver='rk4'))
+    for label, (m, g) in (('initial state (seed + 7)', init7),
+                          ('trained state', (rstate.model, rstate.gp))):
+        check_grads(f'rk4: GPU vs CPU (float64) train-step gradients, '
+                    f'{label} (L=1, same noise)', pinned_grads(
+                        m, g, batch, step_noise(args.seed + 7, q, S, M),
+                        rargs.Ndata, rargs.eps_guard, ('cuda', None),
+                        ('cpu', torch.float64)))
+    del init7
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        rstep(rstate, batch, L)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log('rk4 sync check: 1 train step (L=5) under set_sync_debug_mode('
+        '"error"): no synchronising operation')
+    out['rk4_step_ms'] = {}
+    for L_ in (1, L):
+        for _ in range(2):
+            rstep(rstate, batch, L_)
+        out['rk4_step_ms'][L_] = cuda_ms(lambda: rstep(rstate, batch, L_),
+                                         10, warmup=0)
+    log('rk4 train step (CUDA events over 10 steps): ' + ', '.join(
+        f'L={k}: {v:.3f} ms' for k, v in out['rk4_step_ms'].items())
+        + f'; card {card}')
+    out['rk4'] = (rstate, rstep)
+
+    # the per-step path against the fused pair: euler at the default shape
+    # with the dispatch rule forced to the solvers
+    from vae_gp_ode_tpu_torch.dynamics import flow as flow_mod
+    est = trainer.create_train_state(*init_model(args.seed, device='cuda',
+                                                 **CONFIG), lr=targs.lr)
+    estep = trainer.make_train_step(targs.Ndata, eps_guard=targs.eps_guard)
+    rule = flow_mod.use_fused_pair
+    out['euler_ms'] = {}
+    for fused in (True, False, False, True):
+        flow_mod.use_fused_pair = rule if fused else (lambda *a: False)
+        try:
+            for L_ in (1, L):
+                estep(est, batch, L_)
+                ms = cuda_ms(lambda: estep(est, batch, L_), 10, warmup=1)
+                out['euler_ms'].setdefault((fused, L_), []).append(ms)
+        finally:
+            flow_mod.use_fused_pair = rule
+    log('euler train step, fused pair vs per-step kernels (CUDA events over '
+        '10 steps, runs fused, per-step, per-step, fused): ' + '; '.join(
+            f'{"fused" if f else "per-step"} L={L_}: '
+            + ', '.join(f'{m:.3f}' for m in v) + ' ms'
+            for (f, L_), v in sorted(out['euler_ms'].items()))
+        + f'; card {card}')
+
+    # -- dopri5 and the continuous adjoint: a few train steps ----------
+    def state_for(**kw):
+        m, g = init_model(args.seed, device='cuda', **dict(CONFIG, **kw))
+        return trainer.create_train_state(m, g, lr=targs.lr)
+
+    out['adaptive'] = {}
+    for label, kw in (('dopri5', dict(solver='dopri5')),
+                      ('rk4 adjoint', dict(solver='rk4', use_adjoint=True))):
+        st = state_for(**kw)
+        stp = trainer.make_train_step(targs.Ndata, eps_guard=targs.eps_guard)
+        stp(st, batch, L)                            # warm-up
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+
+        def few(st=st, stp=stp):
+            ev0.record()
+            ms = [stp(st, batch, L) for _ in range(3)]
+            ev1.record()
+            return ms
+        mets, d = run_path(few)
+        ms = ev0.elapsed_time(ev1) / 3
+        lossv = [float(m['loss']) for m in mets]
+        nfe = [int(m['nfe']) for m in mets]
+        require(np.isfinite(lossv).all(), f'{label} losses {lossv}')
+        require(d['pathwise_fwd'] > 0 and d['pathwise_bwd'] > 0 and
+                d['flow_fused_fwd'] == 0, f'{label} launched {d}')
+        log(f'{label}: 3 train steps (L=5) {ms:.3f} ms each (CUDA events); '
+            f'losses {lossv}; nfe {nfe}; launches {d}; card {card}')
+        out['adaptive'][label] = (ms, nfe, d)
+    # the rk4 adjoint's gradients against rk4 backprop, same state + noise
+    st = state_for(solver='rk4')
+    noise = step_noise(args.seed + 8, q, S, M, L_=L)
+    adjoint = copy.deepcopy(st.model)
+    adjoint.use_adjoint = True
+    with cudnn_deterministic():
+        res = pinned_grads(adjoint, st.gp, batch, noise, targs.Ndata,
+                           targs.eps_guard, ('cuda', None), ('cuda', None), L,
+                           ref_model=st.model)
+    check_grads('rk4 adjoint vs rk4 backprop on the card (L=5, same noise)',
+                res)
+
+    # -- the forecaster with dopri5 ---------------------------------------
+    fm, fgp = init_model(args.seed, device='cuda', random_bn=True, **CONFIG)
+    X = np.random.default_rng(args.seed + 9).random(
+        (BATCH, T, 1, 28, 28)).astype(np.float32)
+    fn = make_forecast_fn(fm, None, fgp, L=L, normalize_input=True,
+                          solver='dopri5', device='cuda')
+    fn(X, args.seed)                                          # warm-up
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+
+    def request():
+        ev0.record()
+        y = fn(X, args.seed + 1)
+        ev1.record()
+        return y
+    Xrec, d = run_path(request)
+    require(Xrec.shape == (L, BATCH, T, 1, 28, 28) and bool(
+        torch.isfinite(Xrec).all()), 'dopri5 forecast')
+    require(d['pathwise_fwd'] > 0 and d['flow_fused_fwd'] == 0,
+            f'the dopri5 request launched {d}')
+    with torch.no_grad():
+        Xn = (torch.as_tensor(X, device=dev) - 0.1307) / 0.3081
+        nfe = int(fm(Xn, fgp, L=L, generator=torch.Generator(
+            device=dev).manual_seed(args.seed))[3])
+    out['forecast_dopri5'] = (ev0.elapsed_time(ev1), nfe, d)
+    log(f'forecaster, dopri5 (default rtol/atol), one T={T} request at '
+        f'L={L}: {out["forecast_dopri5"][0]:.3f} ms, nfe {nfe} over the '
+        f'draws; launches {d}; card {card}')
+
+    # -- kernel times at the main shapes ---------------------------------
+    out['pathwise_ms'] = {}
+    for L_, (x, operands, gbar) in sorted(main_ops.items()):
+        with torch.no_grad():
+            kf = cuda_ms(lambda: pathwise.fused_pathwise_eval(x, *operands),
+                         200)
+            pf = cuda_ms(lambda: pathwise.pathwise_eval_reference(
+                x, *operands), 50)
+        # the VJP kernel through autograd over the forward's graph, as the
+        # solvers and the adjoint reach it (the graph kept between calls)
+        inputs = [t.clone().requires_grad_() for t in (x,) + operands]
+        o = pathwise.fused_pathwise_eval(*inputs)
+        kb = cuda_ms(lambda: torch.autograd.grad(o, inputs, gbar,
+                                                 retain_graph=True), 200)
+        pb = cuda_ms(lambda: pathwise.pathwise_vjp_reference(
+            x, *operands, gbar), 50)
+        bars = torch.autograd.grad(o, inputs, gbar)
+        D_, K_ = x.shape[-1], o.shape[-1]
+        rows = x.shape[0] * x.shape[1]
+        bf = pathwise_bound((x,) + operands + (o,), rows, D_, K_, S, M)
+        bb = pathwise_bound((x,) + operands + (gbar,) + tuple(bars), rows,
+                            D_, K_, S, M, bwd=True)
+        out['pathwise_ms'][L_] = (kf, pf, bf, kb, pb, bb)
+        log(f'pathwise kernels at the main shapes L={L_} (N=20, D=K=6, '
+            f'S=256, M=100): fwd {kf:.4f} ms (plain {pf:.4f}, bound '
+            f'{bf[0]:.5f} {bf[1]}), bwd {kb:.4f} ms through autograd, with '
+            f'slab sums (plain '
+            f'{pb:.4f}, bound {bb[0]:.5f} {bb[1]}); card {card}')
+    out['rk4_profile'] = lambda: rstep(rstate, batch, L)
+    return out
+
+
+def train_args(save, *extra):
     """The training CLI's arguments at the defaults of main.py, for
-    TRAIN_EPOCHS epochs, writing under `save`."""
+    TRAIN_EPOCHS epochs, writing under `save`, with `extra` flags."""
     from vae_gp_ode_tpu_torch.main import make_parser
     return make_parser().parse_args([
-        '--Nepoch', str(TRAIN_EPOCHS), '--save', save, '--device', 'cuda'])
+        '--Nepoch', str(TRAIN_EPOCHS), '--save', save, '--device', 'cuda',
+        *extra])
 
 
 def main():
@@ -236,7 +776,7 @@ def main():
     from vae_gp_ode_tpu_torch import ops
     from vae_gp_ode_tpu_torch.gp.svgp import draw_fn_sample, init_svgp_params
     from vae_gp_ode_tpu_torch.models.odegpvae import init_model
-    from vae_gp_ode_tpu_torch.ops import _build, flow_fused
+    from vae_gp_ode_tpu_torch.ops import _build, flow_fused, pathwise
     from vae_gp_ode_tpu_torch.ops.pathwise import rbf_fused_operands
     from vae_gp_ode_tpu_torch.serving import (
         MNIST_MEAN, MNIST_STD, make_forecast_fn)
@@ -252,9 +792,12 @@ def main():
     log(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
         f'device {torch.cuda.get_device_name(0)}')
     t0 = time.perf_counter()
-    _build.build(['flow_fused', 'flow_fused_bwd'])
+    _build.build(['flow_fused', 'flow_fused_bwd', 'pathwise_fwd',
+                  'pathwise_bwd'])
     flow_fused._kernel()
     flow_fused._bwd_lib()
+    pathwise._lib()
+    pathwise._bwd_lib()
     log(f'build: {time.perf_counter() - t0:.1f} s')
 
     # -- 2. the forecaster at full width ---------------------------------
@@ -457,7 +1000,8 @@ def main():
         # the first step of a later epoch also counts the previous
         # epoch's monitoring eval (one forward launch)
         evals = 1 if i % per_epoch == 0 and ep > 0 else 0
-        if d[flow_fused.BWD_KERNEL] != 1 or d[flow_fused.KERNEL] != 1 + evals:
+        if d[flow_fused.BWD_KERNEL] != 1 or d[flow_fused.KERNEL] != (
+                1 + evals) or d['pathwise_fwd'] or d['pathwise_bwd']:
             raise AssertionError(f'train step {i} (epoch {ep}, L={L_}) '
                                  f'launched {d}')
     require([L_ for _, L_, _ in steps] == [1] * per_epoch + [L] * per_epoch,
@@ -512,48 +1056,17 @@ def main():
     log('sync check: 2 train steps (L=5, batch on the card) under '
         'set_sync_debug_mode("error"): no synchronising operation')
 
-    # one step's gradients on the GPU against the port's CPU step
-    rs = np.random.default_rng(args.seed + 3)
-    M_ = targs.num_inducing
-    noise_np = {'z0': rs.standard_normal((BATCH, q)),
-                'omega': rs.standard_normal((1, q, S, q)),
-                'phase_u': rs.random((1, 1, S, q)),
-                'weights': rs.standard_normal((1, S, q)),
-                'epsilon': rs.standard_normal((1, M_, q))}
-    grads = {}
-    for where in ('cuda', 'cpu'):
-        st = trainer.TrainState(
-            model=copy.deepcopy(state.model).to(where).train(),
-            gp=state.gp.detach().to(where).requires_grad_(),
-            optimizer=None, step=None)
-        for p in st.model.parameters():
-            p.grad = None
-        noise = {k: torch.as_tensor(v, dtype=torch.float32, device=where)
-                 for k, v in noise_np.items()}
-        loss, _ = trainer.loss_fn(st, batch.to(where), 1, targs.Ndata,
-                                  targs.eps_guard, noise=noise)
-        loss.backward()
-        grads[where] = dict(zip(st.param_names(),
-                                (p.grad.cpu() for p in st.params())))
-    # a convolution bias that feeds a train-mode BatchNorm has gradient 0
-    # (the normalisation removes it): both sides are rounding noise there,
-    # held to the scale of the same layer's weight gradient instead
-    scale = {n: float(g.abs().max()) for n, g in grads['cpu'].items()}
-    for n in trainer.bias_before_batchnorm(state.model):
-        scale[n] = scale[n[:-len('bias')] + 'weight']
-    worst, worst_name = 0.0, None
-    for n, gc in grads['cpu'].items():
-        rel = float((grads['cuda'][n] - gc).abs().max()) / max(scale[n],
-                                                               1e-30)
-        if rel > worst:
-            worst, worst_name = rel, n
-    log(f'GPU vs CPU train-step gradients ({len(scale)} leaves, L=1, same '
-        f'noise): max over leaves of max |gpu - cpu| / max |cpu| = '
-        f'{worst:.3e} at {worst_name} (tol {TOL_GRAD:g}; the '
-        f'{len(trainer.bias_before_batchnorm(state.model))} conv biases '
-        f'before a BatchNorm against their weight gradient)')
-    if not worst <= TOL_GRAD:
-        raise AssertionError('GPU gradients disagree with the CPU step')
+    # one step's gradients on the GPU against the port's CPU step (f64)
+    check_grads('GPU vs CPU (float64) train-step gradients (L=1, same '
+                'noise)', pinned_grads(
+                    state.model, state.gp, batch,
+                    step_noise(args.seed + 3, q, S, targs.num_inducing),
+                    targs.Ndata, targs.eps_guard, ('cuda', None),
+                    ('cpu', torch.float64)))
+
+    # -- 6b. this slice: the per-step kernels and the solvers -------------
+    slice_launches = {k: 0 for k in ops.LAUNCHES}
+    path = solver_paths(args, card, batch, targs, slice_launches)
 
     # -- 7. timings --------------------------------------------------------
     with torch.no_grad():
@@ -594,8 +1107,13 @@ def main():
 
     profile(lambda: fn(raw[1], args.seed), 'one T=16 request')
     profile(lambda: step(state, batch, L), f'one L={L} train step')
+    profile(path['rk4_profile'], f'one L={L} rk4 train step')
 
     ms_b, ms_bp, bound_b, by_b = bwd_ms[L]
+    kf, pf, bf, kb, pb, bb = path['pathwise_ms'][L]
+    for k in ('pathwise_fwd', 'pathwise_bwd'):
+        require(slice_launches[k] > 0, f'{k} was never launched on the '
+                                       f'paths of the solvers')
     log(json.dumps({'kernels': [{
         'name': flow_fused.KERNEL, 'route': 'cuda',
         'source': flow_fused.SOURCE, 'replaces': flow_fused.REPLACES,
@@ -609,7 +1127,17 @@ def main():
         'launches': (serve_launches[flow_fused.BWD_KERNEL]
                      + train_launches[flow_fused.BWD_KERNEL]),
         'max_abs_err': bwd_max_abs_err, 'ms': ms_b, 'plain_ms': ms_bp,
-        'bound_ms': bound_b, 'bound_by': by_b, 'library_ms': None}]}))
+        'bound_ms': bound_b, 'bound_by': by_b, 'library_ms': None}, {
+        'name': pathwise.KERNEL, 'route': 'cuda', 'source': pathwise.SOURCE,
+        'replaces': pathwise.REPLACES,
+        'launches': slice_launches[pathwise.KERNEL],
+        'max_abs_err': path['pathwise_err'][0], 'ms': kf, 'plain_ms': pf,
+        'bound_ms': bf[0], 'bound_by': bf[1], 'library_ms': None}, {
+        'name': pathwise.BWD_KERNEL, 'route': 'cuda',
+        'source': pathwise.BWD_SOURCE, 'replaces': pathwise.BWD_REPLACES,
+        'launches': slice_launches[pathwise.BWD_KERNEL],
+        'max_abs_err': path['pathwise_err'][1], 'ms': kb, 'plain_ms': pb,
+        'bound_ms': bb[0], 'bound_by': bb[1], 'library_ms': None}]}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

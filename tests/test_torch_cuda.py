@@ -7,7 +7,9 @@ The file imports no JAX (the GPU machine has none): each kernel is held
 against its plain PyTorch version on the card. Tolerances: the trajectory
 abs 1e-4 + rel 1e-4, f32 through up to 15 euler steps summed in another
 order; each adjoint cotangent 1e-4 (1 + its largest plain entry), sums
-over up to 300 rows, 15 steps and 1536 columns in another order.
+over up to 300 rows, 15 steps and 1536 columns in another order. The
+per-step eval and its VJP: the same two tolerances (sums over up to 600
+rows and 12288 feature columns).
 """
 
 import numpy as np
@@ -18,7 +20,7 @@ from vae_gp_ode_tpu_torch import ops
 from vae_gp_ode_tpu_torch.core.transforms import invsoftplus
 from vae_gp_ode_tpu_torch.gp.svgp import draw_fn_sample, init_svgp_params
 from vae_gp_ode_tpu_torch.models.odegpvae import init_model
-from vae_gp_ode_tpu_torch.ops import flow_fused
+from vae_gp_ode_tpu_torch.ops import flow_fused, pathwise
 from vae_gp_ode_tpu_torch.ops.pathwise import rbf_fused_operands
 from vae_gp_ode_tpu_torch.serving import make_forecast_fn
 from vae_gp_ode_tpu_torch.training import trainer
@@ -196,3 +198,107 @@ def test_forecaster_runs_through_the_kernel(cuda):
                           normalize_input=True, device='cuda')
     gpu_out = fn(X, 0, noise={k: v.to(cuda) for k, v in noise.items()})
     torch.testing.assert_close(gpu_out.cpu(), cpu_out, **TOL)
+
+
+# -- the per-step eval (kernel #3) and its VJP (kernel #4) -------------------
+
+def _pathwise_operands(dev, L, N, D, K, S, M=100, seed=0):
+    rng = np.random.default_rng(seed)
+    gp = init_svgp_params(rng, D, K, M, lengthscale=2.0, variance=0.7,
+                          device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        operands = rbf_fused_operands(gp, draw_fn_sample(gp, gen, S, L=L))
+    return torch.randn((L, N, D), generator=gen, device=dev), operands, gen
+
+
+@pytest.mark.parametrize('L,N,D,K,S', [
+    (1, 20, 6, 6, 256), (5, 20, 6, 6, 256), (5, 20, 12, 6, 256),
+    (5, 600, 6, 6, 256), (5, 20, 6, 6, 2048), (5, 20, 12, 12, 256),
+    (2, 3, 1, 1, 1)])
+def test_pathwise_kernels_match_plain(cuda, L, N, D, K, S):
+    x, operands, gen = _pathwise_operands(cuda, L, N, D, K, S)
+    before = dict(ops.LAUNCHES)
+    with torch.no_grad():
+        out = pathwise.fused_pathwise_eval(x, *operands)
+        ref = pathwise.pathwise_eval_reference(x, *operands)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES['pathwise_fwd'] == before['pathwise_fwd'] + 1
+    torch.testing.assert_close(out, ref, **TOL)
+    inputs = [t.clone().requires_grad_() for t in (x,) + operands]
+    out = pathwise.fused_pathwise_eval(*inputs)
+    g = torch.randn(out.shape, generator=gen, device=cuda)
+    grads = torch.autograd.grad(out, inputs, g)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES['pathwise_bwd'] == before['pathwise_bwd'] + 1
+    _assert_cotangents(grads, pathwise.pathwise_vjp_reference(
+        x, *operands, g))
+
+
+def test_pathwise_kernels_per_draw_gp_operands_and_no_draw_dim(cuda):
+    """Z, ls and var per draw (the continuous adjoint's layout) give
+    per-draw cotangents; operands without a draw dim give (N, K)."""
+    L = 3
+    x, operands, gen = _pathwise_operands(cuda, L, 20, 6, 6, 256)
+    per = list(operands)
+    for i in (3, 5, 6):
+        per[i] = (operands[i].expand((L,) + tuple(operands[i].shape))
+                  * (1.0 + 0.1 * torch.arange(L, device=cuda).reshape(
+                      (L,) + (1,) * operands[i].dim()))).contiguous()
+    g = torch.randn((L, 20, 6), generator=gen, device=cuda)
+    inputs = [t.clone().requires_grad_() for t in [x] + per]
+    got = torch.autograd.grad(pathwise.fused_pathwise_eval(*inputs), inputs,
+                              g)
+    assert got[4].shape == per[3].shape and got[7].shape == per[6].shape
+    _assert_cotangents(got, pathwise.pathwise_vjp_reference(x, *per, g))
+    one = [t[0] if t.dim() > nd else t for t, nd in zip(
+        operands, pathwise._BASE_DIMS)]
+    with torch.no_grad():
+        out = pathwise.fused_pathwise_eval(x[0], *one)
+    assert out.shape == (20, 6)
+    torch.testing.assert_close(out, pathwise.pathwise_eval_reference(
+        x[0], *one), **TOL)
+    with pytest.raises(TypeError, match='float32'):
+        pathwise.fused_pathwise_eval(x.double(), *operands)
+
+
+def _bwd_smem_bytes(D, K, S, M, T, rows=4, threads=512):
+    """csrc/flow_fused_bwd.cu's smem_bytes, transcribed (as in
+    tests/test_torch_flow.py)."""
+    KS, KM = K * S, K * M
+    slab = D * KS + 2 * KS + 2 * D * KM + 2 * KM + (T - 1)
+    return 4 * (slab + 3 * rows * D + (threads // 32) * (rows * D + 1))
+
+
+@pytest.mark.parametrize('order,q,S,fits', [
+    (1, 6, 256, True), (1, 6, 1024, True), (1, 6, 2048, False),
+    (1, 12, 256, False), (2, 8, 256, False)])
+def test_fused_pair_rule_on_the_card(cuda, order, q, S, fits):
+    """The adjoint kernel's exported shared-memory need is the formula the
+    CPU tests hold the rule to, and the rule decides as they do on an
+    H100 (232,448 bytes of opt-in shared memory per block)."""
+    lib = flow_fused._bwd_lib()
+    D = q * order
+    assert lib.flow_fused_bwd_smem_bytes(D, q, S, 100, 16) == \
+        _bwd_smem_bytes(D, q, S, 100, 16)
+    assert flow_fused.fused_pair_fits(D, q, S, 100, 16, cuda) == fits
+
+
+def test_rk4_and_wide_train_steps_take_the_per_step_kernels(cuda):
+    """A full-width train step with solver='rk4', and one at S=2048 with
+    euler (which the fused pair refuses), launch the per-step kernels and
+    never the fused pair; losses finite."""
+    for kw in (dict(solver='rk4'), dict(num_features=2048)):
+        model, gp = init_model(0, device='cuda', lengthscale=2.0,
+                               variance=0.7, **kw)
+        state = trainer.create_train_state(model, gp)
+        step = trainer.make_train_step(360.0, eps_guard=True)
+        X = (torch.rand(20, 16, 1, 28, 28, generator=torch.Generator(
+            device=cuda).manual_seed(0), device=cuda) - 0.1307) / 0.3081
+        before = dict(ops.LAUNCHES)
+        metrics = step(state, X, 5)
+        torch.cuda.synchronize()
+        d = {k: ops.LAUNCHES[k] - before[k] for k in before}
+        assert d['flow_fused_fwd'] == d['flow_fused_bwd'] == 0, (kw, d)
+        assert d['pathwise_fwd'] > 0 and d['pathwise_bwd'] > 0, (kw, d)
+        assert all(bool(torch.isfinite(v).all()) for v in metrics.values())

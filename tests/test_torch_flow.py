@@ -23,6 +23,7 @@ from vae_gp_ode_tpu.ops import flow_fused as jff
 from vae_gp_ode_tpu_torch import ops
 from vae_gp_ode_tpu_torch.dynamics import flow as tflow
 from vae_gp_ode_tpu_torch.gp import svgp as tsvgp
+from vae_gp_ode_tpu_torch.kernels.rbf import RBFParams
 from vae_gp_ode_tpu_torch.ops import flow_fused as tff
 from vae_gp_ode_tpu_torch.utils.jax_import import gp_from_jax
 
@@ -154,17 +155,90 @@ def test_flow_forward_matches_jax(order):
 
 
 def test_flow_forward_rejects_what_is_not_ported():
+    """What the flow still refuses: the DF kernel and the shared-
+    lengthscale RBF kernel (no GP of either can be built), an unknown
+    solver, order 3 and fewer than 2 time points. Every solver of
+    dynamics.solvers and dense output are ported
+    (tests/test_torch_solvers.py)."""
     rng = np.random.default_rng(50)
     _, tgp = _gp_pair(rng, 1)
     z0 = torch.zeros(N, Q)
     ts = torch.arange(T, dtype=torch.float32) * 0.1
-    for kw in ({'solver': 'rk4'}, {'solver': 'dopri5'}, {'dense': 2}):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            tflow.flow_forward(tgp, None, z0, ts, device='cpu', **kw)
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        tsvgp.init_svgp_params(rng, Q, Q, M, kernel='DF')
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        RBFParams(torch.zeros(Q), torch.zeros(1))
+    with pytest.raises(ValueError, match='unknown solver'):
+        tflow.flow_forward(tgp, None, z0, ts, solver='rk45', device='cpu')
     with pytest.raises(ValueError):
         tflow.flow_forward(tgp, None, z0, ts, order=3, device='cpu')
     with pytest.raises(ValueError, match='2 time points'):
         tflow.flow_forward(tgp, None, z0, ts[:1], device='cpu')
+
+
+# -- the dispatch rule for the fused pair (kernels #1 and #2) ---------------
+
+def _bwd_smem_bytes(D, K, S, M, T, rows=4, threads=512):
+    """The shared memory of one adjoint block, as csrc/flow_fused_bwd.cu's
+    `smem_bytes` computes it (its exported `flow_fused_bwd_smem_bytes` is
+    held to this on the GPU in tests/test_torch_cuda.py)."""
+    KS, KM = K * S, K * M
+    slab = D * KS + 2 * KS + 2 * D * KM + 2 * KM + (T - 1)
+    RD = rows * D
+    return 4 * (slab + 3 * RD + (threads // 32) * (RD + 1))
+
+
+H100_SMEM_OPTIN = 232448      # bytes per block, cudaDevAttrMaxSharedMemoryPerBlockOptin
+
+
+@pytest.mark.parametrize('order,q,S,fits', [
+    (1, 6, 256, True),         # the default run
+    (1, 6, 1024, True),        # 232,156 bytes
+    (2, 6, 256, True),         # D = 12
+    (1, 6, 2048, False),       # 428,764 bytes
+    (1, 12, 256, False),       # 300,604 bytes
+    (2, 8, 256, False),        # D = 16, 261,244 bytes
+    (2, 9, 16, False)])        # D = 18 > 16
+def test_fused_pair_rule_on_the_refused_shapes(order, q, S, fits):
+    """The shapes of the adjoint kernel's refusals (ROADMAP Queue C #2):
+    the rule sends them to the solvers before any launch."""
+    from vae_gp_ode_tpu_torch.ops.flow_fused import pair_fits
+    D = q * order
+    assert pair_fits(D, _bwd_smem_bytes(D, q, S, 100, 16),
+                     H100_SMEM_OPTIN) == fits
+    assert not pair_fits(D, 1024, -1)      # an unreadable limit refuses
+
+
+def test_euler_fallback_runs_the_solver_scan(monkeypatch):
+    """Where the pair does not fit, euler at dense=1 integrates with the
+    euler scan of dynamics.solvers over fn_eval: the same trajectory, nfe
+    and gradients as the fused pair's plain version."""
+    rng = np.random.default_rng(53)
+    _, tgp = _gp_pair(rng, 1)
+    noise = {'omega': rng.standard_normal((L, Q, S, Q)),
+             'phase_u': rng.random((L, 1, S, Q)),
+             'weights': rng.standard_normal((L, S, Q)),
+             'epsilon': rng.standard_normal((L, M, Q))}
+    z0 = torch.as_tensor((rng.standard_normal((N, Q)) * 0.5).astype(
+        np.float32))
+    ts = torch.as_tensor((0.1 * np.arange(T)).astype(np.float32))
+    out = {}
+    for fused in (True, False):
+        monkeypatch.setattr(tflow, 'use_fused_pair',
+                            lambda *a, fused=fused: fused)
+        gp = tgp.detach().requires_grad_()
+        sample = tsvgp.draw_fn_sample(gp, None, S, noise={
+            k: torch.as_tensor(v, dtype=torch.float32)
+            for k, v in noise.items()})
+        zs, nfe = tflow.flow_forward(gp, sample, z0, ts, device='cpu')
+        grads = torch.autograd.grad((zs * zs).sum(), gp.parameters()[:3])
+        out[fused] = (zs.detach(), nfe, grads)
+    np.testing.assert_allclose(out[False][0].numpy(), out[True][0].numpy(),
+                               **TOL)
+    assert out[False][1] == out[True][1] == L * (T - 1)
+    for a, b in zip(out[False][2], out[True][2]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-5 * float(b.abs().max()))
 
 
 def test_cuda_default_raises_without_a_gpu(monkeypatch):

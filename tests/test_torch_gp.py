@@ -205,3 +205,88 @@ def test_unported_kernels_and_bad_order_raise():
     _, tgp = _gp_pair(rng)
     with pytest.raises(ValueError):
         tflow.make_ode_rhs(tgp, None, 3)
+
+
+# -- a Cholesky that fails gives NaN, as in the JAX package ------------------
+
+def test_failed_cholesky_gives_nan_in_both_packages():
+    """A (2, 4, 4) gram whose second block is not positive definite: the
+    JAX package's Cholesky is all NaN there, and so is the port's (the
+    info of `cholesky_ex` masks it); the first block's factor and the nu
+    computed through it agree."""
+    from vae_gp_ode_tpu.core import linalg as jlinalg
+    from vae_gp_ode_tpu_torch.core import linalg as tlinalg
+    A = np.stack([np.eye(4) * 2.0 + 0.5,
+                  [[1, 2, 0, 0], [2, 1, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]]]
+                 ).astype(np.float32)
+    mine = tlinalg.cholesky(torch.as_tensor(A)).numpy()
+    ref = np.asarray(jlinalg.cholesky(jnp.asarray(A)))
+    assert np.isnan(ref[1][np.tril_indices(4)]).all()
+    np.testing.assert_array_equal(mine[1], ref[1])      # NaN where JAX's is
+    np.testing.assert_allclose(mine[0], ref[0], **TIGHT)
+
+    p = trbf.init_rbf_params(3, 2, lengthscale=0.8, variance=0.6)
+    rng = np.random.default_rng(9)
+    u_prior = rng.standard_normal((4, 2)).astype(np.float32)
+    u = rng.standard_normal((4, 2)).astype(np.float32)
+    jp = jrbf.init_rbf_params(3, 2, dimwise=True, lengthscale=0.8,
+                              variance=0.6)
+    nu = trbf.rbf_compute_nu(p, torch.as_tensor(A) - 1e-5 * torch.eye(4),
+                             torch.as_tensor(u_prior), torch.as_tensor(u))
+    jnu = jrbf.rbf_compute_nu(jp, jnp.asarray(A) - 1e-5 * jnp.eye(4),
+                              jnp.asarray(u_prior), jnp.asarray(u))
+    assert np.isnan(np.asarray(jnu)[1]).all() and torch.isnan(nu[1]).all()
+    assert_close_scaled(nu[0], np.asarray(jnu)[0])
+
+
+def _non_pd_gp(gp):
+    """Every inducing point at the origin and kernel variances of 1e4 for
+    output dims 1.. : their jittered grams var * ones + 1e-5 I round to the
+    rank-one var * ones in f32, which both packages' Cholesky refuse."""
+    with torch.no_grad():
+        gp.inducing_loc.zero_()
+        gp.kernel.unconstrained_variance[1:] = 1e4
+    return gp
+
+
+def test_train_step_with_a_failed_cholesky_is_discarded():
+    """A train step whose GP draw meets a gram that is not positive
+    definite: nu is NaN in both packages for those output dims, the loss
+    is NaN, and the NaN guard leaves parameters, BatchNorm statistics,
+    Adam's state and the step count as they were (the JAX package's
+    guard)."""
+    from vae_gp_ode_tpu_torch.models.odegpvae import init_model
+    from vae_gp_ode_tpu_torch.training import trainer
+    model, gp = init_model(0, latent_dim=Q, n_filt=4, num_features=S,
+                           num_inducing=M, device='cpu')
+    gp = _non_pd_gp(gp)
+    state = trainer.create_train_state(model, gp)
+    sample = tsvgp.draw_fn_sample(gp, torch.Generator().manual_seed(0), S,
+                                  L=1)
+    assert torch.isnan(sample.nu[:, 1:]).all()
+    assert torch.isfinite(sample.nu[:, 0]).all()
+    jgp = jsvgp.SVGPParams(
+        kernel=jrbf.RBFParams(*(jnp.asarray(x.detach().numpy()) for x in (
+            gp.kernel.unconstrained_lengthscales,
+            gp.kernel.unconstrained_variance))),
+        inducing_loc=jnp.asarray(gp.inducing_loc.detach().numpy()),
+        Um=jnp.asarray(gp.Um.detach().numpy()),
+        Us_sqrt=jnp.asarray(gp.Us_sqrt.detach().numpy()))
+    js = jsvgp.draw_fn_sample(jgp, None, S, noise=_j(_noise(
+        np.random.default_rng(1), Q, Q)))
+    assert np.isnan(np.asarray(js.nu)[1:]).all()
+
+    before = {n: p.detach().clone() for n, p in
+              zip(state.param_names(), state.params())}
+    buffers = {n: b.clone() for n, b in state.model.named_buffers()}
+    X = torch.as_tensor(np.random.default_rng(2).random(
+        (3, 5, 1, 28, 28)).astype(np.float32))
+    metrics = trainer.make_train_step(360.0, eps_guard=True)(
+        state, X, 1, torch.Generator().manual_seed(3))
+    assert not torch.isfinite(metrics['loss'])
+    for n, p in zip(state.param_names(), state.params()):
+        assert torch.equal(p, before[n]), n
+    for n, b in state.model.named_buffers():
+        assert torch.equal(b, buffers[n]), n
+    assert int(state.step) == 0 and int(state.optimizer.count) == 0
+    assert not state.optimizer.mu.any()

@@ -13,6 +13,8 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, 'vae_gp_ode_tpu_torch')
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'vae_gp_ode_tpu')
+#: the port's scripts at the repository root
+SCRIPTS = ['chip_smoke', 'grad_precision_probe']
 
 
 def _port_modules():
@@ -28,7 +30,7 @@ def _port_modules():
 
 
 def _python_sources():
-    paths = [os.path.join(ROOT, 'chip_smoke.py')]
+    paths = [os.path.join(ROOT, f'{name}.py') for name in SCRIPTS]
     for dirpath, _, files in os.walk(PKG):
         paths += [os.path.join(dirpath, f) for f in files
                   if f.endswith('.py')]
@@ -56,6 +58,7 @@ def test_every_module_imports_with_jax_blocked():
     interpreter where importing jax, flax or the JAX package fails."""
     for mod in ('main', 'data.mnist', 'data.synthetic', 'training.trainer',
                 'training.checkpoint', 'training.meters', 'ops.flow_fused',
+                'ops.pathwise', 'dynamics.solvers', 'dynamics.adjoint',
                 'utils.jax_import'):
         assert f'vae_gp_ode_tpu_torch.{mod}' in _port_modules()
     code = (
@@ -63,7 +66,7 @@ def test_every_module_imports_with_jax_blocked():
         f'for name in {FORBIDDEN!r}:\n'
         '    sys.modules[name] = None\n'
         'import importlib\n'
-        f'for mod in {_port_modules() + ["chip_smoke"]!r}:\n'
+        f'for mod in {_port_modules() + SCRIPTS!r}:\n'
         '    importlib.import_module(mod)\n'
         'bad = [m for m in sys.modules if sys.modules[m] is not None and\n'
         f'       m.split(".")[0] in {FORBIDDEN!r}]\n'
@@ -82,7 +85,8 @@ def test_cuda_sources_are_plain_cuda():
     torch.utils.cpp_extension."""
     csrc = os.path.join(PKG, 'csrc')
     sources = [f for f in os.listdir(csrc) if f.endswith(('.cu', '.cuh'))]
-    assert {'flow_fused.cu', 'flow_fused_bwd.cu'} <= set(sources)
+    assert {'flow_fused.cu', 'flow_fused_bwd.cu', 'pathwise_fwd.cu',
+            'pathwise_bwd.cu'} <= set(sources)
     for fn in sources:
         with open(os.path.join(csrc, fn)) as f:
             text = f.read()

@@ -572,13 +572,32 @@ def test_cli_run_trains_and_checkpoints(tmp_path):
 
 @pytest.mark.parametrize('flag', [
     ['--pretrained', 'True'], ['--data_parallel', 'True'],
-    ['--kernel', 'DF'], ['--solver', 'rk4'], ['--ts_dense_scale', '2'],
-    ['--use_adjoint', 'True'], ['--epochs_per_dispatch', '2'],
+    ['--kernel', 'DF'], ['--epochs_per_dispatch', '2'],
     ['--dimwise', 'False']])
 def test_cli_refuses_paths_not_ported(tmp_path, flag):
+    """Paths not ported yet raise (the solver flags are ported:
+    test_cli_runs_the_solver_flags)."""
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tmain.run(_cli_args(tmp_path, *flag))
     assert not os.path.exists(tmp_path / 'run')
+
+
+@pytest.mark.parametrize('flag', [
+    ['--solver', 'rk4'], ['--solver', 'euler', '--ts_dense_scale', '2'],
+    ['--solver', 'rk4', '--use_adjoint', 'True']])
+def test_cli_runs_the_solver_flags(tmp_path, flag):
+    """--solver, --ts_dense_scale and --use_adjoint reach the model and
+    train (one epoch, finite losses, the plain versions on the CPU)."""
+    args = _cli_args(tmp_path, *flag)
+    args.Nepoch = 1
+    before = dict(ops.LAUNCHES)
+    result = tmain.run(args)
+    assert ops.LAUNCHES == before
+    model = result['state'].model
+    assert (model.solver, model.dense, model.use_adjoint) == (
+        args.solver, args.ts_dense_scale, args.use_adjoint)
+    assert result['bailout'] is None
+    assert np.isfinite(result['epochs'][0]['loss']).all()
 
 
 def test_cli_defaults_and_device(tmp_path, monkeypatch):

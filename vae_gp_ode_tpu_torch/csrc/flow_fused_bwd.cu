@@ -312,6 +312,23 @@ extern "C" long long flow_fused_bwd_slab_floats(int D, int K, int S, int M,
 // Rows per block: n_tiles = ceil(N / rows).
 extern "C" int flow_fused_bwd_rows() { return kRows; }
 
+// Dynamic shared memory one block needs at these shapes; the launch refuses
+// shapes where it exceeds flow_fused_bwd_smem_optin(device), so a caller
+// can decide before the forward whether the pair of kernels will run.
+extern "C" long long flow_fused_bwd_smem_bytes(int D, int K, int S, int M,
+                                               int T) {
+  return (long long)smem_bytes(D, K, S, M, T);
+}
+
+// The device's opt-in shared memory per block, or -1 if it cannot be read.
+extern "C" int flow_fused_bwd_smem_optin(int device) {
+  int optin = 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess)
+    return -1;
+  return optin;
+}
+
 // Launches the adjoint kernel on `stream` and returns cudaGetLastError()
 // (or cudaErrorInvalidValue for shapes it does not take: D > 16, or a slab
 // larger than the block's shared memory). Operands are f32 and contiguous;

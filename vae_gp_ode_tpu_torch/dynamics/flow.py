@@ -1,19 +1,20 @@
 """ODE flow over a sampled GP vector field (port of
 `vae_gp_ode_tpu/dynamics/flow.py`).
 
-This slice integrates with first- or second-order euler at dense=1 (the
-main configuration) through the fused trajectory kernel
-(ops.flow_fused): one launch for all the draws of a batched `FnSample`.
-Other solvers and dense output are not ported yet and raise.
+First-order euler at dense=1 (the main configuration) runs the whole
+trajectory of all the draws of a batched `FnSample` in one kernel, with
+its discrete adjoint in another (`ops.flow_fused`), wherever that pair
+takes the shapes (`use_fused_pair`). Every other solver, dense output,
+and the shapes the pair refuses integrate with `dynamics.solvers.odeint`
+over `gp.svgp.fn_eval`, whose per-step evaluation and its VJP are the
+kernels of `ops.pathwise` on the GPU.
 """
 
 import torch
 
 from vae_gp_ode_tpu_torch.core.device import check_device, resolve_device
+from vae_gp_ode_tpu_torch.dynamics.solvers import SOLVERS, odeint
 from vae_gp_ode_tpu_torch.gp.svgp import SVGPParams, FnSample, fn_eval
-
-_SOLVERS_TODO = ('solvers other than euler, and dense > 1, are not ported '
-                 'yet (ROADMAP Queue A item 11)')
 
 
 def make_ode_rhs(gp: SVGPParams, sample: FnSample, order: int):
@@ -34,28 +35,52 @@ def make_ode_rhs(gp: SVGPParams, sample: FnSample, order: int):
     return rhs
 
 
+def use_fused_pair(sample: FnSample, z0, T, order):
+    """Whether the euler flow runs the fused trajectory kernel and its
+    adjoint: decided from the shapes alone, before any launch. On the GPU
+    the adjoint kernel must take the state dim and fit its block's shared
+    memory (`ops.flow_fused.fused_pair_fits`); on the CPU the pair's plain
+    versions take every shape."""
+    if z0.device.type != 'cuda':
+        return True
+    from vae_gp_ode_tpu_torch.ops.flow_fused import fused_pair_fits
+    D = z0.shape[-1]
+    return fused_pair_fits(D, D // order, sample.rff.weights.shape[-2],
+                           sample.nu.shape[-2], T, z0.device)
+
+
 def flow_forward(gp: SVGPParams, sample: FnSample, z0, ts, order=1,
-                 solver='euler', dense=1, device='cuda'):
+                 solver='euler', dense=1, rtol=1e-6, atol=1e-6,
+                 max_steps=256, remat=True, device='cuda'):
     """Integrate z0 (N, D) over ts (T,) under the sample(s).
 
     Returns (zs, nfe): zs (..., N, T, D) where `...` is the sample's batch
-    of draws, and nfe the number of RHS evaluations over all draws. The
-    tensors must lie on `device` (default the GPU, where the fused kernel
-    runs; 'cpu' computes its plain version).
+    of draws, and nfe the number of RHS evaluations over all draws (a
+    Python int, or a 0-d device tensor for the adaptive solvers, whose
+    draws each take their own steps). The tensors must lie on `device`
+    (default the GPU, where the kernels run; 'cpu' computes their plain
+    versions).
     """
     dev = resolve_device(device)
     check_device(z0, dev, 'z0')
     if order not in (1, 2):
         raise ValueError(f'ODE order must be 1 or 2, got {order}')
-    if solver != 'euler' or dense != 1:
-        raise NotImplementedError(f'solver={solver!r}, dense={dense}: '
-                                  + _SOLVERS_TODO)
+    if solver not in SOLVERS:
+        raise ValueError(f'unknown solver {solver!r}; choose from {SOLVERS}')
     T = ts.shape[0]
     if T < 2:
         raise ValueError(f'need at least 2 time points, got {T}')
-    from vae_gp_ode_tpu_torch.ops.flow_fused import fused_euler_flow
-    from vae_gp_ode_tpu_torch.ops.pathwise import rbf_fused_operands
-    zs = fused_euler_flow(z0, *rbf_fused_operands(gp, sample),
-                          torch.diff(ts), T, order)
-    draws = zs[..., 0, 0, 0].numel()
-    return zs.transpose(-3, -2), (T - 1) * draws
+    if solver == 'euler' and dense == 1 and use_fused_pair(sample, z0, T,
+                                                           order):
+        from vae_gp_ode_tpu_torch.ops.flow_fused import fused_euler_flow
+        from vae_gp_ode_tpu_torch.ops.pathwise import rbf_fused_operands
+        zs = fused_euler_flow(z0, *rbf_fused_operands(gp, sample),
+                              torch.diff(ts), T, order)
+        draws = zs[..., 0, 0, 0].numel()
+        return zs.transpose(-3, -2), (T - 1) * draws
+    lead = tuple(sample.nu.shape[:-3])
+    z = z0.expand(lead + tuple(z0.shape[-2:])) if lead else z0
+    sol = odeint(make_ode_rhs(gp, sample, order), z, ts, method=solver,
+                 dense=dense, rtol=rtol, atol=atol, max_steps=max_steps,
+                 remat=remat, batched=bool(lead))
+    return sol.zs.movedim(0, -2), sol.nfe

@@ -23,6 +23,7 @@ from vae_gp_ode_tpu_torch.core.transforms import (
     softplus, invsoftplus, unpack_tril, pack_tril,
 )
 from vae_gp_ode_tpu_torch.kernels import rbf as rbfk
+from vae_gp_ode_tpu_torch.ops import pathwise
 
 @dataclasses.dataclass
 class SVGPParams:
@@ -183,14 +184,13 @@ def draw_fn_sample(p: SVGPParams, generator, S,
 def fn_eval(p: SVGPParams, s: FnSample, x):
     """Evaluate the sampled posterior function(s): prior + update.
 
-    The plain PyTorch evaluation. The per-step Hopper kernel that the JAX
-    package's Pallas `fused_pathwise_eval` becomes is the next slice
-    (ROADMAP Queue B); the euler trajectory of the main path does not
-    call this function (dynamics.flow runs the fused trajectory kernel).
+    x (..., N, D_in) with the sample's batch of draws -> (..., N, D_out),
+    through `ops.pathwise.fused_pathwise_eval` at every shape: on CUDA
+    tensors the per-step kernel pair (`csrc/pathwise_fwd.cu`, its VJP
+    `csrc/pathwise_bwd.cu`), on CPU tensors its plain version.
     """
-    f_prior = rbfk.rbf_rff_eval(p.kernel, s.rff, x)
-    f_up = rbfk.rbf_f_update(p.kernel, s.nu, x, p.inducing_loc)
-    return f_prior + f_up
+    return pathwise.fused_pathwise_eval(
+        x, *pathwise.rbf_fused_operands(p, s))
 
 
 def svgp_kl(p: SVGPParams):

@@ -120,12 +120,6 @@ _NOT_PORTED = (
      'Queue A item 10 (DF kernel)'),
     ('--dimwise False', lambda a: a.dimwise,
      'Queue A item 2 (shared-lengthscale RBF)'),
-    ('--solver', lambda a: a.solver == 'euler',
-     'Queue A item 11 (solvers)'),
-    ('--ts_dense_scale', lambda a: a.ts_dense_scale == 1,
-     'Queue A item 11 (solvers, dense output)'),
-    ('--use_adjoint', lambda a: not a.use_adjoint,
-     'Queue A item 11 (continuous adjoint)'),
     ('--epochs_per_dispatch', lambda a: a.epochs_per_dispatch == 1,
      'Queue A item 7 (multi-epoch segments)'),
 )
@@ -206,9 +200,10 @@ def run(args, on_step=None):
 
     model, gp = init_model(
         args.seed, latent_dim=args.latent_dim, n_filt=args.n_filt,
-        order=args.ode, frames=args.frames, dt=args.dt,
-        num_features=args.num_features, num_inducing=args.num_inducing,
-        q_diag=args.q_diag, device=dev)
+        order=args.ode, frames=args.frames, dt=args.dt, solver=args.solver,
+        dense=args.ts_dense_scale, num_features=args.num_features,
+        num_inducing=args.num_inducing, q_diag=args.q_diag,
+        use_adjoint=args.use_adjoint, device=dev)
     # kernel hyperparameters initialised twice, as the reference does
     with torch.no_grad():
         gp.kernel.unconstrained_lengthscales.fill_(
@@ -223,10 +218,12 @@ def run(args, on_step=None):
     logger.info(
         'Model parameters: num features %d | num inducing %d | num epochs '
         '%d | lr %g | ode %d | D_in %d | D_out %d | dt %g | kernel %s | '
-        'latent_dim %d | variance %g | lengthscale %g | rotrand %s',
+        'latent_dim %d | variance %g | lengthscale %g | rotrand %s | '
+        'solver %s | dense %d | adjoint %s',
         args.num_features, args.num_inducing, args.Nepoch, args.lr,
         args.ode, args.D_in, args.D_out, args.dt, args.kernel,
-        args.latent_dim, args.variance, args.lengthscale, args.rotrand)
+        args.latent_dim, args.variance, args.lengthscale, args.rotrand,
+        args.solver, args.ts_dense_scale, args.use_adjoint)
 
     ckpt_path = os.path.join(save, 'odegpvae_mnist.ckpt')
     if args.continue_training and args.model_path != 'None':

@@ -4,7 +4,8 @@
   1. encode frame 0 into q(z0) and reparameterise (plus a velocity encoder
      over the first `frames` frames for 2nd-order ODEs),
   2. draw L pathwise GP samples as one batch of draws and integrate the L
-     latent trajectories in one fused-kernel launch,
+     latent trajectories as one batch (`solver`, `dense`, `rtol`, `atol`,
+     `max_steps`, `remat`; `use_adjoint` for the continuous adjoint),
   3. decode all L*N*T latent states in one batched decoder call.
 
 Sequences are (N, T, 1, d, d), NCHW frames. Randomness comes from a
@@ -20,7 +21,9 @@ import torch
 from torch import nn
 
 from vae_gp_ode_tpu_torch.core.device import resolve_device
+from vae_gp_ode_tpu_torch.dynamics.adjoint import flow_forward_adjoint
 from vae_gp_ode_tpu_torch.dynamics.flow import flow_forward
+from vae_gp_ode_tpu_torch.dynamics.solvers import SOLVERS
 from vae_gp_ode_tpu_torch.gp.svgp import (
     SVGPParams, draw_fn_sample, init_svgp_params,
 )
@@ -34,17 +37,29 @@ class ODEGPVAE(nn.Module):
     separate `SVGPParams` passed to `forward`."""
 
     def __init__(self, latent_dim=6, n_filt=8, order=1, frames=5, dt=0.1,
-                 num_features=256, device='cuda'):
+                 solver='euler', dense=1, rtol=1e-6, atol=1e-6,
+                 max_steps=256, num_features=256, use_adjoint=False,
+                 remat=True, device='cuda'):
         super().__init__()
         dev = resolve_device(device)
         if order not in (1, 2):
             raise ValueError(f'ODE order must be 1 or 2, got {order}')
+        if solver not in SOLVERS:
+            raise ValueError(f'unknown solver {solver!r}; choose from '
+                             f'{SOLVERS}')
         self.latent_dim = latent_dim
         self.n_filt = n_filt
         self.order = order
         self.frames = frames
         self.dt = dt
+        self.solver = solver
+        self.dense = dense
+        self.rtol = rtol
+        self.atol = atol
+        self.max_steps = max_steps
         self.num_features = num_features
+        self.use_adjoint = use_adjoint    # continuous adjoint vs backprop
+        self.remat = remat                # rematerialise solver steps
         self.encoder = Encoder(latent_dim, n_filt, frames=1)
         self.decoder = Decoder(latent_dim, n_filt)
         if order == 2:
@@ -77,7 +92,8 @@ class ODEGPVAE(nn.Module):
                             generator=None, noise: Optional[dict] = None):
         """Integrate L trajectories, each under a fresh GP function draw;
         the L draws are one batch. Returns ztL (L, N, T, D) and the total
-        number of RHS evaluations."""
+        number of RHS evaluations (a device tensor for the adaptive
+        solvers)."""
         ts = self.dt * torch.arange(T, dtype=z0.dtype, device=z0.device)
         if noise is not None:
             noise = {k: noise[k] for k in _GP_NOISE}
@@ -87,8 +103,12 @@ class ODEGPVAE(nn.Module):
                                      f'expected L={L}')
         sample = draw_fn_sample(gp, generator, self.num_features,
                                 noise=noise, L=L)
-        return flow_forward(gp, sample, z0, ts, order=self.order,
-                            device=z0.device)
+        kw = dict(order=self.order, solver=self.solver, dense=self.dense,
+                  rtol=self.rtol, atol=self.atol, max_steps=self.max_steps,
+                  device=z0.device)
+        if self.use_adjoint:
+            return flow_forward_adjoint(gp, sample, z0, ts, **kw)
+        return flow_forward(gp, sample, z0, ts, remat=self.remat, **kw)
 
     def decode(self, ztL):
         """Decode latent trajectories (L, N, T, D) -> (L, N, T, 1, d, d);
@@ -176,22 +196,26 @@ def _init_weights(model, rng, random_bn=False):
 
 
 def init_model(seed=0, *, latent_dim=6, n_filt=8, order=1, frames=5,
-               dt=0.1, num_features=256, num_inducing=100, q_diag=False,
-               lengthscale=0.2, variance=0.1, random_bn=False,
-               device='cuda'):
+               dt=0.1, solver='euler', dense=1, rtol=1e-6, atol=1e-6,
+               max_steps=256, num_features=256, num_inducing=100,
+               q_diag=False, lengthscale=0.2, variance=0.1, random_bn=False,
+               use_adjoint=False, remat=True, device='cuda'):
     """Build (model, gp) as the JAX package's `init_model` does, from the
     numpy seed `seed`: flax-default VAE initialisers (see `_init_weights`;
     `random_bn=True` draws non-trivial BatchNorm statistics), and a
     dimwise-RBF GP that maps q*order inputs to q outputs with
     inducing_loc ~ N(0, 1), Um ~ 0.1 N(0, 1), Us_sqrt = 1e-3 I and the
     kernel at `lengthscale`/`variance` (the JAX package's 0.2/0.1; the
-    training CLI then sets its own, as `main.py` does).
+    training CLI then sets its own, as `main.py` does). The solver
+    settings are the model's fields (`ODEGPVAE`).
     """
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     model = ODEGPVAE(latent_dim=latent_dim, n_filt=n_filt, order=order,
-                     frames=frames, dt=dt, num_features=num_features,
-                     device='cpu')
+                     frames=frames, dt=dt, solver=solver, dense=dense,
+                     rtol=rtol, atol=atol, max_steps=max_steps,
+                     num_features=num_features, use_adjoint=use_adjoint,
+                     remat=remat, device='cpu')
     _init_weights(model, rng, random_bn=random_bn)
     gp = init_svgp_params(rng, latent_dim * order, latent_dim, num_inducing,
                           q_diag=q_diag, lengthscale=lengthscale,

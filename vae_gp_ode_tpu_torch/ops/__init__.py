@@ -5,7 +5,8 @@ adds one where it launches its CUDA kernel and nowhere else, so a run can
 show that its path went through the kernels.
 """
 
-LAUNCHES = {'flow_fused_fwd': 0, 'flow_fused_bwd': 0}
+LAUNCHES = {'flow_fused_fwd': 0, 'flow_fused_bwd': 0, 'pathwise_fwd': 0,
+            'pathwise_bwd': 0}
 
 
 def reset_launches():

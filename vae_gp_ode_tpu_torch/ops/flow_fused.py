@@ -216,7 +216,30 @@ def _bwd_lib():
         lib.flow_fused_bwd_slab_floats.restype = ctypes.c_longlong
         lib.flow_fused_bwd_rows.argtypes = []
         lib.flow_fused_bwd_rows.restype = ctypes.c_int
+        lib.flow_fused_bwd_smem_bytes.argtypes = [_I] * 5
+        lib.flow_fused_bwd_smem_bytes.restype = ctypes.c_longlong
+        lib.flow_fused_bwd_smem_optin.argtypes = [_I]
+        lib.flow_fused_bwd_smem_optin.restype = ctypes.c_int
     return lib
+
+
+def pair_fits(D, smem_bytes, optin):
+    """The dispatch rule of the fused pair: the trajectory kernel and its
+    adjoint take a flow when the state dim is at most BWD_MAX_D and one
+    adjoint block's shared memory (`smem_bytes`) fits the device's opt-in
+    limit per block (`optin`; negative when it could not be read)."""
+    return D <= BWD_MAX_D and 0 <= smem_bytes <= optin
+
+
+def fused_pair_fits(D, K, S, M, T, device):
+    """`pair_fits` on `device` (a CUDA device), from the adjoint kernel's
+    own `flow_fused_bwd_smem_bytes` and the device's opt-in limit: decided
+    from the shapes alone, before any launch."""
+    lib = _bwd_lib()
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return pair_fits(D, lib.flow_fused_bwd_smem_bytes(D, K, S, M, T),
+                     lib.flow_fused_bwd_smem_optin(index))
 
 
 def _launch(z0, omf, phf, ws, Zb, zn, il2, nus, dts, T, order):

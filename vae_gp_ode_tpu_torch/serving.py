@@ -12,7 +12,8 @@ MNIST_STD = 0.3081
 
 
 def make_forecast_fn(model, params, gp, *, L=1, T_custom=None,
-                     mc_reduce='none', normalize_input=False,
+                     mc_reduce='none', normalize_input=False, solver=None,
+                     dense=None, rtol=None, atol=None, max_steps=None,
                      device='cuda'):
     """Close a trained (model, params, gp) over ``fn(X, seed) -> Xrec``.
 
@@ -30,12 +31,21 @@ def make_forecast_fn(model, params, gp, *, L=1, T_custom=None,
 
     mc_reduce: 'none' -> Xrec (L, N, T, 1, d, d), all MC samples;
                'mean' -> Xrec (N, T, 1, d, d), their mean.
+
+    solver, dense, rtol, atol, max_steps: the ODE solver settings of the
+    forecast (None keeps the model's own), as the JAX package's
+    `make_forecast_fn` takes them; the model's fields are set to them.
     """
     if mc_reduce not in ('none', 'mean'):
         raise ValueError(f'mc_reduce must be none|mean, got {mc_reduce!r}')
     dev = resolve_device(device)
     if params is not None:
         model.load_state_dict(params)
+    for name, value in (('solver', solver), ('dense', dense),
+                        ('rtol', rtol), ('atol', atol),
+                        ('max_steps', max_steps)):
+        if value is not None:
+            setattr(model, name, value)
     model.to(dev).eval()
     gp = gp.to(dev)
 

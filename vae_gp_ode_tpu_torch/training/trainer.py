@@ -1,10 +1,11 @@
 """Train and eval steps (port of `vae_gp_ode_tpu/training/trainer.py`).
 
 One train step is: forward (encoder with train-mode BatchNorm -> z0 ->
-L pathwise GP draws as one batch -> the fused trajectory kernel ->
-decoder over L*N*T frames), the ELBO, `backward()` (which launches the
-trajectory's adjoint kernel once), and Adam over the VAE parameters and
-the GP leaves jointly. PyTorch updates in place: a step mutates the
+L pathwise GP draws as one batch -> the flow: at the default euler the
+fused trajectory kernel, with the other solvers the per-step kernels ->
+decoder over L*N*T frames), the ELBO, `backward()` (the trajectory's
+adjoint kernel once, or the per-step VJP kernel per evaluation), and
+Adam over the VAE parameters and the GP leaves jointly. PyTorch updates in place: a step mutates the
 `TrainState` and returns its metrics as device tensors.
 
 Adam is optax.adam's arithmetic, op for op in f32 (`Adam` below), not
@@ -13,8 +14,10 @@ and that decides whether the first step, which moves every leaf by about
 lr, leaves the q(u) scale's 1e-3 diagonal at ~6.6e-9 (optax) or at 0
 (torch), where the inducing KL is infinite.
 
-The step never waits for the card: nothing in it reads a device value on
-the host. Its NaN guard (the JAX package's `_make_epoch_fn` semantics: a
+With the default euler and with the other fixed-step solvers the step
+never waits for the card: nothing in it reads a device value on the host
+(the adaptive solvers read their `done` flags every 16 candidate
+steps). Its NaN guard (the JAX package's `_make_epoch_fn` semantics: a
 step whose loss is not finite leaves parameters, BatchNorm statistics,
 Adam's moments and count, and the step count as they were) is computed on
 the device with `torch.where`.
@@ -211,7 +214,8 @@ def make_train_step(num_observations: float, eps_guard: bool = False):
                 torch.where(ok, b, old, out=b)
             return {'loss': loss.detach(), 'nll': nll.detach(),
                     'kl_reg': kl_reg.detach(), 'kl_u': kl_u.detach(),
-                    'nfe': torch.full((), nfe, device=loss.device),
+                    'nfe': (nfe.detach() if torch.is_tensor(nfe) else
+                            torch.full((), nfe, device=loss.device)),
                     'kernel_var': rbf_variance(state.gp.kernel)}
 
     return train_step

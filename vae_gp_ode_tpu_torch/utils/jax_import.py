@@ -129,7 +129,9 @@ def from_jax(variables_np, gp_np):
 
 def train_state_from_jax(state_np, *, latent_dim=6, n_filt=8, order=1,
                          frames=5, dt=0.1, num_features=256, lr=1e-3,
-                         fix_kernel=False, device='cuda'):
+                         fix_kernel=False, solver='euler', dense=1,
+                         rtol=1e-6, atol=1e-6, max_steps=256,
+                         use_adjoint=False, remat=True, device='cuda'):
     """The port's `training.trainer.TrainState` from a JAX `TrainState`
     given as nested dicts of numpy arrays:
 
@@ -140,13 +142,16 @@ def train_state_from_jax(state_np, *, latent_dim=6, n_filt=8, order=1,
                   'mu': {'params': ..., 'gp': SVGP leaves},
                   'nu': {'params': ..., 'gp': SVGP leaves}}}
 
-    The model is built at the given widths on `device`."""
+    The model is built at the given widths and solver settings (the JAX
+    ODEGPVAE's fields) on `device`."""
     from vae_gp_ode_tpu_torch.models.odegpvae import ODEGPVAE
     from vae_gp_ode_tpu_torch.training.trainer import create_train_state
     sd, gp = from_jax(state_np['variables'], state_np['gp'])
     model = ODEGPVAE(latent_dim=latent_dim, n_filt=n_filt, order=order,
-                     frames=frames, dt=dt, num_features=num_features,
-                     device=device)
+                     frames=frames, dt=dt, solver=solver, dense=dense,
+                     rtol=rtol, atol=atol, max_steps=max_steps,
+                     num_features=num_features, use_adjoint=use_adjoint,
+                     remat=remat, device=device)
     model.load_state_dict(sd)
     state = create_train_state(model, gp.to(model.device), lr=lr,
                                fix_kernel=fix_kernel)

@@ -47,10 +47,25 @@ Run from the repository root on a machine with an NVIDIA H100:
    GPU vs CPU gradients, a sync check, step times); three train steps
    each with dopri5 and with the rk4 continuous adjoint (whose gradients
    are held to rk4 backprop); one dopri5 forecast request;
+6c. the divergence-free (DF) kernel's paths, each run with the counts set
+   to 0 just before and read just after: kernels #5-#8 (the per-step eval
+   and its VJP, the euler trajectory and its adjoint) against their plain
+   versions (L=1 and 5, N=20 and 600, D=6 and 3, non-uniform dts, GP
+   operands per draw, z0 per draw, S=512); the pair's rule and one train
+   step at S=512, which it refuses, through #5/#6 against the plain
+   version on the card; the training CLI's run() with --kernel DF for 2
+   epochs (every step launches #7 and #8 once and no other kernel; GPU vs
+   CPU float64 gradients); 3 steps with --solver rk4 through #5/#6 (GPU vs
+   CPU gradients) and one rk4-adjoint step held to rk4 backprop; three DF
+   requests and a T=32 rollout with random weights (one #7 launch each);
+   one request from the shipped checkpoint checkpoints/df_5000ep (read
+   with restore_jax_checkpoint) against the port's CPU forward; kernel
+   times with bounds, DF train steps at L=1 and 5;
 7. times kernels, requests and train steps with CUDA events, and traces
-   one request, one L=5 train step and one L=5 rk4 train step with
-   torch.profiler (device kernels by time, the device's idle share);
-8. prints one JSON line on the kernels and, as the last line,
+   one request, one L=5 train step, one L=5 rk4 train step, one DF
+   request and one DF L=5 train step with torch.profiler (device kernels
+   by time, the device's idle share);
+8. prints one JSON line on the eight kernels and, as the last line,
    {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero without the last line;
@@ -240,15 +255,16 @@ def compare_bwd(out, ref, what, names=('z0', 'omf', 'phf', 'ws', 'Zb', 'zn',
     return worst
 
 
-def step_noise(seed, q, S, M, L_=1, batch=None, order=1):
+def step_noise(seed, q, S, M, L_=1, batch=None, order=1, df=False):
     """Raw draws for one train step (z0 and L_ GP draws) from a numpy
-    seed, the same for the GPU and the CPU step."""
+    seed, the same for the GPU and the CPU step (`df`: the divergence-free
+    kernel's 2S weights)."""
     import numpy as np
     rs = np.random.default_rng(seed)
     return {'z0': rs.standard_normal((batch or BATCH, q)),
             'omega': rs.standard_normal((L_, q * order, S, q)),
             'phase_u': rs.random((L_, 1, S, q)),
-            'weights': rs.standard_normal((L_, S, q)),
+            'weights': rs.standard_normal((L_, 2 * S if df else S, q)),
             'epsilon': rs.standard_normal((L_, M, q))}
 
 
@@ -751,6 +767,483 @@ def solver_paths(args, card, batch, targs, slice_launches):
     return out
 
 
+def df_eval_flops(D, SD, M):
+    """f32 operations of one DF evaluation per row, counted from
+    csrc/df_common.cuh `eval_partials`: per feature column the dot product
+    and phase (2D + 1), sin and cos (2) and the G contraction (4D); per
+    inducing point the distance (3D) and per output-dim pair the envelope,
+    the Hessian term and the accumulation (~12)."""
+    return SD * (6 * D + 3) + M * (3 * D + 12 * D * D)
+
+
+def df_vjp_flops(D, SD, M):
+    """f32 operations of one DF evaluation's recompute and VJP per row,
+    counted from csrc/df_common.cuh `vjp_accumulate`: per feature column
+    SD * (17 D + 6), per inducing point M * (8 D + 42 D^2)."""
+    return SD * (17 * D + 6) + M * (8 * D + 42 * D * D)
+
+
+def roofline(flops, tensors):
+    """Least time (ms) on an H100: the larger of `flops` over the f32 peak
+    and the bytes of `tensors` (inputs read once, outputs written once)
+    over the memory rate; and which of the two bounds it."""
+    nbytes = sum(4 * t.numel() for t in tensors)
+    t_ops = flops / H100_FP32_FLOPS * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ('operations' if t_ops >= t_bytes
+                                 else 'bytes')
+
+
+def to_device(obj, device, dtype=None):
+    """A copy of an SVGPParams or FnSample (dataclasses of tensors, nested)
+    with every tensor moved to `device` (and `dtype`)."""
+    import torch
+    kw = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if torch.is_tensor(v):
+            kw[f.name] = v.to(device, dtype)
+        elif dataclasses.is_dataclass(v):
+            kw[f.name] = to_device(v, device, dtype)
+    return dataclasses.replace(obj, **kw)
+
+
+def df_paths(args, card, batch, slice_launches):
+    """The divergence-free (DF) paths of this slice: kernels #5-#8 against
+    their plain versions, the training CLI's run() with --kernel DF, DF
+    with rk4 and the rk4 adjoint, the DF forecaster with random weights
+    and from the shipped checkpoint checkpoints/df_5000ep, and the DF
+    timings. Adds each path run's launches to `slice_launches` (counts set
+    to 0 just before it, read just after) and returns what the summary
+    line needs."""
+    import numpy as np
+    import torch
+    from vae_gp_ode_tpu_torch import main as train_cli
+    from vae_gp_ode_tpu_torch import ops
+    from vae_gp_ode_tpu_torch.dynamics.flow import flow_forward
+    from vae_gp_ode_tpu_torch.gp.svgp import draw_fn_sample, init_svgp_params
+    from vae_gp_ode_tpu_torch.kernels import divfree
+    from vae_gp_ode_tpu_torch.models.odegpvae import init_model
+    from vae_gp_ode_tpu_torch.ops import df_flow_fused, df_pathwise
+    from vae_gp_ode_tpu_torch.serving import make_forecast_fn
+    from vae_gp_ode_tpu_torch.training import checkpoint, trainer
+
+    dev = torch.device('cuda')
+    q, S, M = CONFIG['latent_dim'], CONFIG['num_features'], \
+        CONFIG['num_inducing']
+    DFC = dict(CONFIG, kernel='DF')
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 21)
+    rng = np.random.default_rng(args.seed + 21)
+    out = {}
+
+    def run_path(fn):
+        ops.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        d = dict(ops.LAUNCHES)
+        for k in slice_launches:
+            slice_launches[k] += d[k]
+        return res, d
+
+    def df_ops(L_, N_, q_=q, S_=S, ls=2.0):
+        g = init_svgp_params(rng, q_, q_, M, kernel='DF', lengthscale=ls,
+                             variance=0.7, device='cuda')
+        with torch.no_grad():
+            operands = df_pathwise.df_fused_operands(
+                g, draw_fn_sample(g, gen, S_, L=L_))
+        require(all(bool(torch.isfinite(t).all()) for t in operands),
+                f'non-finite DF sample at q={q_} S={S_}')
+        return torch.randn((L_, N_, q_), generator=gen, device=dev), operands
+
+    # -- kernels #5 and #6 against their plain versions -------------------
+    log('kernels df_pathwise_fwd / df_pathwise_bwd vs df_pathwise_reference '
+        '(and autograd through it) on the card:')
+    fwd_errs, bwd_errs, main5 = [], [], {}
+    for name, L_, N_, q_, S_, ls, per_draw in (
+            ('L=1, N=20, D=6 (main)', 1, BATCH, q, S, 2.0, False),
+            ('L=5, N=20, D=6 (main)', L, BATCH, q, S, 2.0, False),
+            ('L=5, N=600', L, 600, q, S, 2.0, False),
+            ('L=5, D=3 (ls 0.5)', L, BATCH, 3, S, 0.5, False),
+            ('L=5, Z, ls2, var per draw', L, BATCH, q, S, 2.0, True),
+            ('L=5, S=512 (refused by the pair)', L, BATCH, q, 512, 2.0,
+             False)):
+        x, operands = df_ops(L_, N_, q_, S_, ls)
+        if per_draw:
+            operands = list(operands)
+            for i in (3, 5, 6):
+                operands[i] = (operands[i].expand(
+                    (L_,) + tuple(operands[i].shape)) * (
+                    1.0 + 0.05 * torch.arange(L_, device=dev).reshape(
+                        (L_,) + (1,) * operands[i].dim()))).contiguous()
+            operands = tuple(operands)
+        with torch.no_grad():
+            o = df_pathwise.fused_df_pathwise_eval(x, *operands)
+            r = df_pathwise.df_pathwise_reference(x, *operands)
+        torch.cuda.synchronize()
+        require(o.shape == (L_, N_, q_), f'shape {o.shape}')
+        fwd_errs.append(compare(o, r, 'fwd ' + name))
+        inputs = [t.clone().requires_grad_() for t in (x,) + operands]
+        o = df_pathwise.fused_df_pathwise_eval(*inputs)
+        gbar = torch.randn(o.shape, generator=gen, device=dev)
+        bars = torch.autograd.grad(o, inputs, gbar)
+        ref = df_pathwise.df_pathwise_vjp_reference(x, *operands, gbar)
+        torch.cuda.synchronize()
+        bwd_errs.append(compare_bwd(bars, ref, 'bwd ' + name,
+                                    ('x',) + df_pathwise.NAMES))
+        if 'main' in name:
+            main5[L_] = (x, operands, gbar)
+    out['pathwise_err'] = (max(fwd_errs), max(bwd_errs))
+
+    # -- kernels #7 and #8 against their plain versions -------------------
+    log('kernels df_flow_fused_fwd / df_flow_fused_bwd vs '
+        'df_euler_flow_reference (and autograd through it) on the card:')
+    # D=3 runs 3 steps: its field (|f| ~ 20 at lengthscale 0.5) triples an
+    # f32 rounding difference every step, so at T=16 the f32 and float64
+    # trajectories of the plain version already differ by 2.2 (CPU)
+    fwd_errs, bwd_errs, main7 = [], [], {}
+    for name, L_, N_, q_, ls, T_, uniform, z0_per_draw in (
+            ('L=1, N=20, T=16 (main)', 1, BATCH, q, 2.0, T, True, False),
+            ('L=5, N=20, T=16 (main)', L, BATCH, q, 2.0, T, True, False),
+            ('L=5, N=600', L, 600, q, 2.0, T, True, False),
+            ('L=5, D=3 (ls 0.5), T=4, non-uniform dts', L, BATCH, 3, 0.5, 4,
+             False, False),
+            ('L=5, z0 per draw', L, BATCH, q, 2.0, T, True, True)):
+        x, operands = df_ops(L_, N_, q_, S, ls)
+        z0 = x if z0_per_draw else x[0]
+        dts = (torch.full((T_ - 1,), CONFIG['dt'], device=dev) if uniform
+               else torch.rand(T_ - 1, generator=gen, device=dev) * 0.15
+               + 0.05)
+        with torch.no_grad():
+            zs = df_flow_fused.packed_df_euler_flow(z0, *operands, dts, T_)
+            ref = df_flow_fused.df_euler_flow_reference(z0, *operands, dts,
+                                                        T_)
+        torch.cuda.synchronize()
+        require(zs.shape == (L_, T_, N_, q_), f'shape {zs.shape}')
+        fwd_errs.append(compare(zs, ref, 'fwd ' + name))
+        inputs = [t.clone().requires_grad_() for t in (z0, *operands, dts)]
+        zs = df_flow_fused.packed_df_euler_flow(*inputs, T_)
+        zsbar = torch.randn(zs.shape, generator=gen, device=dev)
+        bars = torch.autograd.grad(zs, inputs, zsbar)
+        ref = list(df_flow_fused.df_flow_vjp_reference(
+            zs.detach(), zsbar, *operands, dts, T_))
+        if not z0_per_draw:
+            ref[0] = ref[0].sum(0)
+        torch.cuda.synchronize()
+        bwd_errs.append(compare_bwd(bars, ref, 'bwd ' + name,
+                                    ('z0',) + df_pathwise.NAMES + ('dts',)))
+        if 'main' in name:
+            main7[L_] = (z0, operands, dts, zs.detach(), zsbar)
+    out['flow_err'] = (max(fwd_errs), max(bwd_errs))
+
+    # -- the pair's rule, and a step at a shape it refuses -----------------
+    lib = df_flow_fused._bwd_lib()
+    optin = lib.df_flow_fused_bwd_smem_optin(0)
+    for (q_, S_), fits in (((6, 256), True), ((6, 384), True),
+                           ((6, 512), False), ((12, 256), False)):
+        nbytes = lib.df_flow_fused_bwd_smem_bytes(q_, S_ * q_, M, T)
+        got = df_flow_fused.df_fused_pair_fits(q_, S_ * q_, M, T, dev)
+        require(got == fits, f'DF rule at q={q_} S={S_}: {got}')
+        log(f'  DF rule: q={q_}, S={S_}: adjoint block {nbytes} B of '
+            f'{optin} B opt-in -> {"fused pair" if got else "per-step"}')
+    wide, wide_gp = init_model(args.seed + 22, device='cuda',
+                               **dict(DFC, num_features=512))
+    noise = step_noise(args.seed + 23, q, 512, M, df=True)
+    relu_k = {}
+    with cudnn_deterministic():
+        (loss_g, _, _, g_gpu), d = run_path(lambda: step_grads(
+            wide, wide_gp, batch, noise, 360.0, True, 'cuda',
+            relu_in=relu_k))
+    require(d['df_pathwise_fwd'] > 0 and d['df_pathwise_bwd'] > 0 and
+            d['df_flow_fused_fwd'] == 0 and d['df_flow_fused_bwd'] == 0,
+            f'the DF S=512 step launched {d}')
+    kernel_eval = df_pathwise.fused_df_pathwise_eval
+    df_pathwise.fused_df_pathwise_eval = df_pathwise.df_pathwise_reference
+    relu_p = {}
+    try:
+        with cudnn_deterministic():
+            (loss_p, _, _, g_plain), dp = run_path(lambda: step_grads(
+                wide, wide_gp, batch, noise, 360.0, True, 'cuda',
+                relu_in=relu_p, relu_pin=relu_k))
+    finally:
+        df_pathwise.fused_df_pathwise_eval = kernel_eval
+    require(not any(dp.values()), f'the plain DF S=512 step launched {dp}')
+    check_grads(f'DF, one train step at S=512 (the pair refuses it; L=1), '
+                f'launches {d}, against autograd through the plain version '
+                f'on the card', (float(loss_g), float(loss_p),
+                                 *worst_grad_error(g_gpu, g_plain, wide),
+                                 *relu_flips(relu_k, relu_p)))
+    del wide, wide_gp
+
+    # -- the default DF training run: the CLI's run() ----------------------
+    save = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
+                        'chip_smoke', 'df')
+    dargs = train_args(save, '--kernel', 'DF', '--lengthscale', '2.0',
+                       '--variance', '0.7')
+    steps, seen = [], {}
+
+    def on_step(ep, L_):
+        now = dict(ops.LAUNCHES)
+        steps.append((ep, L_, deltas(seen, now)))
+        seen.update(now)
+
+    t0 = time.perf_counter()
+    result, d = run_path(lambda: train_cli.run(dargs, on_step=on_step))
+    train_s = time.perf_counter() - t0
+    require(result['bailout'] is None, 'NaN bailout in the DF run')
+    per_epoch = dargs.Ndata // dargs.batch + bool(dargs.Ndata % dargs.batch)
+    require(len(steps) == TRAIN_EPOCHS * per_epoch, f'{len(steps)} steps')
+    for i, (ep, L_, dd) in enumerate(steps):
+        evals = 1 if i % per_epoch == 0 and ep > 0 else 0
+        others = {k: v for k, v in dd.items() if not k.startswith('df_flow')}
+        require(dd['df_flow_fused_fwd'] == 1 + evals and
+                dd['df_flow_fused_bwd'] == 1 and not any(others.values()),
+                f'DF train step {i} (epoch {ep}, L={L_}) launched {dd}')
+    losses = np.concatenate([e['loss'] for e in result['epochs']])
+    require(np.isfinite(losses).all() and losses.size == len(steps),
+            f'DF losses {losses}')
+    mses = [float(e['mse']) for e in result['epochs']]
+    require(np.isfinite(mses).all(), f'DF monitoring mse {mses}')
+    log(f'training path, --kernel DF: run() for {TRAIN_EPOCHS} epochs, '
+        f'{len(steps)} steps in {train_s:.1f} s; every step launched '
+        f'df_flow_fused_fwd and df_flow_fused_bwd once and no other kernel; '
+        f'launches {d}; losses first {losses[0]:.2f} last {losses[-1]:.2f}; '
+        f'monitoring mse {", ".join(f"{m:.4f}" for m in mses)}')
+    dstate = result['state']
+    dstep = trainer.make_train_step(dargs.Ndata, eps_guard=dargs.eps_guard)
+    check_grads('DF: GPU vs CPU (float64) train-step gradients at the '
+                'trained state (L=1, same noise)', pinned_grads(
+                    dstate.model, dstate.gp, batch,
+                    step_noise(args.seed + 24, q, S, M, df=True),
+                    dargs.Ndata, dargs.eps_guard, ('cuda', None),
+                    ('cpu', torch.float64)))
+
+    # -- DF with rk4, and the rk4 continuous adjoint -----------------------
+    rm, rgp = init_model(args.seed + 25, device='cuda',
+                         **dict(DFC, solver='rk4'))
+    rst = trainer.create_train_state(rm, rgp, lr=dargs.lr)
+    rstep = trainer.make_train_step(dargs.Ndata, eps_guard=dargs.eps_guard)
+    rstep(rst, batch, L)                                     # warm-up
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+
+    def few():
+        ev0.record()
+        ms = [rstep(rst, batch, L) for _ in range(3)]
+        ev1.record()
+        return ms
+    mets, d = run_path(few)
+    lossv = [float(m['loss']) for m in mets]
+    require(np.isfinite(lossv).all(), f'DF rk4 losses {lossv}')
+    require(d['df_pathwise_fwd'] > 0 and d['df_pathwise_bwd'] > 0 and
+            d['df_flow_fused_fwd'] == 0 and d['df_flow_fused_bwd'] == 0 and
+            d['pathwise_fwd'] == 0, f'DF rk4 launched {d}')
+    out['rk4_ms'] = ev0.elapsed_time(ev1) / 3
+    log(f'DF --solver rk4: 3 train steps (L=5) {out["rk4_ms"]:.3f} ms each '
+        f'(CUDA events); losses {lossv}; launches {d}; card {card}')
+    check_grads('DF rk4: GPU vs CPU (float64) train-step gradients (L=1, '
+                'same noise)', pinned_grads(
+                    rst.model, rst.gp, batch,
+                    step_noise(args.seed + 26, q, S, M, df=True),
+                    dargs.Ndata, dargs.eps_guard, ('cuda', None),
+                    ('cpu', torch.float64)))
+    adjoint = copy.deepcopy(rst.model)
+    adjoint.use_adjoint = True
+    noise = step_noise(args.seed + 27, q, S, M, L_=L, df=True)
+    with cudnn_deterministic():
+        res, d = run_path(lambda: pinned_grads(
+            adjoint, rst.gp, batch, noise, dargs.Ndata, dargs.eps_guard,
+            ('cuda', None), ('cuda', None), L, ref_model=rst.model))
+    require(d['df_pathwise_bwd'] > 0 and d['df_flow_fused_fwd'] == 0,
+            f'DF rk4 adjoint launched {d}')
+    check_grads('DF rk4 adjoint vs rk4 backprop on the card (L=5, same '
+                'noise)', res)
+    out['rk4_profile'] = lambda: rstep(rst, batch, L)
+
+    # -- the DF forecaster: random weights, then the shipped checkpoint ---
+    fm, fgp = init_model(args.seed + 28, device='cuda', random_bn=True,
+                         **DFC)
+    fn = make_forecast_fn(fm, None, fgp, L=L, normalize_input=True,
+                          device='cuda')
+    fn_roll = make_forecast_fn(fm, None, fgp, L=L, T_custom=T * TROLL,
+                               normalize_input=True, device='cuda')
+    raw = [np.random.default_rng(args.seed + 29 + i).random(
+        (BATCH, T, 1, 28, 28)).astype(np.float32) for i in range(3)]
+    fn(raw[0], args.seed)                                    # warm-up
+    fn_roll(raw[0], args.seed)
+    torch.cuda.synchronize()
+    out['request_ms'] = []
+    for i, (f, X, Tout) in enumerate([(fn, raw[0], T), (fn, raw[1], T),
+                                      (fn, raw[2], T),
+                                      (fn_roll, raw[0], T * TROLL)]):
+        ev0.record()
+        Xrec, d = run_path(lambda: f(X, args.seed + i))
+        ev1.record()
+        torch.cuda.synchronize()
+        out['request_ms'].append(ev0.elapsed_time(ev1))
+        require(Xrec.shape == (L, BATCH, Tout, 1, 28, 28) and bool(
+            torch.isfinite(Xrec).all()), f'DF forecast {i}')
+        require(d['df_flow_fused_fwd'] == 1 and sum(d.values()) == 1,
+                f'DF request {i} launched {d}')
+    log(f'DF forecaster (random weights, L={L}): requests T={T} '
+        + ', '.join(f'{m:.3f}' for m in out['request_ms'][:3])
+        + f' ms, rollout T={T * TROLL} {out["request_ms"][3]:.3f} ms (CUDA '
+        f'events, host work included), one df_flow_fused_fwd launch each; '
+        f'card {card}')
+
+    # GPU forward vs the port's CPU forward, same noise (as for RBF)
+    n_small, L_small = 4, 2
+    fnoise = {k: torch.as_tensor(v[:n_small] if k == 'z0' else v,
+                                 dtype=torch.float32) for k, v in step_noise(
+        args.seed + 31, q, S, M, L_=L_small, df=True).items()}
+    Xs = (torch.as_tensor(raw[1][:n_small]) - 0.1307) / 0.3081
+    with torch.no_grad():
+        gpu_out = fm.eval()(Xs.to(dev), fgp, L=L_small, noise={
+            k: v.to(dev) for k, v in fnoise.items()})[0]
+        cpu_out = copy.deepcopy(fm).to('cpu').eval()(
+            Xs, fgp.to('cpu'), L=L_small, noise=fnoise)[0]
+    fwd_err = float((gpu_out.cpu() - cpu_out).abs().max())
+    log(f'DF: GPU forward vs CPU forward ({n_small} sequences, L={L_small}, '
+        f'same noise, random weights): max abs err {fwd_err:.3e} (tol '
+        f'{TOL_FORWARD:g})')
+    require(fwd_err <= TOL_FORWARD, 'the DF GPU forward disagrees with the '
+            'CPU forward')
+    out['forward_err'] = fwd_err
+
+    # the shipped checkpoint (a trained DF run of the JAX package), read
+    # with numpy alone
+    ckdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         'checkpoints', 'df_5000ep')
+    with open(os.path.join(ckdir, 'args.json')) as fh:
+        ta = json.load(fh)
+    cm, cgp = init_model(0, latent_dim=ta['latent_dim'],
+                         n_filt=ta['n_filt'], dt=ta['dt'],
+                         num_features=ta['num_features'],
+                         num_inducing=ta['num_inducing'],
+                         kernel=ta['kernel'], device='cuda')
+    cst = checkpoint.restore_jax_checkpoint(
+        os.path.join(ckdir, 'odegpvae_mnist.ckpt'),
+        trainer.create_train_state(cm, cgp))
+    with torch.no_grad():
+        Ku = divfree.df_gram(cst.gp.kernel, cst.gp.inducing_loc).to(
+            'cpu', torch.float64)
+        Ku = (Ku + Ku.T) / 2 + 1e-5 * torch.eye(Ku.shape[0],
+                                               dtype=torch.float64)
+        cond = float(torch.linalg.cond(Ku))
+    cfn = make_forecast_fn(cst.model, None, cst.gp, L=L,
+                           normalize_input=True, device='cuda')
+    cnoise = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+              for k, v in step_noise(args.seed + 30, q, ta['num_features'],
+                                     ta['num_inducing'], L_=L,
+                                     df=True).items()}
+    Xc, d = run_path(lambda: cfn(raw[1], 0, noise=cnoise))
+    require(Xc.shape == (L, BATCH, T, 1, 28, 28) and bool(
+        torch.isfinite(Xc).all()), 'the checkpoint forecast is not finite')
+    require(d['df_flow_fused_fwd'] == 1, f'checkpoint request launched {d}')
+    cpu_model = copy.deepcopy(cst.model).to('cpu').eval()
+    cpu_gp = cst.gp.to('cpu')
+    Xn = (torch.as_tensor(raw[1]) - 0.1307) / 0.3081
+    cpu_noise = {k: v.cpu() for k, v in cnoise.items()}
+    ts = CONFIG['dt'] * torch.arange(T, dtype=torch.float32)
+    with torch.no_grad():
+        Xcpu = cpu_model(Xn, cpu_gp, L=L, noise=cpu_noise)[0]
+        gsample = draw_fn_sample(cst.gp, None, ta['num_features'],
+                                 noise=cnoise)
+        # the trajectory of one sample (the CPU's) on the card (kernel #7),
+        # by the plain version on the CPU in f32, and in float64
+        smp = draw_fn_sample(cpu_gp, None, ta['num_features'],
+                             noise=cpu_noise)
+        z0c = cpu_model.encode(Xn, reparam_noise=(cpu_noise['z0'], None))[0]
+        zs_gpu, dd = run_path(lambda: flow_forward(
+            cst.gp, to_device(smp, dev), z0c.to(dev), ts.to(dev))[0])
+        zs_32 = flow_forward(cpu_gp, smp, z0c, ts, device='cpu')[0]
+        zs_64 = flow_forward(to_device(cpu_gp, 'cpu', torch.float64),
+                             to_device(smp, 'cpu', torch.float64),
+                             z0c.double(), ts.double(), device='cpu')[0]
+    require(dd['df_flow_fused_fwd'] == 1, f'checkpoint flow launched {dd}')
+    nu_rel = float((gsample.nu.cpu() - smp.nu).abs().max()
+                   / smp.nu.abs().max())
+    err_req = float((Xc.cpu() - Xcpu).abs().max())
+    err_gpu = float((zs_gpu.cpu().double() - zs_64).abs().max())
+    err_32 = float((zs_32.double() - zs_64).abs().max())
+    log(f'forecaster from checkpoints/df_5000ep (restore_jax_checkpoint; '
+        f'step {int(cst.step)}), L={L}, 20 sequences, T={T}: frames '
+        f'finite, one df_flow_fused_fwd launch; the trained (600, 600) '
+        f'gram + jitter has condition number {cond:.3e} (float64), so '
+        f'cuSOLVER\'s and LAPACK\'s f32 nu differ by {nu_rel:.3e} of the '
+        f'largest and the request\'s frames by {err_req:.3e} from the CPU '
+        f'forward with the same noise; one sample\'s latent trajectory '
+        f'against float64 on the CPU: kernel {err_gpu:.3e}, the plain '
+        f'version in f32 {err_32:.3e} (max |z| '
+        f'{float(zs_64.abs().max()):.3f})')
+    require(err_gpu <= 4.0 * err_32 + TOL_ABS, 'the DF trajectory kernel is '
+            'less accurate than its plain version on the trained model')
+    require(err_req <= 0.1, 'the checkpoint forecast moved further from the '
+            'CPU forward than the gram\'s conditioning explains')
+    out['ckpt'] = (cond, nu_rel, err_req, err_gpu, err_32)
+
+    # -- times ---------------------------------------------------------------
+    out['kernel_ms'] = {}
+    for L_ in (1, L):
+        x, operands, gbar = main5[L_]
+        rows = x.shape[0] * x.shape[1]
+        SD = operands[0].shape[-1]
+        with torch.no_grad():
+            o = df_pathwise.fused_df_pathwise_eval(x, *operands)
+            k5 = cuda_ms(lambda: df_pathwise.fused_df_pathwise_eval(
+                x, *operands), 200)
+            p5 = cuda_ms(lambda: df_pathwise.df_pathwise_reference(
+                x, *operands), 20)
+        b5 = roofline(rows * df_eval_flops(q, SD, M), (x,) + operands + (o,))
+        inputs = [t.clone().requires_grad_() for t in (x,) + operands]
+        oo = df_pathwise.fused_df_pathwise_eval(*inputs)
+        k6 = cuda_ms(lambda: torch.autograd.grad(oo, inputs, gbar,
+                                                 retain_graph=True), 200)
+        p6 = cuda_ms(lambda: df_pathwise.df_pathwise_vjp_reference(
+            x, *operands, gbar), 20)
+        bars = torch.autograd.grad(oo, inputs, gbar)
+        b6 = roofline(rows * df_vjp_flops(q, SD, M),
+                      (x,) + operands + (gbar,) + tuple(bars))
+        z0, ops7, dts, zs, zsbar = main7[L_]
+        with torch.no_grad():
+            k7 = cuda_ms(lambda: df_flow_fused.packed_df_euler_flow(
+                z0, *ops7, dts, T), 100)
+            p7 = cuda_ms(lambda: df_flow_fused.df_euler_flow_reference(
+                z0, *ops7, dts, T), 5)
+        rows7 = L_ * BATCH * (T - 1)
+        b7 = roofline(rows7 * (df_eval_flops(q, SD, M) + 2 * q),
+                      (z0,) + ops7 + (dts, zs))
+        k8 = cuda_ms(lambda: df_flow_fused.df_flow_vjp(
+            zs, zsbar, *ops7, dts, T), 100)
+        p8 = cuda_ms(lambda: df_flow_fused.df_flow_vjp_reference(
+            zs, zsbar, *ops7, dts, T), 5)
+        outs8 = df_flow_fused.df_flow_vjp(zs, zsbar, *ops7, dts, T)
+        b8 = roofline(rows7 * df_vjp_flops(q, SD, M),
+                      (zs, zsbar) + ops7 + (dts,) + tuple(outs8))
+        out['kernel_ms'][L_] = {'df_pathwise_fwd': (k5, p5, b5),
+                                'df_pathwise_bwd': (k6, p6, b6),
+                                'df_flow_fused_fwd': (k7, p7, b7),
+                                'df_flow_fused_bwd': (k8, p8, b8)}
+        log(f'DF kernels at the main shapes L={L_} (N=20, D=6, S=256, '
+            f'M=100, T=16), ms (plain; bound): ' + '; '.join(
+                f'{k} {v[0]:.4f} ({v[1]:.4f}; {v[2][0]:.5f} {v[2][1]})'
+                for k, v in out['kernel_ms'][L_].items())
+            + f'; #6 through torch.autograd.grad, #6/#8 with slab sums; '
+            f'card {card}')
+    out['step_ms'] = {}
+    for L_ in (1, L):
+        for _ in range(2):
+            dstep(dstate, batch, L_)
+        out['step_ms'][L_] = cuda_ms(lambda: dstep(dstate, batch, L_), 20,
+                                     warmup=0)
+    log('DF train step (CUDA events over 20 steps, batch on the card): '
+        + ', '.join(f'L={k}: {v:.3f} ms' for k, v in out['step_ms'].items())
+        + f'; card {card}')
+    out['step_profile'] = lambda: dstep(dstate, batch, L)
+    out['step1_profile'] = lambda: dstep(dstate, batch, 1)
+    out['request_profile'] = lambda: fn(raw[1], args.seed)
+    return out
+
+
 def train_args(save, *extra):
     """The training CLI's arguments at the defaults of main.py, for
     TRAIN_EPOCHS epochs, writing under `save`, with `extra` flags."""
@@ -776,7 +1269,8 @@ def main():
     from vae_gp_ode_tpu_torch import ops
     from vae_gp_ode_tpu_torch.gp.svgp import draw_fn_sample, init_svgp_params
     from vae_gp_ode_tpu_torch.models.odegpvae import init_model
-    from vae_gp_ode_tpu_torch.ops import _build, flow_fused, pathwise
+    from vae_gp_ode_tpu_torch.ops import (
+        _build, df_flow_fused, df_pathwise, flow_fused, pathwise)
     from vae_gp_ode_tpu_torch.ops.pathwise import rbf_fused_operands
     from vae_gp_ode_tpu_torch.serving import (
         MNIST_MEAN, MNIST_STD, make_forecast_fn)
@@ -793,11 +1287,16 @@ def main():
         f'device {torch.cuda.get_device_name(0)}')
     t0 = time.perf_counter()
     _build.build(['flow_fused', 'flow_fused_bwd', 'pathwise_fwd',
-                  'pathwise_bwd'])
+                  'pathwise_bwd', 'df_pathwise_fwd', 'df_pathwise_bwd',
+                  'df_flow_fused', 'df_flow_fused_bwd'])
     flow_fused._kernel()
     flow_fused._bwd_lib()
     pathwise._lib()
     pathwise._bwd_lib()
+    df_pathwise._lib()
+    df_pathwise._bwd_lib()
+    df_flow_fused._kernel()
+    df_flow_fused._bwd_lib()
     log(f'build: {time.perf_counter() - t0:.1f} s')
 
     # -- 2. the forecaster at full width ---------------------------------
@@ -1068,6 +1567,10 @@ def main():
     slice_launches = {k: 0 for k in ops.LAUNCHES}
     path = solver_paths(args, card, batch, targs, slice_launches)
 
+    # -- 6c. the divergence-free kernel: kernels #5-#8 -----------------------
+    df_launches = {k: 0 for k in ops.LAUNCHES}
+    dfp = df_paths(args, card, batch, df_launches)
+
     # -- 7. timings --------------------------------------------------------
     with torch.no_grad():
         ms_kernel = cuda_ms(
@@ -1108,12 +1611,32 @@ def main():
     profile(lambda: fn(raw[1], args.seed), 'one T=16 request')
     profile(lambda: step(state, batch, L), f'one L={L} train step')
     profile(path['rk4_profile'], f'one L={L} rk4 train step')
+    profile(dfp['request_profile'], 'one DF T=16 request')
+    profile(dfp['step_profile'], f'one DF L={L} train step')
+    profile(dfp['step1_profile'], 'one DF L=1 train step')
+    profile(dfp['rk4_profile'], f'one DF L={L} rk4 train step')
 
     ms_b, ms_bp, bound_b, by_b = bwd_ms[L]
     kf, pf, bf, kb, pb, bb = path['pathwise_ms'][L]
     for k in ('pathwise_fwd', 'pathwise_bwd'):
         require(slice_launches[k] > 0, f'{k} was never launched on the '
                                        f'paths of the solvers')
+    df_entries = []
+    for mod, bwd, err in ((df_pathwise, False, dfp['pathwise_err'][0]),
+                          (df_pathwise, True, dfp['pathwise_err'][1]),
+                          (df_flow_fused, False, dfp['flow_err'][0]),
+                          (df_flow_fused, True, dfp['flow_err'][1])):
+        name = mod.BWD_KERNEL if bwd else mod.KERNEL
+        require(df_launches[name] > 0, f'{name} was never launched on the '
+                                       f'DF paths')
+        k_ms, p_ms, (b_ms, b_by) = dfp['kernel_ms'][L][name]
+        df_entries.append({
+            'name': name, 'route': 'cuda',
+            'source': mod.BWD_SOURCE if bwd else mod.SOURCE,
+            'replaces': mod.BWD_REPLACES if bwd else mod.REPLACES,
+            'launches': df_launches[name], 'max_abs_err': err, 'ms': k_ms,
+            'plain_ms': p_ms, 'bound_ms': b_ms, 'bound_by': b_by,
+            'library_ms': None})
     log(json.dumps({'kernels': [{
         'name': flow_fused.KERNEL, 'route': 'cuda',
         'source': flow_fused.SOURCE, 'replaces': flow_fused.REPLACES,
@@ -1137,7 +1660,8 @@ def main():
         'source': pathwise.BWD_SOURCE, 'replaces': pathwise.BWD_REPLACES,
         'launches': slice_launches[pathwise.BWD_KERNEL],
         'max_abs_err': path['pathwise_err'][1], 'ms': kb, 'plain_ms': pb,
-        'bound_ms': bb[0], 'bound_by': bb[1], 'library_ms': None}]}))
+        'bound_ms': bb[0], 'bound_by': bb[1], 'library_ms': None}]
+        + df_entries}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

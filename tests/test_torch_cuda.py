@@ -9,7 +9,9 @@ abs 1e-4 + rel 1e-4, f32 through up to 15 euler steps summed in another
 order; each adjoint cotangent 1e-4 (1 + its largest plain entry), sums
 over up to 300 rows, 15 steps and 1536 columns in another order. The
 per-step eval and its VJP: the same two tolerances (sums over up to 600
-rows and 12288 feature columns).
+rows and 12288 feature columns). The divergence-free kernels #5-#8: the
+same two tolerances (sums over up to 6144 feature columns, 100 inducing
+points and 36 output-dim pairs).
 """
 
 import numpy as np
@@ -20,7 +22,9 @@ from vae_gp_ode_tpu_torch import ops
 from vae_gp_ode_tpu_torch.core.transforms import invsoftplus
 from vae_gp_ode_tpu_torch.gp.svgp import draw_fn_sample, init_svgp_params
 from vae_gp_ode_tpu_torch.models.odegpvae import init_model
-from vae_gp_ode_tpu_torch.ops import flow_fused, pathwise
+from vae_gp_ode_tpu_torch.ops import (
+    df_flow_fused, df_pathwise, flow_fused, pathwise,
+)
 from vae_gp_ode_tpu_torch.ops.pathwise import rbf_fused_operands
 from vae_gp_ode_tpu_torch.serving import make_forecast_fn
 from vae_gp_ode_tpu_torch.training import trainer
@@ -301,4 +305,166 @@ def test_rk4_and_wide_train_steps_take_the_per_step_kernels(cuda):
         d = {k: ops.LAUNCHES[k] - before[k] for k in before}
         assert d['flow_fused_fwd'] == d['flow_fused_bwd'] == 0, (kw, d)
         assert d['pathwise_fwd'] > 0 and d['pathwise_bwd'] > 0, (kw, d)
+        assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
+
+
+# -- the divergence-free kernels #5-#8 ---------------------------------------
+
+def _df_operands(dev, L, N, q=6, S=256, M=100, seed=0, ls=2.0):
+    """A DF GP at main.py's --lengthscale/--variance and L draws of its
+    sample: (x (L, N, q), the operands of df_fused_operands, gen)."""
+    rng = np.random.default_rng(seed)
+    gp = init_svgp_params(rng, q, q, M, kernel='DF', lengthscale=ls,
+                          variance=0.7, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        operands = df_pathwise.df_fused_operands(
+            gp, draw_fn_sample(gp, gen, S, L=L))
+    return torch.randn((L, N, q), generator=gen, device=dev), operands, gen
+
+
+@pytest.mark.parametrize('L,N,q,S,ls', [
+    (1, 20, 6, 256, 2.0), (5, 20, 6, 256, 2.0), (5, 600, 6, 256, 2.0),
+    (5, 20, 3, 256, 0.5), (5, 20, 6, 1024, 2.0), (2, 20, 12, 64, 2.0),
+    (2, 3, 3, 1, 0.5)])
+def test_df_pathwise_kernels_match_plain(cuda, L, N, q, S, ls):
+    """Kernels #5/#6 against the plain version and autograd through it,
+    one launch each; D = 12 takes the 2-row, DMAX = 16 instantiation. At
+    q = 3 the lengthscale is 0.5: at 2.0 the gram of 100 inducing points
+    in 3-D is so ill-conditioned that |nu| reaches 7e4 and f is a sum of
+    terms 1e4 times larger than itself, in any summation order."""
+    x, operands, gen = _df_operands(cuda, L, N, q, S, ls=ls)
+    assert not any(bool(torch.isnan(t).any()) for t in operands)
+    before = dict(ops.LAUNCHES)
+    with torch.no_grad():
+        out = df_pathwise.fused_df_pathwise_eval(x, *operands)
+        ref = df_pathwise.df_pathwise_reference(x, *operands)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES['df_pathwise_fwd'] == before['df_pathwise_fwd'] + 1
+    torch.testing.assert_close(out, ref, **TOL)
+    inputs = [t.clone().requires_grad_() for t in (x,) + operands]
+    out = df_pathwise.fused_df_pathwise_eval(*inputs)
+    g = torch.randn(out.shape, generator=gen, device=cuda)
+    grads = torch.autograd.grad(out, inputs, g)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES['df_pathwise_bwd'] == before['df_pathwise_bwd'] + 1
+    _assert_cotangents(grads, df_pathwise.df_pathwise_vjp_reference(
+        x, *operands, g))
+
+
+def test_df_pathwise_kernels_per_draw_gp_operands_and_no_draw_dim(cuda):
+    """Z, ls2 and var per draw (the continuous adjoint's layout) give
+    per-draw cotangents; operands without a draw dim give (N, D)."""
+    L = 3
+    x, operands, gen = _df_operands(cuda, L, 20)
+    per = list(operands)
+    for i in (3, 5, 6):
+        per[i] = (operands[i].expand((L,) + tuple(operands[i].shape))
+                  * (1.0 + 0.1 * torch.arange(L, device=cuda).reshape(
+                      (L,) + (1,) * operands[i].dim()))).contiguous()
+    g = torch.randn((L, 20, 6), generator=gen, device=cuda)
+    inputs = [t.clone().requires_grad_() for t in [x] + per]
+    got = torch.autograd.grad(df_pathwise.fused_df_pathwise_eval(*inputs),
+                              inputs, g)
+    assert got[4].shape == per[3].shape and got[7].shape == per[6].shape
+    _assert_cotangents(got, df_pathwise.df_pathwise_vjp_reference(
+        x, *per, g))
+    one = [t[0] if t.dim() > nd else t for t, nd in zip(
+        operands, df_pathwise.BASE_DIMS)]
+    with torch.no_grad():
+        out = df_pathwise.fused_df_pathwise_eval(x[0], *one)
+    assert out.shape == (20, 6)
+    torch.testing.assert_close(out, df_pathwise.df_pathwise_reference(
+        x[0], *one), **TOL)
+    with pytest.raises(TypeError, match='float32'):
+        df_pathwise.fused_df_pathwise_eval(x.double(), *operands)
+
+
+@pytest.mark.parametrize('N,L,q,S,uniform,z0_per_draw', [
+    (20, 1, 6, 256, True, False), (20, 5, 6, 256, True, False),
+    (20, 5, 6, 256, False, True), (300, 5, 6, 256, True, False),
+    (20, 2, 12, 64, False, False)])
+def test_df_flow_kernels_match_plain(cuda, N, L, q, S, uniform,
+                                     z0_per_draw):
+    """Kernels #7/#8 through the autograd Function (as the train step runs
+    them) against the plain version and autograd through it, at T=16;
+    z0 shared by the draws gets their sum. (q = 12 at S = 256 is refused
+    by the pair's rule: its adjoint block needs more shared memory.)"""
+    T = 16
+    z0, operands, gen = _df_operands(cuda, L, N, q, S)
+    z0 = z0 if z0_per_draw else z0[0]
+    dts = (torch.full((T - 1,), 0.1, device=cuda) if uniform else
+           torch.rand(T - 1, generator=gen, device=cuda) * 0.15 + 0.05)
+    before = dict(ops.LAUNCHES)
+    with torch.no_grad():
+        zs = df_flow_fused.packed_df_euler_flow(z0, *operands, dts, T)
+        ref = df_flow_fused.df_euler_flow_reference(z0, *operands, dts, T)
+    torch.cuda.synchronize()
+    assert zs.shape == (L, T, N, q)
+    torch.testing.assert_close(zs, ref, **TOL)
+    inputs = [t.clone().requires_grad_() for t in (z0, *operands, dts)]
+    zs = df_flow_fused.packed_df_euler_flow(*inputs, T)
+    zsbar = torch.randn(zs.shape, generator=gen, device=cuda)
+    out = torch.autograd.grad(zs, inputs, zsbar)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES['df_flow_fused_fwd'] == \
+        before['df_flow_fused_fwd'] + 2
+    assert ops.LAUNCHES['df_flow_fused_bwd'] == \
+        before['df_flow_fused_bwd'] + 1
+    ref = list(df_flow_fused.df_flow_vjp_reference(
+        zs.detach(), zsbar, *operands, dts, T))
+    if not z0_per_draw:
+        ref[0] = ref[0].sum(0)
+    _assert_cotangents(out, ref)
+    vjp = df_flow_fused.df_flow_vjp(zs.detach(), zsbar, *operands, dts, T)
+    _assert_cotangents(vjp, df_flow_fused.df_flow_vjp_reference(
+        zs.detach(), zsbar, *operands, dts, T))
+
+
+def _df_bwd_smem_bytes(D, S, M, T, threads=256):
+    """csrc/df_flow_fused_bwd.cu's smem_bytes, transcribed (as in
+    tests/test_torch_df.py)."""
+    SD = S * D
+    R = 4 if D <= 8 else 2
+    slab = D * SD + SD + 2 * SD * D + 2 * M * D + D * D + D + (T - 1)
+    red = max(R * D + 1, D * D + D)
+    return 4 * (slab + 3 * R * D + D * D + D + (threads // 32 + 1) * red)
+
+
+@pytest.mark.parametrize('D,S,fits', [(6, 256, True), (6, 384, True),
+                                      (6, 512, False), (12, 256, False),
+                                      (3, 1024, True)])
+def test_df_pair_rule_on_the_card(cuda, D, S, fits):
+    """The DF adjoint's exported shared-memory need is the formula the CPU
+    tests hold the rule to, and the rule decides as they do on an H100."""
+    lib = df_flow_fused._bwd_lib()
+    assert lib.df_flow_fused_bwd_smem_bytes(D, S * D, 100, 16) == \
+        _df_bwd_smem_bytes(D, S, 100, 16)
+    assert df_flow_fused.df_fused_pair_fits(D, S * D, 100, 16, cuda) == fits
+
+
+def test_df_train_steps_launch_their_kernels(cuda):
+    """Full-width DF train steps (q=6, S=256, M=100, batch 20, T=16, L=5):
+    euler launches #7 and #8 once and nothing else; rk4, and euler at
+    S=512 (which the pair refuses), go through #5/#6 and never #7/#8;
+    losses finite."""
+    X = (torch.rand(20, 16, 1, 28, 28, generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda) - 0.1307) / 0.3081
+    for kw, pair in ((dict(), True), (dict(solver='rk4'), False),
+                     (dict(num_features=512), False)):
+        model, gp = init_model(0, device='cuda', kernel='DF',
+                               lengthscale=2.0, variance=0.7, **kw)
+        state = trainer.create_train_state(model, gp)
+        step = trainer.make_train_step(360.0, eps_guard=True)
+        before = dict(ops.LAUNCHES)
+        metrics = step(state, X, 5)
+        torch.cuda.synchronize()
+        d = {k: ops.LAUNCHES[k] - before[k] for k in before}
+        if pair:
+            assert d == {k: int(k in ('df_flow_fused_fwd',
+                                      'df_flow_fused_bwd')) for k in d}, d
+        else:
+            assert d['df_pathwise_fwd'] > 0 and d['df_pathwise_bwd'] > 0
+            assert d['df_flow_fused_fwd'] == d['df_flow_fused_bwd'] == 0
+            assert d['pathwise_fwd'] == d['flow_fused_fwd'] == 0
         assert all(bool(torch.isfinite(v).all()) for v in metrics.values())

@@ -196,8 +196,6 @@ def test_ode_rhs_matches(order):
 
 def test_unported_kernels_and_bad_order_raise():
     rng = np.random.default_rng(5)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tsvgp.init_svgp_params(rng, Q, Q, M, kernel='DF')
     with pytest.raises(NotImplementedError, match='dimwise'):
         trbf.RBFParams(torch.zeros(Q), torch.zeros(1))   # shared lengthscales
     with pytest.raises(ValueError):

@@ -58,7 +58,8 @@ def test_every_module_imports_with_jax_blocked():
     interpreter where importing jax, flax or the JAX package fails."""
     for mod in ('main', 'data.mnist', 'data.synthetic', 'training.trainer',
                 'training.checkpoint', 'training.meters', 'ops.flow_fused',
-                'ops.pathwise', 'dynamics.solvers', 'dynamics.adjoint',
+                'ops.pathwise', 'ops.df_pathwise', 'ops.df_flow_fused',
+                'kernels.divfree', 'dynamics.solvers', 'dynamics.adjoint',
                 'utils.jax_import'):
         assert f'vae_gp_ode_tpu_torch.{mod}' in _port_modules()
     code = (
@@ -81,17 +82,20 @@ def test_every_module_imports_with_jax_blocked():
 
 def test_cuda_sources_are_plain_cuda():
     """Route (b): nvcc into a plain-C shared library loaded with ctypes.
-    No source includes PyTorch's headers and nothing uses
-    torch.utils.cpp_extension."""
+    No source includes PyTorch's headers, every `.cu` exports a plain C
+    interface (the `.cuh` headers hold shared device code), and nothing
+    uses torch.utils.cpp_extension."""
     csrc = os.path.join(PKG, 'csrc')
     sources = [f for f in os.listdir(csrc) if f.endswith(('.cu', '.cuh'))]
     assert {'flow_fused.cu', 'flow_fused_bwd.cu', 'pathwise_fwd.cu',
-            'pathwise_bwd.cu'} <= set(sources)
+            'pathwise_bwd.cu', 'df_pathwise_fwd.cu', 'df_pathwise_bwd.cu',
+            'df_flow_fused.cu', 'df_flow_fused_bwd.cu',
+            'df_common.cuh'} <= set(sources)
     for fn in sources:
         with open(os.path.join(csrc, fn)) as f:
             text = f.read()
         assert 'torch/' not in text and 'ATen' not in text
-        assert 'extern "C"' in text
+        assert fn.endswith('.cuh') or 'extern "C"' in text
     for path in _python_sources():
         with open(path) as f:
             text = f.read()

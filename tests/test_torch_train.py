@@ -572,11 +572,10 @@ def test_cli_run_trains_and_checkpoints(tmp_path):
 
 @pytest.mark.parametrize('flag', [
     ['--pretrained', 'True'], ['--data_parallel', 'True'],
-    ['--kernel', 'DF'], ['--epochs_per_dispatch', '2'],
-    ['--dimwise', 'False']])
+    ['--epochs_per_dispatch', '2'], ['--dimwise', 'False']])
 def test_cli_refuses_paths_not_ported(tmp_path, flag):
-    """Paths not ported yet raise (the solver flags are ported:
-    test_cli_runs_the_solver_flags)."""
+    """Paths not ported yet raise (the solver flags and --kernel DF are
+    ported: test_cli_runs_the_solver_flags)."""
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tmain.run(_cli_args(tmp_path, *flag))
     assert not os.path.exists(tmp_path / 'run')
@@ -584,10 +583,14 @@ def test_cli_refuses_paths_not_ported(tmp_path, flag):
 
 @pytest.mark.parametrize('flag', [
     ['--solver', 'rk4'], ['--solver', 'euler', '--ts_dense_scale', '2'],
-    ['--solver', 'rk4', '--use_adjoint', 'True']])
+    ['--solver', 'rk4', '--use_adjoint', 'True'],
+    ['--kernel', 'DF', '--lengthscale', '1.0', '--variance', '0.7'],
+    ['--kernel', 'DF', '--solver', 'rk4', '--dimwise', 'False']])
 def test_cli_runs_the_solver_flags(tmp_path, flag):
-    """--solver, --ts_dense_scale and --use_adjoint reach the model and
-    train (one epoch, finite losses, the plain versions on the CPU)."""
+    """--solver, --ts_dense_scale, --use_adjoint and --kernel DF reach the
+    model and the GP and train (one epoch, finite losses, the plain
+    versions on the CPU). DF takes the dimwise layout whatever --dimwise
+    says, as in the JAX package."""
     args = _cli_args(tmp_path, *flag)
     args.Nepoch = 1
     before = dict(ops.LAUNCHES)
@@ -596,8 +599,20 @@ def test_cli_runs_the_solver_flags(tmp_path, flag):
     model = result['state'].model
     assert (model.solver, model.dense, model.use_adjoint) == (
         args.solver, args.ts_dense_scale, args.use_adjoint)
+    gp = result['state'].gp
+    assert gp.kernel_name == args.kernel
+    assert gp.kernel.unconstrained_lengthscales.shape == (Q, Q)
     assert result['bailout'] is None
     assert np.isfinite(result['epochs'][0]['loss']).all()
+
+
+def test_cli_refuses_df_with_a_second_order_ode(tmp_path):
+    """--kernel DF needs D_in == D_out, so --ode 2 raises ValueError before
+    the run starts, as the JAX package's init_svgp_params does."""
+    with pytest.raises(ValueError, match='D_in == D_out'):
+        tmain.run(_cli_args(tmp_path, '--kernel', 'DF', '--ode', '2',
+                            '--D_in', str(2 * Q)))
+    assert not os.path.exists(tmp_path / 'run')
 
 
 def test_cli_defaults_and_device(tmp_path, monkeypatch):

@@ -11,12 +11,15 @@ import torch
 
 
 def cholesky(A):
-    """Lower Cholesky factor, batched over leading dims. A batch entry that
-    is not positive definite gives NaN on and below its diagonal, as
-    `jnp.linalg.cholesky` does (`cholesky_ex` alone would return a finite
-    partial factor), so a loss computed from it is NaN and a NaN guard
-    discards the step."""
-    L, info = torch.linalg.cholesky_ex(A)
+    """Lower Cholesky factor of (A + A^T) / 2, batched over leading dims,
+    as `jnp.linalg.cholesky` (which symmetrizes its input) computes it:
+    the divergence-free gram is not symmetric (its lengthscales differ by
+    output-dim pair), and factoring its lower triangle alone gives another
+    factor. A batch entry that is not positive definite gives NaN on and
+    below its diagonal, as `jnp.linalg.cholesky` does (`cholesky_ex` alone
+    would return a finite partial factor), so a loss computed from it is
+    NaN and a NaN guard discards the step."""
+    L, info = torch.linalg.cholesky_ex((A + A.transpose(-1, -2)) / 2)
     return torch.where((info == 0)[..., None, None], L, float('nan')).tril()
 
 

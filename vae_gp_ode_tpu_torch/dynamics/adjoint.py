@@ -208,18 +208,26 @@ def flow_forward_adjoint(gp, sample, z0, ts, order=1, solver='euler',
     theta is every leaf of (gp, sample), as the JAX package's pytree:
     unconstrained lengthscales and variance, inducing locations, Um and
     Us_sqrt (which f does not read: zero cotangents), omega, phase,
-    weights and nu, each with the leading dim of draws.
+    weights and nu, and for the DF kernel its contraction df_G (whose
+    weights f then does not read), each with the leading dim of draws.
+    f is the per-step kernel pair of the GP's kernel (`ops.pathwise` or
+    `ops.df_pathwise`).
     Returns (zs (..., N, T, D), nfe) as flow_forward does.
     """
+    from vae_gp_ode_tpu_torch.ops.df_pathwise import (
+        fused_df_pathwise_eval, pack_df_operands)
     from vae_gp_ode_tpu_torch.ops.pathwise import fused_pathwise_eval
     dev = resolve_device(device)
     check_device(z0, dev, 'z0')
     if order not in (1, 2):
         raise ValueError(f'ODE order must be 1 or 2, got {order}')
+    if gp.kernel_name == 'DF' and order != 1:
+        raise ValueError('DF kernel flows are first order (D_in == D_out)')
     if ts.shape[0] < 2:
         raise ValueError(f'need at least 2 time points, got {ts.shape[0]}')
-    lead = tuple(sample.nu.shape[:-3])
+    lead = sample.lead
     L = lead[0] if lead else 1
+    df = gp.kernel_name == 'DF'
 
     def per_draw(x, nd):
         return x if x.dim() > nd else x.expand((L,) + tuple(x.shape))
@@ -228,14 +236,21 @@ def flow_forward_adjoint(gp, sample, z0, ts, order=1, solver='euler',
               gp.kernel.unconstrained_variance, gp.inducing_loc, gp.Um,
               gp.Us_sqrt)
     draws = ((sample.rff.omega, 3), (sample.rff.phase, 3),
-             (sample.rff.weights, 2), (sample.nu, 3))
+             (sample.rff.weights, 2), (sample.nu, 2 if df else 3))
+    if df:
+        draws += ((sample.df_G, 2),)
     theta = tuple(x.expand((L,) + tuple(x.shape)) for x in shared) + tuple(
         per_draw(x, nd) for x, nd in draws)
 
     def f(th, t, z):
-        uls, uvar, Z, _, _, omega, phase, weights, nu = th
-        fz = fused_pathwise_eval(z, omega, phase, weights, Z, nu[..., 0],
-                                 softplus(uls), softplus(uvar))
+        uls, uvar, Z, _, _, omega, phase, weights, nu = th[:9]
+        if df:
+            fz = fused_df_pathwise_eval(z, *pack_df_operands(
+                omega, phase, th[9], Z, nu, softplus(uls), softplus(uvar)))
+        else:
+            fz = fused_pathwise_eval(z, omega, phase, weights, Z,
+                                     nu[..., 0], softplus(uls),
+                                     softplus(uvar))
         if order == 2:
             q = z.shape[-1] // 2
             fz = torch.cat([z[..., q:], fz], dim=-1)

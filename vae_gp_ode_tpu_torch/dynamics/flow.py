@@ -3,11 +3,13 @@
 
 First-order euler at dense=1 (the main configuration) runs the whole
 trajectory of all the draws of a batched `FnSample` in one kernel, with
-its discrete adjoint in another (`ops.flow_fused`), wherever that pair
-takes the shapes (`use_fused_pair`). Every other solver, dense output,
-and the shapes the pair refuses integrate with `dynamics.solvers.odeint`
-over `gp.svgp.fn_eval`, whose per-step evaluation and its VJP are the
-kernels of `ops.pathwise` on the GPU.
+its discrete adjoint in another, wherever that pair takes the shapes
+(`use_fused_pair`): `ops.flow_fused` for the dimwise-RBF kernel (orders 1
+and 2), `ops.df_flow_fused` for the divergence-free kernel (order 1).
+Every other solver, dense output, and the shapes the pair refuses
+integrate with `dynamics.solvers.odeint` over `gp.svgp.fn_eval`, whose
+per-step evaluation and its VJP are the kernels of `ops.pathwise` (RBF)
+or `ops.df_pathwise` (DF) on the GPU.
 """
 
 import torch
@@ -35,18 +37,22 @@ def make_ode_rhs(gp: SVGPParams, sample: FnSample, order: int):
     return rhs
 
 
-def use_fused_pair(sample: FnSample, z0, T, order):
+def use_fused_pair(gp: SVGPParams, sample: FnSample, z0, T, order):
     """Whether the euler flow runs the fused trajectory kernel and its
     adjoint: decided from the shapes alone, before any launch. On the GPU
     the adjoint kernel must take the state dim and fit its block's shared
-    memory (`ops.flow_fused.fused_pair_fits`); on the CPU the pair's plain
+    memory (`ops.flow_fused.fused_pair_fits`, or for the DF kernel
+    `ops.df_flow_fused.df_fused_pair_fits`); on the CPU the pair's plain
     versions take every shape."""
     if z0.device.type != 'cuda':
         return True
-    from vae_gp_ode_tpu_torch.ops.flow_fused import fused_pair_fits
     D = z0.shape[-1]
-    return fused_pair_fits(D, D // order, sample.rff.weights.shape[-2],
-                           sample.nu.shape[-2], T, z0.device)
+    S = sample.rff.omega.shape[-2]
+    if gp.kernel_name == 'DF':
+        from vae_gp_ode_tpu_torch.ops.df_flow_fused import df_fused_pair_fits
+        return df_fused_pair_fits(D, S * D, gp.M, T, z0.device)
+    from vae_gp_ode_tpu_torch.ops.flow_fused import fused_pair_fits
+    return fused_pair_fits(D, D // order, S, gp.M, T, z0.device)
 
 
 def flow_forward(gp: SVGPParams, sample: FnSample, z0, ts, order=1,
@@ -65,20 +71,30 @@ def flow_forward(gp: SVGPParams, sample: FnSample, z0, ts, order=1,
     check_device(z0, dev, 'z0')
     if order not in (1, 2):
         raise ValueError(f'ODE order must be 1 or 2, got {order}')
+    if gp.kernel_name == 'DF' and order != 1:
+        raise ValueError('DF kernel flows are first order (D_in == D_out)')
     if solver not in SOLVERS:
         raise ValueError(f'unknown solver {solver!r}; choose from {SOLVERS}')
     T = ts.shape[0]
     if T < 2:
         raise ValueError(f'need at least 2 time points, got {T}')
-    if solver == 'euler' and dense == 1 and use_fused_pair(sample, z0, T,
-                                                           order):
-        from vae_gp_ode_tpu_torch.ops.flow_fused import fused_euler_flow
-        from vae_gp_ode_tpu_torch.ops.pathwise import rbf_fused_operands
-        zs = fused_euler_flow(z0, *rbf_fused_operands(gp, sample),
-                              torch.diff(ts), T, order)
+    if solver == 'euler' and dense == 1 and use_fused_pair(gp, sample, z0,
+                                                           T, order):
+        if gp.kernel_name == 'DF':
+            from vae_gp_ode_tpu_torch.ops.df_flow_fused import (
+                packed_df_euler_flow)
+            from vae_gp_ode_tpu_torch.ops.df_pathwise import (
+                df_fused_operands)
+            zs = packed_df_euler_flow(z0, *df_fused_operands(gp, sample),
+                                      torch.diff(ts), T)
+        else:
+            from vae_gp_ode_tpu_torch.ops.flow_fused import fused_euler_flow
+            from vae_gp_ode_tpu_torch.ops.pathwise import rbf_fused_operands
+            zs = fused_euler_flow(z0, *rbf_fused_operands(gp, sample),
+                                  torch.diff(ts), T, order)
         draws = zs[..., 0, 0, 0].numel()
         return zs.transpose(-3, -2), (T - 1) * draws
-    lead = tuple(sample.nu.shape[:-3])
+    lead = sample.lead
     z = z0.expand(lead + tuple(z0.shape[-2:])) if lead else z0
     sol = odeint(make_ode_rhs(gp, sample, order), z, ts, method=solver,
                  dense=dense, rtol=rtol, atol=atol, max_steps=max_steps,

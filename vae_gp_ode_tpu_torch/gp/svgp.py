@@ -1,5 +1,6 @@
 """Sparse variational GP with decoupled pathwise posterior sampling (port
-of `vae_gp_ode_tpu/gp/svgp.py`, dimwise-RBF kernel).
+of `vae_gp_ode_tpu/gp/svgp.py`: the dimwise-RBF and the divergence-free
+(DF) kernel).
 
   * whitened variational posterior q(u) = N(m, L L^T), full-Cholesky
     (packed lower-tri vectors) or diagonal,
@@ -8,9 +9,6 @@ of `vae_gp_ode_tpu/gp/svgp.py`, dimwise-RBF kernel).
   * closed-form whitened KL(q(u) || N(0, I)).
 
 f(x) = Phi(x) w + K(x, Z) nu,  nu = K(Z,Z)^{-1}(u - f_prior(Z)).
-
-The divergence-free (DF) kernel is not ported yet (ROADMAP Queue A item
-10): asking for it raises.
 """
 
 import dataclasses
@@ -22,18 +20,20 @@ import torch
 from vae_gp_ode_tpu_torch.core.transforms import (
     softplus, invsoftplus, unpack_tril, pack_tril,
 )
+from vae_gp_ode_tpu_torch.kernels import divfree as dfk
 from vae_gp_ode_tpu_torch.kernels import rbf as rbfk
-from vae_gp_ode_tpu_torch.ops import pathwise
+from vae_gp_ode_tpu_torch.ops import df_pathwise, pathwise
 
 @dataclasses.dataclass
 class SVGPParams:
     """SVGP state.
 
-    kernel:        RBFParams
+    kernel:        RBFParams (the DF kernel reuses the dimwise layout)
     inducing_loc:  (M, D_in)
     Um:            (M, D_out) variational mean (whitened)
     Us_sqrt:       packed scale: (D_out, M(M+1)/2) full-Cholesky, or
                    (M, D_out) unconstrained diag (softplus-constrained)
+    q_diag, kernel_name ('RBF' or 'DF'): static, not leaves
     """
 
     kernel: rbfk.RBFParams
@@ -41,6 +41,7 @@ class SVGPParams:
     Um: torch.Tensor
     Us_sqrt: torch.Tensor
     q_diag: bool = False
+    kernel_name: str = 'RBF'
 
     @property
     def M(self):
@@ -98,10 +99,18 @@ class SVGPParams:
 @dataclasses.dataclass
 class FnSample:
     """Pathwise posterior function sample(s): RFF draw + update
-    coefficients nu (..., D_out, M, 1); `...` is the batch of draws."""
+    coefficients nu, (..., D_out, M, 1) for the RBF kernel and
+    (..., M*D, 1) for DF; `...` is the batch of draws. df_G: the DF
+    kernel's per-draw ORFF contraction (..., 2S*D, D), None for RBF."""
 
     rff: rbfk.RFFState
     nu: torch.Tensor
+    df_G: Optional[torch.Tensor] = None
+
+    @property
+    def lead(self):
+        """The batch of draws: () or (L,)."""
+        return tuple(self.rff.phase.shape[:-3])
 
 
 def init_svgp_params(rng, D_in, D_out, M, kernel='RBF', q_diag=False,
@@ -109,12 +118,14 @@ def init_svgp_params(rng, D_in, D_out, M, kernel='RBF', q_diag=False,
                      device='cpu') -> SVGPParams:
     """Random initialisation at the reference's scales, drawn with the
     numpy Generator `rng`: inducing_loc ~ N(0,1), Um ~ N(0,1)*0.1,
-    Us_sqrt = I*1e-3 (packed), or a softplus-1e-3 diagonal for q_diag."""
-    if kernel == 'DF':
-        raise NotImplementedError('the divergence-free (DF) kernel is not '
-                                  'ported yet (ROADMAP Queue A item 10)')
-    if kernel != 'RBF':
+    Us_sqrt = I*1e-3 (packed), or a softplus-1e-3 diagonal for q_diag.
+    The DF kernel takes the dimwise layout and needs D_in == D_out (its
+    gram and B(w) are square), so 2nd-order ODEs need the RBF kernel."""
+    if kernel not in ('RBF', 'DF'):
         raise ValueError(f'Invalid kernel selection: {kernel!r}')
+    if kernel == 'DF' and D_in != D_out:
+        raise ValueError(
+            f'DF kernel requires D_in == D_out, got {D_in} != {D_out}')
     kern = rbfk.init_rbf_params(D_in, D_out, lengthscale=lengthscale,
                                 variance=variance, dtype=dtype,
                                 device=device)
@@ -132,7 +143,7 @@ def init_svgp_params(rng, D_in, D_out, M, kernel='RBF', q_diag=False,
         eye = torch.eye(M, dtype=dtype, device=device) * 1e-3
         Us_sqrt = pack_tril(eye.expand(D_out, M, M))
     return SVGPParams(kernel=kern, inducing_loc=inducing_loc, Um=Um,
-                      Us_sqrt=Us_sqrt, q_diag=q_diag)
+                      Us_sqrt=Us_sqrt, q_diag=q_diag, kernel_name=kernel)
 
 
 def _scale_tril(p: SVGPParams):
@@ -164,17 +175,28 @@ def draw_fn_sample(p: SVGPParams, generator, S,
 
     1. RFF parameters (omega, phase, weights),
     2. u ~ q(u),
-    3. nu = K(Z,Z)^{-1}(u - f_prior(Z)) via Cholesky + triangular solves.
+    3. nu = K(Z,Z)^{-1}(u - f_prior(Z)) via Cholesky + triangular solves
+       (one factor shared by the draws: (D_out, M, M) for RBF, one
+       (M*D, M*D) for DF).
 
     `noise` injects the raw draws {omega, phase_u, weights, epsilon}, whose
     leading dims (if any) batch the draws. Otherwise `generator` draws
     them: one sample, or a leading batch of `L` samples in one call.
     """
     eps = None if noise is None else noise['epsilon']
+    Z = p.inducing_loc
+    if p.kernel_name == 'DF':
+        rff = dfk.df_sample_rff(p.kernel, generator, S, p.D_in, p.D_out,
+                                noise=noise, L=L)
+        G = dfk.df_orff_contraction(p.kernel, rff)
+        u = sample_inducing(p, generator, epsilon=eps, L=L)
+        Ku = dfk.df_gram(p.kernel, Z)
+        u_prior = dfk.df_rff_eval(p.kernel, rff, Z, G=G)
+        nu = dfk.df_compute_nu(p.kernel, Ku, u_prior, u)
+        return FnSample(rff=rff, nu=nu, df_G=G)
     rff = rbfk.rbf_sample_rff(p.kernel, generator, S, p.D_in, p.D_out,
                               noise=noise, L=L)
     u = sample_inducing(p, generator, epsilon=eps, L=L)
-    Z = p.inducing_loc
     Ku = rbfk.rbf_gram(p.kernel, Z)
     u_prior = rbfk.rbf_rff_eval(p.kernel, rff, Z)
     nu = rbfk.rbf_compute_nu(p.kernel, Ku, u_prior, u)
@@ -185,10 +207,15 @@ def fn_eval(p: SVGPParams, s: FnSample, x):
     """Evaluate the sampled posterior function(s): prior + update.
 
     x (..., N, D_in) with the sample's batch of draws -> (..., N, D_out),
-    through `ops.pathwise.fused_pathwise_eval` at every shape: on CUDA
-    tensors the per-step kernel pair (`csrc/pathwise_fwd.cu`, its VJP
-    `csrc/pathwise_bwd.cu`), on CPU tensors its plain version.
+    through the per-step kernel pair of the GP's kernel at every shape:
+    `ops.pathwise.fused_pathwise_eval` for RBF (`csrc/pathwise_fwd.cu`,
+    its VJP `csrc/pathwise_bwd.cu`), `ops.df_pathwise.
+    fused_df_pathwise_eval` for DF (`csrc/df_pathwise_fwd.cu`,
+    `csrc/df_pathwise_bwd.cu`); on CPU tensors their plain versions.
     """
+    if p.kernel_name == 'DF':
+        return df_pathwise.fused_df_pathwise_eval(
+            x, *df_pathwise.df_fused_operands(p, s))
     return pathwise.fused_pathwise_eval(
         x, *pathwise.rbf_fused_operands(p, s))
 

@@ -116,9 +116,7 @@ _NOT_PORTED = (
      'Queue A item 9 (pretrained VAE, freeze_vae)'),
     ('--data_parallel', lambda a: not a.data_parallel,
      'Queue A item 13 (data parallel)'),
-    ('--kernel DF', lambda a: a.kernel == 'RBF',
-     'Queue A item 10 (DF kernel)'),
-    ('--dimwise False', lambda a: a.dimwise,
+    ('--dimwise False', lambda a: a.dimwise or a.kernel == 'DF',
      'Queue A item 2 (shared-lengthscale RBF)'),
     ('--epochs_per_dispatch', lambda a: a.epochs_per_dispatch == 1,
      'Queue A item 7 (multi-epoch segments)'),
@@ -127,11 +125,16 @@ _NOT_PORTED = (
 
 def check_supported(args):
     """Raise NotImplementedError for a flag of a path the port does not
-    have, set away from its default."""
+    have, set away from its default, and ValueError for flags that do not
+    fit together."""
     for flag, is_default, item in _NOT_PORTED:
         if not is_default(args):
             raise NotImplementedError(
                 f'{flag} is not ported yet (ROADMAP {item})')
+    if args.kernel == 'DF' and (args.ode != 1 or args.D_in != args.D_out):
+        raise ValueError(
+            f'DF kernel requires D_in == D_out (a first-order ODE), got '
+            f'--ode {args.ode} --D_in {args.D_in} --D_out {args.D_out}')
     if args.D_in != args.latent_dim * args.ode or \
             args.D_out != args.latent_dim:
         raise ValueError(
@@ -202,9 +205,10 @@ def run(args, on_step=None):
         args.seed, latent_dim=args.latent_dim, n_filt=args.n_filt,
         order=args.ode, frames=args.frames, dt=args.dt, solver=args.solver,
         dense=args.ts_dense_scale, num_features=args.num_features,
-        num_inducing=args.num_inducing, q_diag=args.q_diag,
-        use_adjoint=args.use_adjoint, device=dev)
+        num_inducing=args.num_inducing, kernel=args.kernel,
+        q_diag=args.q_diag, use_adjoint=args.use_adjoint, device=dev)
     # kernel hyperparameters initialised twice, as the reference does
+    # (every entry: (q, q*ode) dimwise-RBF or (q, q) DF lengthscales)
     with torch.no_grad():
         gp.kernel.unconstrained_lengthscales.fill_(
             float(invsoftplus(torch.tensor(args.lengthscale))))

@@ -198,12 +198,15 @@ def _init_weights(model, rng, random_bn=False):
 def init_model(seed=0, *, latent_dim=6, n_filt=8, order=1, frames=5,
                dt=0.1, solver='euler', dense=1, rtol=1e-6, atol=1e-6,
                max_steps=256, num_features=256, num_inducing=100,
-               q_diag=False, lengthscale=0.2, variance=0.1, random_bn=False,
-               use_adjoint=False, remat=True, device='cuda'):
+               kernel='RBF', q_diag=False, lengthscale=0.2, variance=0.1,
+               random_bn=False, use_adjoint=False, remat=True,
+               device='cuda'):
     """Build (model, gp) as the JAX package's `init_model` does, from the
     numpy seed `seed`: flax-default VAE initialisers (see `_init_weights`;
-    `random_bn=True` draws non-trivial BatchNorm statistics), and a
-    dimwise-RBF GP that maps q*order inputs to q outputs with
+    `random_bn=True` draws non-trivial BatchNorm statistics), and a GP
+    with the dimwise layout (`kernel` 'RBF' or 'DF'; DF needs order 1,
+    since its inputs and outputs have one width) that maps q*order inputs
+    to q outputs with
     inducing_loc ~ N(0, 1), Um ~ 0.1 N(0, 1), Us_sqrt = 1e-3 I and the
     kernel at `lengthscale`/`variance` (the JAX package's 0.2/0.1; the
     training CLI then sets its own, as `main.py` does). The solver
@@ -218,6 +221,6 @@ def init_model(seed=0, *, latent_dim=6, n_filt=8, order=1, frames=5,
                      remat=remat, device='cpu')
     _init_weights(model, rng, random_bn=random_bn)
     gp = init_svgp_params(rng, latent_dim * order, latent_dim, num_inducing,
-                          q_diag=q_diag, lengthscale=lengthscale,
-                          variance=variance)
+                          kernel=kernel, q_diag=q_diag,
+                          lengthscale=lengthscale, variance=variance)
     return model.to(dev), gp.to(dev)

@@ -6,7 +6,8 @@ show that its path went through the kernels.
 """
 
 LAUNCHES = {'flow_fused_fwd': 0, 'flow_fused_bwd': 0, 'pathwise_fwd': 0,
-            'pathwise_bwd': 0}
+            'pathwise_bwd': 0, 'df_flow_fused_fwd': 0, 'df_flow_fused_bwd': 0,
+            'df_pathwise_fwd': 0, 'df_pathwise_bwd': 0}
 
 
 def reset_launches():

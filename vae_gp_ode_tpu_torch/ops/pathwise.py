@@ -194,14 +194,15 @@ def _launch_bwd(x, operands, g):
     return (dx,) + split_slabs(slab.sum(dim=1), operands)
 
 
-def split_slabs(per_draw, operands):
-    """Cut the (L, P) tile-summed slabs into the operands' cotangents,
-    laid out [omega | phase | weights | Z | nu | ls | var] as in
-    csrc/pathwise_bwd.cu, summing over the draws an operand is shared
-    by."""
+def split_slabs(per_draw, operands, base_dims=_BASE_DIMS):
+    """Cut the (L, P) tile-summed slabs into the operands' cotangents, laid
+    out one after another in operand order ([omega | phase | weights | Z |
+    nu | ls | var] in csrc/pathwise_bwd.cu), summing over the draws an
+    operand is shared by. `base_dims`: each operand's number of trailing
+    (non-draw) dims."""
     L = per_draw.shape[0]
     out, o = [], 0
-    for t, nd in zip(operands, _BASE_DIMS):
+    for t, nd in zip(operands, base_dims):
         inner = tuple(t.shape[-nd:])
         n = int(torch.Size(inner).numel())
         part = per_draw[:, o:o + n].reshape((L,) + inner)
@@ -231,11 +232,11 @@ class _FusedPathwiseEval(torch.autograd.Function):
                      for gr, need in zip(grads, ctx.needs_input_grad))
 
 
-def _draws(x, operands):
+def _draws(x, operands, base_dims=_BASE_DIMS):
     """The number of draws L of a call (None when no tensor has a draw
     dim); raises unless every tensor has no draw dim or one of size L."""
     leads = [tuple(x.shape[:-2])] + [
-        tuple(t.shape[:-nd]) for t, nd in zip(operands, _BASE_DIMS)]
+        tuple(t.shape[:-nd]) for t, nd in zip(operands, base_dims)]
     sizes = {lead for lead in leads if lead}
     if any(len(lead) > 1 for lead in sizes) or len(sizes) > 1:
         raise ValueError(f'the kernel takes one leading dim of draws, shared '

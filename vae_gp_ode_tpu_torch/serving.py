@@ -18,7 +18,9 @@ def make_forecast_fn(model, params, gp, *, L=1, T_custom=None,
     """Close a trained (model, params, gp) over ``fn(X, seed) -> Xrec``.
 
     params: a state dict for `model` (e.g. from utils.jax_import.from_jax),
-    or None to keep the model's own weights. The model and gp move to
+    or None to keep the model's own weights. gp: the SVGP of either kernel
+    (dimwise RBF, or DF as in a run restored by
+    `training.checkpoint.restore_jax_checkpoint`). The model and gp move to
     `device` (default the GPU; raises if it is absent) and the model is
     put in eval mode: BatchNorm uses its running statistics.
 

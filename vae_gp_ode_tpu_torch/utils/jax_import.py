@@ -89,12 +89,14 @@ def decoder_from_jax(params, stats, prefix):
     return sd
 
 
-def gp_from_jax(gp_np):
+def gp_from_jax(gp_np, kernel='RBF'):
     """SVGPParams from a nested dict of the JAX SVGPParams leaves
     ({'kernel': {'unconstrained_lengthscales', 'unconstrained_variance'},
-    'inducing_loc', 'Um', 'Us_sqrt'}) of a dimwise-RBF GP. A full-Cholesky
-    q(u) scale is packed as (D_out, M(M+1)/2), a diagonal one is
-    (M, D_out): the shape tells q_diag (for M > 1)."""
+    'inducing_loc', 'Um', 'Us_sqrt'}) of a GP with the dimwise layout;
+    `kernel` is its static `kernel_name` ('RBF' or 'DF'), which the
+    leaves do not carry. A full-Cholesky q(u) scale is packed as
+    (D_out, M(M+1)/2), a diagonal one is (M, D_out): the shape tells
+    q_diag (for M > 1)."""
     kern = gp_np['kernel']
     Um = _t(gp_np['Um'])
     Us = _t(gp_np['Us_sqrt'])
@@ -104,7 +106,8 @@ def gp_from_jax(gp_np):
             unconstrained_lengthscales=_t(kern['unconstrained_lengthscales']),
             unconstrained_variance=_t(kern['unconstrained_variance'])),
         inducing_loc=_t(gp_np['inducing_loc']), Um=Um, Us_sqrt=Us,
-        q_diag=tuple(Us.shape) != (D_out, M * (M + 1) // 2))
+        q_diag=tuple(Us.shape) != (D_out, M * (M + 1) // 2),
+        kernel_name=kernel)
 
 
 def _vae_from_jax(params, stats):
@@ -118,20 +121,21 @@ def _vae_from_jax(params, stats):
     return sd
 
 
-def from_jax(variables_np, gp_np):
+def from_jax(variables_np, gp_np, kernel='RBF'):
     """(model_state_dict, gp) for `models.odegpvae.ODEGPVAE` from the JAX
     ODEGPVAE `variables` and SVGP leaves, as nested dicts of numpy
-    arrays (CPU tensors out)."""
+    arrays (CPU tensors out); `kernel` is the GP's `kernel_name`."""
     sd = _vae_from_jax(variables_np['params'],
                        variables_np.get('batch_stats', {}))
-    return sd, gp_from_jax(gp_np)
+    return sd, gp_from_jax(gp_np, kernel)
 
 
 def train_state_from_jax(state_np, *, latent_dim=6, n_filt=8, order=1,
                          frames=5, dt=0.1, num_features=256, lr=1e-3,
                          fix_kernel=False, solver='euler', dense=1,
                          rtol=1e-6, atol=1e-6, max_steps=256,
-                         use_adjoint=False, remat=True, device='cuda'):
+                         use_adjoint=False, remat=True, kernel='RBF',
+                         device='cuda'):
     """The port's `training.trainer.TrainState` from a JAX `TrainState`
     given as nested dicts of numpy arrays:
 
@@ -143,26 +147,62 @@ def train_state_from_jax(state_np, *, latent_dim=6, n_filt=8, order=1,
                   'nu': {'params': ..., 'gp': SVGP leaves}}}
 
     The model is built at the given widths and solver settings (the JAX
-    ODEGPVAE's fields) on `device`."""
+    ODEGPVAE's fields) on `device`; `kernel` is the GP's static
+    `kernel_name` ('RBF' or 'DF')."""
     from vae_gp_ode_tpu_torch.models.odegpvae import ODEGPVAE
     from vae_gp_ode_tpu_torch.training.trainer import create_train_state
-    sd, gp = from_jax(state_np['variables'], state_np['gp'])
+    _, gp = from_jax(state_np['variables'], state_np['gp'], kernel)
     model = ODEGPVAE(latent_dim=latent_dim, n_filt=n_filt, order=order,
                      frames=frames, dt=dt, solver=solver, dense=dense,
                      rtol=rtol, atol=atol, max_steps=max_steps,
                      num_features=num_features, use_adjoint=use_adjoint,
                      remat=remat, device=device)
-    model.load_state_dict(sd)
     state = create_train_state(model, gp.to(model.device), lr=lr,
                                fix_kernel=fix_kernel)
+    return load_train_state(state, state_np)
+
+
+def _check_shapes(got, want, where):
+    if set(got) != set(want):
+        raise ValueError(f'{where}: names {sorted(set(got) ^ set(want))} '
+                         f'are in only one of the JAX state and the port\'s')
+    for name, t in want.items():
+        if tuple(got[name].shape) != tuple(t.shape):
+            raise ValueError(f'{where}: {name} has shape '
+                             f'{tuple(got[name].shape)} in the JAX state, '
+                             f'{tuple(t.shape)} in the port\'s')
+
+
+def load_train_state(state, state_np):
+    """Copy a JAX `TrainState` given as nested dicts of numpy arrays (the
+    layout `train_state_from_jax` takes) into the port's TrainState
+    `state`, in place, after checking every name and shape against it;
+    returns `state`."""
+    sd, gp = from_jax(state_np['variables'], state_np['gp'],
+                      state.gp.kernel_name)
+    _check_shapes(sd, state.model.state_dict(), 'model')
+    _check_shapes(dict(gp.named_parameters()),
+                  dict(state.gp.named_parameters()), 'gp')
+    if gp.q_diag != state.gp.q_diag:
+        raise ValueError(f'q_diag is {gp.q_diag} in the JAX state, '
+                         f'{state.gp.q_diag} in the port\'s')
     adam = state_np['adam']
+    params = dict(zip(state.param_names(), state.params()))
+    moments = {}
+    for k in ('mu', 'nu'):
+        named = _vae_from_jax(adam[k]['params'], None)
+        named.update({f'gp.{n}': v for n, v in gp_from_jax(
+            adam[k]['gp']).named_parameters()})
+        _check_shapes(named, params, f'adam.{k}')
+        moments[k] = named
     with torch.no_grad():
+        state.model.load_state_dict(sd)
+        for (_, p), (_, v) in zip(state.gp.named_parameters(),
+                                  gp.named_parameters()):
+            p.copy_(v)
         for k, views in zip(('mu', 'nu'), state.optimizer.moments()):
-            named = _vae_from_jax(adam[k]['params'], None)
-            named.update({f'gp.{n}': v for n, v in gp_from_jax(
-                adam[k]['gp']).named_parameters()})
             for name, view in zip(state.param_names(), views):
-                view.copy_(named[name])
+                view.copy_(moments[k][name])
         state.optimizer.count.fill_(int(adam['count']))
         state.step.fill_(int(state_np['step']))
     return state

@@ -61,11 +61,28 @@ Run from the repository root on a machine with an NVIDIA H100:
    one request from the shipped checkpoint checkpoints/df_5000ep (read
    with restore_jax_checkpoint) against the port's CPU forward; kernel
    times with bounds, DF train steps at L=1 and 5;
+6d. the wide shapes (q=12, S=1024: the JAX package's grid-tiled
+   corner), each run with the counts set to 0 just before and read just
+   after: both per-step pairs of each family, the single-block #3-#6
+   and the grid-tiled #9-#12, against their plain versions at every shape
+   of the dispatch rule's sweep (RBF (D, K, S) and DF (D, S) at L=1 and 5,
+   N=20 and 600), a ragged last chunk, GP operands per draw, no draw dim
+   and the rows of the paths below (400 and 160); the sweep itself (both
+   pairs, forward and VJP, per call with CUDA events, and device time per
+   launch at the wide shapes) beside the pair the rule picks, and how
+   often the rule took the faster one; the training CLI's run() at
+   `--latent_dim 12 --D_in 12 --D_out 12 --num_features 1024` for 2
+   epochs, RBF and then --kernel DF (every step launches the kernels the
+   rule names and nothing else; GPU vs CPU float64 gradients; step times
+   at L=1 and 5); three requests, a T=32 rollout and a request of 400
+   sequences per kernel with random weights; rk4 steps at the main widths
+   by the rule and by the single-block pair in turns, and at batch 160;
 7. times kernels, requests and train steps with CUDA events, and traces
    one request, one L=5 train step, one L=5 rk4 train step, one DF
-   request and one DF L=5 train step with torch.profiler (device kernels
-   by time, the device's idle share);
-8. prints one JSON line on the eight kernels and, as the last line,
+   request, DF L=5, L=1 and rk4 train steps and one wide L=5 train step
+   per kernel with torch.profiler (device kernels by time, the device's
+   idle share), and the device time per launch of every kernel;
+8. prints one JSON line on the twelve kernels and, as the last line,
    {"ok": true, "device": {...}}.
 
 Any failure raises and the script exits non-zero without the last line;
@@ -421,6 +438,18 @@ def deltas(before, after):
     return {k: after[k] - before.get(k, 0) for k in after}
 
 
+def rule_names(kernel, L_, N_, D_, S_, M_):
+    """The (forward, VJP) kernels that the card's dispatch rule names for
+    the per-step eval of a first-order GP with `kernel` ('RBF' or 'DF') at
+    L_ draws, N_ rows, state dim D_, S_ features and M_ inducing points."""
+    import torch
+    from vae_gp_ode_tpu_torch.ops import df_pathwise_tiled, pathwise_tiled
+    dev = torch.device('cuda')
+    if kernel == 'DF':
+        return df_pathwise_tiled.rule_kernels(L_, N_, D_, S_ * D_, M_, dev)
+    return pathwise_tiled.rule_kernels(L_, N_, D_, D_, S_, M_, dev)
+
+
 def solver_paths(args, card, batch, targs, slice_launches):
     """The paths of this slice: kernels #3/#4 against their plain
     versions, the two repairs, training with rk4, dopri5 and the rk4
@@ -436,7 +465,7 @@ def solver_paths(args, card, batch, targs, slice_launches):
     from vae_gp_ode_tpu_torch.gp.svgp import draw_fn_sample, init_svgp_params
     from vae_gp_ode_tpu_torch.kernels.rbf import rbf_gram
     from vae_gp_ode_tpu_torch.models.odegpvae import init_model
-    from vae_gp_ode_tpu_torch.ops import flow_fused, pathwise
+    from vae_gp_ode_tpu_torch.ops import flow_fused, pathwise, pathwise_tiled
     from vae_gp_ode_tpu_torch.serving import make_forecast_fn
     from vae_gp_ode_tpu_torch.training import trainer
 
@@ -529,15 +558,16 @@ def solver_paths(args, card, batch, targs, slice_launches):
         (loss_g, _, _, g_gpu), d = run_path(lambda: step_grads(
             wide, wide_gp, batch, noise, targs.Ndata, targs.eps_guard,
             'cuda', relu_in=relu_k))
-    require(d['pathwise_fwd'] > 0 and d['pathwise_bwd'] > 0 and
-            d['flow_fused_fwd'] == 0 and d['flow_fused_bwd'] == 0,
-            f'the S=2048 step launched {d}')
+    fk, bk = rule_names('RBF', 1, BATCH, q, 2048, M)
+    require(d[fk] > 0 and d[bk] > 0 and d['flow_fused_fwd'] == 0 and
+            d['flow_fused_bwd'] == 0, f'the S=2048 step launched {d}, the '
+            f'rule names {fk} and {bk}')
     # the same step with autograd through the plain version on the card
     # (the per-step eval's wrapper swapped for pathwise_eval_reference),
     # so that both sides share cuSOLVER's factor of the untrained GP's
     # gram
-    kernel_eval = pathwise.fused_pathwise_eval
-    pathwise.fused_pathwise_eval = pathwise.pathwise_eval_reference
+    kernel_eval = pathwise_tiled.pathwise_eval
+    pathwise_tiled.pathwise_eval = pathwise.pathwise_eval_reference
     relu_p = {}
     try:
         with cudnn_deterministic():
@@ -545,7 +575,7 @@ def solver_paths(args, card, batch, targs, slice_launches):
                 wide, wide_gp, batch, noise, targs.Ndata, targs.eps_guard,
                 'cuda', relu_in=relu_p, relu_pin=relu_k))
     finally:
-        pathwise.fused_pathwise_eval = kernel_eval
+        pathwise_tiled.pathwise_eval = kernel_eval
     require(not any(dp.values()), f'the plain S=2048 step launched {dp}')
     worst, name = worst_grad_error(g_gpu, g_plain, wide)
     check_grads(f'repair 2: one train step at order 1, q=6, S=2048 (L=1), '
@@ -596,11 +626,13 @@ def solver_paths(args, card, batch, targs, slice_launches):
     require(np.isfinite(losses).all(), f'rk4 losses {losses}')
     per_step = {}
     for i, (ep, L_, dd) in enumerate(steps):
-        require(dd['pathwise_fwd'] > 0 and dd['pathwise_bwd'] > 0 and
+        fk, bk = rule_names('RBF', L_, BATCH, q, S, M)
+        require(dd[fk] > 0 and dd[bk] > 0 and
                 dd['flow_fused_fwd'] == 0 and dd['flow_fused_bwd'] == 0,
-                f'rk4 train step {i} launched {dd}')
+                f'rk4 train step {i} launched {dd}, the rule names {fk} '
+                f'and {bk}')
         if i % 18 != 0:             # not counting a monitoring eval
-            per_step[L_] = (dd['pathwise_fwd'], dd['pathwise_bwd'])
+            per_step[L_] = (fk, dd[fk], bk, dd[bk])
     log(f'training path, --solver rk4: run() for {TRAIN_EPOCHS} epochs, '
         f'{len(steps)} steps in {train_s:.1f} s; launches {d}; per step '
         f'(fwd, bwd): ' + ', '.join(f'L={k}: {v}' for k, v in
@@ -689,8 +721,9 @@ def solver_paths(args, card, batch, targs, slice_launches):
         lossv = [float(m['loss']) for m in mets]
         nfe = [int(m['nfe']) for m in mets]
         require(np.isfinite(lossv).all(), f'{label} losses {lossv}')
-        require(d['pathwise_fwd'] > 0 and d['pathwise_bwd'] > 0 and
-                d['flow_fused_fwd'] == 0, f'{label} launched {d}')
+        fk, bk = rule_names('RBF', L, BATCH, q, S, M)
+        require(d[fk] > 0 and d[bk] > 0 and d['flow_fused_fwd'] == 0,
+                f'{label} launched {d}, the rule names {fk} and {bk}')
         log(f'{label}: 3 train steps (L=5) {ms:.3f} ms each (CUDA events); '
             f'losses {lossv}; nfe {nfe}; launches {d}; card {card}')
         out['adaptive'][label] = (ms, nfe, d)
@@ -724,8 +757,9 @@ def solver_paths(args, card, batch, targs, slice_launches):
     Xrec, d = run_path(request)
     require(Xrec.shape == (L, BATCH, T, 1, 28, 28) and bool(
         torch.isfinite(Xrec).all()), 'dopri5 forecast')
-    require(d['pathwise_fwd'] > 0 and d['flow_fused_fwd'] == 0,
-            f'the dopri5 request launched {d}')
+    fk = rule_names('RBF', L, BATCH, q, S, M)[0]
+    require(d[fk] > 0 and d['flow_fused_fwd'] == 0,
+            f'the dopri5 request launched {d}, the rule names {fk}')
     with torch.no_grad():
         Xn = (torch.as_tensor(X, device=dev) - 0.1307) / 0.3081
         nfe = int(fm(Xn, fgp, L=L, generator=torch.Generator(
@@ -758,6 +792,12 @@ def solver_paths(args, card, batch, targs, slice_launches):
         bb = pathwise_bound((x,) + operands + (gbar,) + tuple(bars), rows,
                             D_, K_, S, M, bwd=True)
         out['pathwise_ms'][L_] = (kf, pf, bf, kb, pb, bb)
+        out['calls'] = {  # the timed calls, for device time per launch
+            pathwise.KERNEL: lambda x=x, ops_=operands:
+                pathwise.fused_pathwise_eval(x, *ops_),
+            pathwise.BWD_KERNEL: lambda inputs=inputs, gbar=gbar:
+                torch.autograd.grad(pathwise.fused_pathwise_eval(*inputs),
+                                    inputs, gbar)}
         log(f'pathwise kernels at the main shapes L={L_} (N=20, D=K=6, '
             f'S=256, M=100): fwd {kf:.4f} ms (plain {pf:.4f}, bound '
             f'{bf[0]:.5f} {bf[1]}), bwd {kb:.4f} ms through autograd, with '
@@ -824,7 +864,8 @@ def df_paths(args, card, batch, slice_launches):
     from vae_gp_ode_tpu_torch.gp.svgp import draw_fn_sample, init_svgp_params
     from vae_gp_ode_tpu_torch.kernels import divfree
     from vae_gp_ode_tpu_torch.models.odegpvae import init_model
-    from vae_gp_ode_tpu_torch.ops import df_flow_fused, df_pathwise
+    from vae_gp_ode_tpu_torch.ops import (
+        df_flow_fused, df_pathwise, df_pathwise_tiled)
     from vae_gp_ode_tpu_torch.serving import make_forecast_fn
     from vae_gp_ode_tpu_torch.training import checkpoint, trainer
 
@@ -953,11 +994,12 @@ def df_paths(args, card, batch, slice_launches):
         (loss_g, _, _, g_gpu), d = run_path(lambda: step_grads(
             wide, wide_gp, batch, noise, 360.0, True, 'cuda',
             relu_in=relu_k))
-    require(d['df_pathwise_fwd'] > 0 and d['df_pathwise_bwd'] > 0 and
-            d['df_flow_fused_fwd'] == 0 and d['df_flow_fused_bwd'] == 0,
-            f'the DF S=512 step launched {d}')
-    kernel_eval = df_pathwise.fused_df_pathwise_eval
-    df_pathwise.fused_df_pathwise_eval = df_pathwise.df_pathwise_reference
+    fk, bk = rule_names('DF', 1, BATCH, q, 512, M)
+    require(d[fk] > 0 and d[bk] > 0 and d['df_flow_fused_fwd'] == 0 and
+            d['df_flow_fused_bwd'] == 0, f'the DF S=512 step launched {d}, '
+            f'the rule names {fk} and {bk}')
+    kernel_eval = df_pathwise_tiled.df_pathwise_eval
+    df_pathwise_tiled.df_pathwise_eval = df_pathwise.df_pathwise_reference
     relu_p = {}
     try:
         with cudnn_deterministic():
@@ -965,7 +1007,7 @@ def df_paths(args, card, batch, slice_launches):
                 wide, wide_gp, batch, noise, 360.0, True, 'cuda',
                 relu_in=relu_p, relu_pin=relu_k))
     finally:
-        df_pathwise.fused_df_pathwise_eval = kernel_eval
+        df_pathwise_tiled.df_pathwise_eval = kernel_eval
     require(not any(dp.values()), f'the plain DF S=512 step launched {dp}')
     check_grads(f'DF, one train step at S=512 (the pair refuses it; L=1), '
                 f'launches {d}, against autograd through the plain version '
@@ -1034,9 +1076,10 @@ def df_paths(args, card, batch, slice_launches):
     mets, d = run_path(few)
     lossv = [float(m['loss']) for m in mets]
     require(np.isfinite(lossv).all(), f'DF rk4 losses {lossv}')
-    require(d['df_pathwise_fwd'] > 0 and d['df_pathwise_bwd'] > 0 and
-            d['df_flow_fused_fwd'] == 0 and d['df_flow_fused_bwd'] == 0 and
-            d['pathwise_fwd'] == 0, f'DF rk4 launched {d}')
+    fk, bk = rule_names('DF', L, BATCH, q, S, M)
+    require(d[fk] > 0 and d[bk] > 0 and d['df_flow_fused_fwd'] == 0 and
+            d['df_flow_fused_bwd'] == 0 and d['pathwise_fwd'] == 0,
+            f'DF rk4 launched {d}, the rule names {fk} and {bk}')
     out['rk4_ms'] = ev0.elapsed_time(ev1) / 3
     log(f'DF --solver rk4: 3 train steps (L=5) {out["rk4_ms"]:.3f} ms each '
         f'(CUDA events); losses {lossv}; launches {d}; card {card}')
@@ -1053,8 +1096,9 @@ def df_paths(args, card, batch, slice_launches):
         res, d = run_path(lambda: pinned_grads(
             adjoint, rst.gp, batch, noise, dargs.Ndata, dargs.eps_guard,
             ('cuda', None), ('cuda', None), L, ref_model=rst.model))
-    require(d['df_pathwise_bwd'] > 0 and d['df_flow_fused_fwd'] == 0,
-            f'DF rk4 adjoint launched {d}')
+    bk = rule_names('DF', L, BATCH, q, S, M)[1]
+    require(d[bk] > 0 and d['df_flow_fused_fwd'] == 0,
+            f'DF rk4 adjoint launched {d}, the rule names {bk}')
     check_grads('DF rk4 adjoint vs rk4 backprop on the card (L=5, same '
                 'noise)', res)
     out['rk4_profile'] = lambda: rstep(rst, batch, L)
@@ -1219,6 +1263,16 @@ def df_paths(args, card, batch, slice_launches):
         outs8 = df_flow_fused.df_flow_vjp(zs, zsbar, *ops7, dts, T)
         b8 = roofline(rows7 * df_vjp_flops(q, SD, M),
                       (zs, zsbar) + ops7 + (dts,) + tuple(outs8))
+        out['calls'] = {  # the timed calls, for device time per launch
+            'df_pathwise_fwd': lambda x=x, ops_=operands:
+                df_pathwise.fused_df_pathwise_eval(x, *ops_),
+            'df_pathwise_bwd': lambda inputs=inputs, gbar=gbar:
+                torch.autograd.grad(df_pathwise.fused_df_pathwise_eval(
+                    *inputs), inputs, gbar),
+            'df_flow_fused_fwd': lambda z0=z0, ops7=ops7, dts=dts:
+                df_flow_fused.packed_df_euler_flow(z0, *ops7, dts, T),
+            'df_flow_fused_bwd': lambda zs=zs, zsbar=zsbar, ops7=ops7,
+                dts=dts: df_flow_fused.df_flow_vjp(zs, zsbar, *ops7, dts, T)}
         out['kernel_ms'][L_] = {'df_pathwise_fwd': (k5, p5, b5),
                                 'df_pathwise_bwd': (k6, p6, b6),
                                 'df_flow_fused_fwd': (k7, p7, b7),
@@ -1241,6 +1295,502 @@ def df_paths(args, card, batch, slice_launches):
     out['step_profile'] = lambda: dstep(dstate, batch, L)
     out['step1_profile'] = lambda: dstep(dstate, batch, 1)
     out['request_profile'] = lambda: fn(raw[1], args.seed)
+    return out
+
+
+# the wide configuration: main.py's defaults but for these flags
+WIDE_FLAGS = ('--latent_dim', '12', '--D_in', '12', '--D_out', '12',
+              '--num_features', '1024')
+WIDE = dict(CONFIG, latent_dim=12, num_features=1024)
+# the dispatch rule's sweep: RBF (D, K, S) and DF (D, S), each at L = 1, 5
+# and N = 20, 600, M = 100
+RBF_SWEEP = ((6, 6, 256), (12, 12, 256), (6, 6, 1024), (6, 6, 2048),
+             (12, 12, 1024))
+DF_SWEEP = ((6, 256), (6, 512), (12, 256), (12, 1024))
+# rows at which the rule takes the other kernel: a wide request of
+# WIDE_BATCH sequences (L*N*K*S >= 2e7: #9; #5 for DF), and rk4 steps of
+# BIG_BATCH sequences at the main widths (#4, #6)
+WIDE_BATCH, BIG_BATCH = 400, 160
+
+
+def device_us(fn, names, reps=10):
+    """{name: (device microseconds per launch, launches)} of the CUDA
+    kernels `<name>_kernel` over `reps` calls of fn(), from torch.profiler
+    (one warm-up call first)."""
+    import re
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name in names:
+        pat = re.compile(r'(?<![A-Za-z_])' + name + '_kernel')
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and pat.search(e.name)]
+        out[name] = (sum(e.time_range.elapsed_us() for e in ev)
+                     / max(len(ev), 1), len(ev))
+    return out
+
+
+def per_launch(v):
+    """A device_us entry as text: 'not measured' where the trace held
+    none of the kernel's launches (torch.profiler drops some events)."""
+    return f'{v[0]:.1f} us ({v[1]})' if v[1] else 'not measured'
+
+
+def wide_kernels(args, card):
+    """Both per-step pairs of each family, the single-block #3-#6 and the
+    grid-tiled #9-#12, against their plain versions on the card at every
+    shape of the sweep and beside them (a ragged last chunk, GP operands
+    per draw, no draw dim, the rows of the wide request and of the
+    batch-160 rk4 steps), and the sweep that fixed the dispatch rule: each
+    family's single-block and tiled forward and VJP timed with CUDA events
+    (the wrappers' launches with their slab sums) beside the pair the rule
+    picks. Returns what the summary line needs."""
+    import numpy as np
+    import torch
+    from vae_gp_ode_tpu_torch.gp.svgp import draw_fn_sample, init_svgp_params
+    from vae_gp_ode_tpu_torch.ops import (
+        df_pathwise, df_pathwise_tiled, pathwise, pathwise_tiled)
+
+    dev = torch.device('cuda')
+    M = CONFIG['num_inducing']
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 41)
+    rng = np.random.default_rng(args.seed + 41)
+    out = {'errs': {}, 'sweep': [], 'ops': {}}
+
+    def rbf_ops(L_, N_, D_, S_):
+        g = init_svgp_params(rng, D_, D_, M, lengthscale=2.0, variance=0.7,
+                             device='cuda')
+        with torch.no_grad():
+            operands = pathwise.rbf_fused_operands(
+                g, draw_fn_sample(g, gen, S_, L=L_))
+        return torch.randn((L_, N_, D_), generator=gen, device=dev), operands
+
+    def df_ops(L_, N_, D_, S_):
+        g = init_svgp_params(rng, D_, D_, M, kernel='DF', lengthscale=2.0,
+                             variance=0.7, device='cuda')
+        with torch.no_grad():
+            operands = df_pathwise.df_fused_operands(
+                g, draw_fn_sample(g, gen, S_, L=L_))
+        require(all(bool(torch.isfinite(t).all()) for t in operands),
+                f'non-finite DF sample at D={D_} S={S_}')
+        return torch.randn((L_, N_, D_), generator=gen, device=dev), operands
+
+    def per_draw(operands, L_):
+        """Z, ls (ls2) and var given a draw dim, each draw a scaled copy."""
+        operands = list(operands)
+        for i in (3, 5, 6):
+            operands[i] = (operands[i].expand(
+                (L_,) + tuple(operands[i].shape)) * (
+                1.0 + 0.05 * torch.arange(L_, device=dev).reshape(
+                    (L_,) + (1,) * operands[i].dim()))).contiguous()
+        return tuple(operands)
+
+    def check(fam, name, x, operands):
+        """Both pairs of the family, each wrapper forward and every
+        cotangent through torch.autograd.grad, against the plain version:
+        the tiled pair's errors go to out['errs'][fam + '_fwd'/'_bwd'],
+        the single-block pair's to fam + '_fwd_single'/'_bwd_single'."""
+        if fam == 'rbf':
+            pairs = (('single', pathwise.fused_pathwise_eval),
+                     ('tiled', pathwise_tiled.tiled_pathwise_eval))
+            plain, vjp_ref = (pathwise.pathwise_eval_reference,
+                              pathwise.pathwise_vjp_reference)
+            names = ('x',) + pathwise.NAMES
+        else:
+            pairs = (('single', df_pathwise.fused_df_pathwise_eval),
+                     ('tiled', df_pathwise_tiled.tiled_df_pathwise_eval))
+            plain, vjp_ref = (df_pathwise.df_pathwise_reference,
+                              df_pathwise.df_pathwise_vjp_reference)
+            names = ('x',) + df_pathwise.NAMES
+        with torch.no_grad():
+            r = plain(x, *operands)
+        gbar = torch.randn(r.shape, generator=gen, device=dev)
+        ref = vjp_ref(x, *operands, gbar)
+        for pair, wrapper in pairs:
+            key = fam + ('_single' if pair == 'single' else '')
+            with torch.no_grad():
+                o = wrapper(x, *operands)
+            torch.cuda.synchronize()
+            require(o.shape == r.shape, f'{name}: shape {tuple(o.shape)}')
+            out['errs'].setdefault(key + '_fwd', []).append(
+                compare(o, r, f'fwd {fam} {pair} {name}'))
+            inputs = [t.clone().requires_grad_() for t in (x,) + operands]
+            bars = torch.autograd.grad(wrapper(*inputs), inputs, gbar)
+            torch.cuda.synchronize()
+            out['errs'].setdefault(key + '_bwd', []).append(compare_bwd(
+                bars, ref, f'bwd {fam} {pair} {name}', names))
+        return gbar
+
+    log('wide shapes: both pairs of each family (single-block '
+        'pathwise_fwd / pathwise_bwd and df_pathwise_fwd / df_pathwise_bwd, '
+        'tiled pathwise_tiled_fwd / pathwise_tiled_bwd and '
+        'df_pathwise_tiled_fwd / df_pathwise_tiled_bwd) vs '
+        'pathwise_eval_reference and df_pathwise_reference (and autograd '
+        'through them) on the card at every shape of the sweep of the '
+        'dispatch rule, then the sweep itself '
+        '(ms per call, CUDA events, each wrapper\'s launch with its slab '
+        f'sums; card {card}):')
+    for fam, shapes in (('rbf', RBF_SWEEP), ('df', DF_SWEEP)):
+        for shape in shapes:
+            for L_ in (1, L):
+                for N_ in (BATCH, 600):
+                    if fam == 'rbf':
+                        D_, K_, S_ = shape
+                        x, operands = rbf_ops(L_, N_, D_, S_)
+                        name = f'L={L_} N={N_} D={D_} K={K_} S={S_}'
+                        mods = (pathwise, pathwise_tiled)
+                        pick = pathwise_tiled.use_tiled(L_, N_, D_, K_, S_,
+                                                        M, dev)
+                    else:
+                        D_, S_ = shape
+                        x, operands = df_ops(L_, N_, D_, S_)
+                        name = f'L={L_} N={N_} D={D_} S={S_}'
+                        mods = (df_pathwise, df_pathwise_tiled)
+                        pick = df_pathwise_tiled.use_df_tiled(
+                            L_, N_, D_, S_ * D_, M, dev)
+                    gbar = check(fam, name, x, operands)
+                    reps = 20 if N_ > BATCH else 50
+                    with torch.no_grad():
+                        t = [cuda_ms(lambda m=m: m._launch(x, operands),
+                                     reps) for m in mods]
+                        t += [cuda_ms(lambda m=m: m._launch_bwd(
+                            x, operands, gbar), reps) for m in mods]
+                    out['sweep'].append((fam, shape, L_, N_, t, pick))
+                    log(f'  sweep {fam} {name}: fwd single {t[0]:.4f} '
+                        f'tiled {t[1]:.4f}; vjp single {t[2]:.4f} tiled '
+                        f'{t[3]:.4f} ms; rule -> fwd '
+                        f'{"tiled" if pick[0] else "single"}, vjp '
+                        f'{"tiled" if pick[1] else "single"}')
+                    if (L_, N_) == (L, BATCH) and shape in ((12, 12, 1024),
+                                                            (12, 1024)):
+                        out['ops'][fam] = (x, operands, gbar)
+    # beside the sweep: a ragged last chunk, GP operands per draw, no draw
+    # dim (an operand shared by all draws gets the draws' sum), and the
+    # rows of the wide requests of WIDE_BATCH sequences and of the rk4
+    # steps of BIG_BATCH sequences at the main widths
+    for fam in ('rbf', 'df'):
+        make = rbf_ops if fam == 'rbf' else df_ops
+        check(fam, 'L=5 N=20 D=12 S=1000 (ragged last chunk)',
+              *make(L, BATCH, 12, 1000))
+        x, operands, _ = out['ops'][fam]
+        check(fam, 'L=5 N=20 D=12 S=1024, Z, ls, var per draw', x,
+              per_draw(operands, L))
+        base = pathwise._BASE_DIMS if fam == 'rbf' else df_pathwise.BASE_DIMS
+        check(fam, 'N=20 D=12 S=1024, no draw dim', x[0], tuple(
+            t[0] if t.dim() > nd else t for t, nd in zip(operands, base)))
+        check(fam, f'L=5 N={WIDE_BATCH} D=12 S=1024 (the wide request)',
+              *make(L, WIDE_BATCH, 12, 1024))
+        check(fam, f'L=5 N={BIG_BATCH} D=6 S=256 (the batch-{BIG_BATCH} '
+                   f'rk4 steps)', *make(L, BIG_BATCH, 6, 256))
+    # the rule against the sweep: the faster kernel of each pair per call
+    hits, misses = 0, []
+    for fam, shape, L_, N_, t, pick in out['sweep']:
+        for role, single, tiled, chose in (('fwd', t[0], t[1], pick[0]),
+                                           ('vjp', t[2], t[3], pick[1])):
+            took, other = (tiled, single) if chose else (single, tiled)
+            if took <= other:
+                hits += 1
+            else:
+                misses.append(f'{fam} {shape} L={L_} N={N_} {role} '
+                              f'+{100 * (took / other - 1):.0f}%')
+    out['rule_hits'] = (hits, hits + len(misses))
+    log(f'the rule took the faster kernel in {hits} of {hits + len(misses)} '
+        f'choices of this sweep; the others (time over the faster one): '
+        + (', '.join(misses) or 'none'))
+    # device time per launch of both pairs at the wide shapes
+    out['device_us'] = {}
+    for fam, mods in (('rbf', (pathwise, pathwise_tiled)),
+                      ('df', (df_pathwise, df_pathwise_tiled))):
+        x, operands, gbar = out['ops'][fam]
+        with torch.no_grad():
+            for m in mods:
+                out['device_us'].update(device_us(
+                    lambda m=m: m._launch(x, operands), [m.KERNEL]))
+                out['device_us'].update(device_us(
+                    lambda m=m: m._launch_bwd(x, operands, gbar),
+                    [m.BWD_KERNEL]))
+    log('device time per launch at the wide shapes (L=5, N=20, D=12, '
+        'S=1024, M=100; torch.profiler over 10 launches): ' + ', '.join(
+            f'{k} {per_launch(v)}' for k, v in
+            out['device_us'].items()) + f'; card {card}')
+    return out
+
+
+def wide_paths(args, card, slice_launches, kern):
+    """The wide configuration end to end (main.py's defaults with
+    WIDE_FLAGS, RBF and then --kernel DF): the training CLI's run() for
+    TRAIN_EPOCHS epochs with every ODE step through the kernels the
+    dispatch rule names (never the fused pairs), GPU vs CPU float64
+    gradients, step times at L=1 and 5; three requests and a T=32 rollout
+    with random weights; the tiled kernels' times at the wide shapes. Adds
+    each path run's launches to `slice_launches` (counts set to 0 just
+    before it, read just after) and returns what the summary line needs."""
+    import numpy as np
+    import torch
+    from vae_gp_ode_tpu_torch import main as train_cli
+    from vae_gp_ode_tpu_torch import ops
+    from vae_gp_ode_tpu_torch.data.mnist import load_data
+    from vae_gp_ode_tpu_torch.models.odegpvae import init_model
+    from vae_gp_ode_tpu_torch.ops import (
+        df_pathwise, df_pathwise_tiled, pathwise, pathwise_tiled)
+    from vae_gp_ode_tpu_torch.serving import make_forecast_fn
+    from vae_gp_ode_tpu_torch.training import trainer
+
+    dev = torch.device('cuda')
+    q, S, M = WIDE['latent_dim'], WIDE['num_features'], WIDE['num_inducing']
+    out = {'step_ms': {}, 'request_ms': {}, 'profiles': {}}
+
+    def run_path(fn):
+        ops.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        d = dict(ops.LAUNCHES)
+        for k in slice_launches:
+            slice_launches[k] += d[k]
+        return res, d
+
+    for kernel in ('RBF', 'DF'):
+        tag = 'wide' + ('_df' if kernel == 'DF' else '')
+        save = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            'build', 'chip_smoke', tag)
+        wargs = train_args(save, *WIDE_FLAGS, '--kernel', kernel)
+        steps, seen = [], {}
+
+        def on_step(ep, L_):
+            now = dict(ops.LAUNCHES)
+            steps.append((ep, L_, deltas(seen, now)))
+            seen.update(now)
+
+        t0 = time.perf_counter()
+        result, d = run_path(lambda: train_cli.run(wargs, on_step=on_step))
+        train_s = time.perf_counter() - t0
+        require(result['bailout'] is None, f'NaN bailout in the wide '
+                                           f'{kernel} run')
+        _, testset = load_data(wargs, device=dev)
+        batch = testset.first()
+        per_epoch = wargs.Ndata // wargs.batch + bool(wargs.Ndata %
+                                                      wargs.batch)
+        require(len(steps) == TRAIN_EPOCHS * per_epoch, f'{len(steps)} steps')
+        for i, (ep, L_, dd) in enumerate(steps):
+            # per euler step one VJP, and the forward twice: the solver's
+            # remat evaluates each step again in the backward pass
+            want = {}
+            fwd, bwd = rule_names(kernel, L_, wargs.batch, q, S, M)
+            want[fwd] = 2 * (T - 1)
+            want[bwd] = T - 1
+            if i % per_epoch == 0 and ep > 0:   # the monitoring eval, L=1
+                efwd = rule_names(kernel, 1, batch.shape[0], q, S, M)[0]
+                want[efwd] = want.get(efwd, 0) + T - 1
+            got = {k: v for k, v in dd.items() if v}
+            require(got == want, f'wide {kernel} train step {i} (epoch '
+                                 f'{ep}, L={L_}) launched {got}, the rule '
+                                 f'names {want}')
+        losses = np.concatenate([e['loss'] for e in result['epochs']])
+        require(np.isfinite(losses).all() and losses.size == len(steps),
+                f'wide {kernel} losses {losses}')
+        mses = [float(e['mse']) for e in result['epochs']]
+        require(np.isfinite(mses).all(), f'wide {kernel} mse {mses}')
+        picked = ', '.join(
+            f'L={L_}: {rule_names(kernel, L_, wargs.batch, q, S, M)}'
+            for L_ in (1, L))
+        log(f'wide training path (q=12, S=1024, --kernel {kernel}): run() '
+            f'for {TRAIN_EPOCHS} epochs, {len(steps)} steps in '
+            f'{train_s:.1f} s; every step launched the rule\'s kernels '
+            f'({picked}; '
+            f'{2 * (T - 1)} and {T - 1}) and nothing else; launches {d}; '
+            f'losses first '
+            f'{losses[0]:.2f} last {losses[-1]:.2f}; monitoring mse '
+            f'{", ".join(f"{m:.4f}" for m in mses)}')
+        state = result['state']
+        step = trainer.make_train_step(wargs.Ndata,
+                                       eps_guard=wargs.eps_guard)
+        check_grads(f'wide {kernel}: GPU vs CPU (float64) train-step '
+                    f'gradients at the trained state (L=1, same noise)',
+                    pinned_grads(state.model, state.gp, batch,
+                                 step_noise(args.seed + 42, q, S, M,
+                                            df=kernel == 'DF'),
+                                 wargs.Ndata, wargs.eps_guard,
+                                 ('cuda', None), ('cpu', torch.float64)))
+        out['step_ms'][kernel] = {}
+        for L_ in (1, L):
+            for _ in range(2):
+                step(state, batch, L_)
+            out['step_ms'][kernel][L_] = cuda_ms(
+                lambda: step(state, batch, L_), 10, warmup=0)
+        log(f'wide {kernel} train step (CUDA events over 10 steps, batch on '
+            f'the card): ' + ', '.join(
+                f'L={k}: {v:.3f} ms' for k, v in
+                out['step_ms'][kernel].items()) + f'; card {card}')
+        out['profiles'][kernel] = (lambda st=state, sp=step: sp(st, batch,
+                                                                L))
+
+        # the forecaster: random weights, three requests and a rollout
+        fm, fgp = init_model(args.seed + 43, device='cuda', random_bn=True,
+                             **dict(WIDE, kernel=kernel))
+        fn = make_forecast_fn(fm, None, fgp, L=L, normalize_input=True,
+                              device='cuda')
+        fn_roll = make_forecast_fn(fm, None, fgp, L=L, T_custom=T * TROLL,
+                                   normalize_input=True, device='cuda')
+        raw = [np.random.default_rng(args.seed + 44 + i).random(
+            (BATCH, T, 1, 28, 28)).astype(np.float32) for i in range(3)]
+        fn(raw[0], args.seed)                                # warm-up
+        fn_roll(raw[0], args.seed)
+        torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ms = []
+        fwd = rule_names(kernel, L, BATCH, q, S, M)[0]
+        for i, (f, X, Tout) in enumerate([(fn, raw[0], T), (fn, raw[1], T),
+                                          (fn, raw[2], T),
+                                          (fn_roll, raw[0], T * TROLL)]):
+            ev0.record()
+            Xrec, d = run_path(lambda: f(X, args.seed + i))
+            ev1.record()
+            torch.cuda.synchronize()
+            ms.append(ev0.elapsed_time(ev1))
+            require(Xrec.shape == (L, BATCH, Tout, 1, 28, 28) and bool(
+                torch.isfinite(Xrec).all()), f'wide {kernel} forecast {i}')
+            got = {k: v for k, v in d.items() if v}
+            require(got == {fwd: Tout - 1}, f'wide {kernel} request {i} '
+                                            f'launched {got}')
+        # a request of WIDE_BATCH sequences: the rows at which the rule
+        # takes another forward kernel
+        Xb = np.random.default_rng(args.seed + 47).random(
+            (WIDE_BATCH, T, 1, 28, 28)).astype(np.float32)
+        fn(Xb, args.seed)                                    # warm-up
+        bfwd = rule_names(kernel, L, WIDE_BATCH, q, S, M)[0]
+        ev0.record()
+        Xrec, d = run_path(lambda: fn(Xb, args.seed + 5))
+        ev1.record()
+        torch.cuda.synchronize()
+        ms.append(ev0.elapsed_time(ev1))
+        got = {k: v for k, v in d.items() if v}
+        require(Xrec.shape == (L, WIDE_BATCH, T, 1, 28, 28) and bool(
+            torch.isfinite(Xrec).all()) and got == {bfwd: T - 1},
+            f'wide {kernel} request of {WIDE_BATCH} sequences launched '
+            f'{got}')
+        out['request_ms'][kernel] = ms
+        log(f'wide {kernel} forecaster (random weights, L={L}): requests '
+            f'T={T} ' + ', '.join(f'{m:.3f}' for m in ms[:3])
+            + f' ms, rollout T={T * TROLL} {ms[3]:.3f} ms, {fwd} '
+            f'{T - 1} / {T * TROLL - 1} launches each; a request of '
+            f'{WIDE_BATCH} sequences {ms[4]:.3f} ms, {bfwd} {T - 1} launches '
+            f'(CUDA events, host work included); card {card}')
+        del state, result, fm, fgp
+
+    # the main configuration's rk4 steps: at the default batch the rule
+    # sends the VJP to the tiled kernel (before and after, in turns), and
+    # at a batch of BIG_BATCH sequences back to the single-block one
+    out['rk4_rule_ms'], out['big_ms'] = {}, {}
+    q6, S6 = CONFIG['latent_dim'], CONFIG['num_features']
+    X20 = (torch.rand((BATCH, T, 1, 28, 28), generator=torch.Generator(
+        device=dev).manual_seed(args.seed + 48), device=dev) - 0.1307) / 0.3081
+    Xbig = (torch.rand((BIG_BATCH, T, 1, 28, 28), generator=torch.Generator(
+        device=dev).manual_seed(args.seed + 49), device=dev) - 0.1307) / 0.3081
+    for kernel in ('RBF', 'DF'):
+        m, g = init_model(args.seed + 50, device='cuda',
+                          **dict(CONFIG, solver='rk4', kernel=kernel))
+        st = trainer.create_train_state(m, g)
+        stp = trainer.make_train_step(360.0, eps_guard=True)
+        mod = df_pathwise_tiled if kernel == 'DF' else pathwise_tiled
+        rule = mod.use_df_tiled if kernel == 'DF' else mod.use_tiled
+        for use_rule in (True, False, False, True):
+            if not use_rule:
+                setattr(mod, rule.__name__, lambda *a: (False, False))
+            try:
+                stp(st, X20, L)
+                ms = cuda_ms(lambda: stp(st, X20, L), 5, warmup=0)
+            finally:
+                setattr(mod, rule.__name__, rule)
+            out['rk4_rule_ms'].setdefault((kernel, use_rule), []).append(ms)
+        # the batch-BIG_BATCH steps start from a fresh state, with seeded
+        # draws: the steps above train `st` on random pixels, which can
+        # carry the DF gram to a smallest eigenvalue below 0, through the
+        # kernels and through the plain version alike; every later step
+        # is then NaN and the guard drops it (df_state_probe.py, PERF.md)
+        big = trainer.create_train_state(*init_model(
+            args.seed + 51, device='cuda',
+            **dict(CONFIG, solver='rk4', kernel=kernel)))
+        gbig = torch.Generator(device=dev).manual_seed(args.seed + 52)
+        stp(big, Xbig, L, gbig)                              # warm-up
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+
+        def two(big=big, stp=stp, gbig=gbig):
+            ev0.record()
+            mets = [stp(big, Xbig, L, gbig) for _ in range(2)]
+            ev1.record()
+            return mets
+        mets, d = run_path(two)
+        fk, bk = rule_names(kernel, L, BIG_BATCH, q6, S6, M)
+        got = {k: v for k, v in d.items() if v}
+        bad = [(k, float(v.float().max())) for mt in mets
+               for k, v in mt.items() if not bool(torch.isfinite(v).all())]
+        require(set(got) == {fk, bk} and not bad,
+                f'{kernel} rk4 steps at batch {BIG_BATCH} launched {got}, '
+                f'the rule names {fk} and {bk}; non-finite metrics {bad}')
+        out['big_ms'][kernel] = ev0.elapsed_time(ev1) / 2
+        log(f'{kernel} rk4 train step at the main widths (L={L}), CUDA '
+            f'events over 5 steps, batch {BATCH} by the rule (VJP '
+            f'{rule_names(kernel, L, BATCH, q6, S6, M)[1]}) '
+            f'vs the single-block pair, in turns: rule ' + ', '.join(
+                f'{v:.3f}' for v in out['rk4_rule_ms'][kernel, True])
+            + ' ms, single ' + ', '.join(
+                f'{v:.3f}' for v in out['rk4_rule_ms'][kernel, False])
+            + f' ms; batch {BIG_BATCH}: {out["big_ms"][kernel]:.3f} ms a '
+            f'step, launches {got}; card {card}')
+        del st, big, m, g
+
+    # the tiled kernels' times at the wide shapes (L=5, N=20)
+    out['kernel_ms'] = {}
+    for fam, mod, plain, vjp_ref in (
+            ('rbf', pathwise_tiled, pathwise.pathwise_eval_reference,
+             pathwise.pathwise_vjp_reference),
+            ('df', df_pathwise_tiled, df_pathwise.df_pathwise_reference,
+             df_pathwise.df_pathwise_vjp_reference)):
+        x, operands, gbar = kern['ops'][fam]
+        tiled = (pathwise_tiled.tiled_pathwise_eval if fam == 'rbf' else
+                 df_pathwise_tiled.tiled_df_pathwise_eval)
+        rows = x.shape[0] * x.shape[1]
+        with torch.no_grad():
+            o = tiled(x, *operands)
+            kf = cuda_ms(lambda: tiled(x, *operands), 200)
+            pf = cuda_ms(lambda: plain(x, *operands), 20)
+        inputs = [t.clone().requires_grad_() for t in (x,) + operands]
+        oo = tiled(*inputs)
+        kb = cuda_ms(lambda: torch.autograd.grad(oo, inputs, gbar,
+                                                 retain_graph=True), 200)
+        pb = cuda_ms(lambda: vjp_ref(x, *operands, gbar), 20)
+        bars = torch.autograd.grad(oo, inputs, gbar)
+        if fam == 'rbf':
+            bf = pathwise_bound((x,) + operands + (o,), rows, q, q, S, M)
+            bb = pathwise_bound((x,) + operands + (gbar,) + tuple(bars),
+                                rows, q, q, S, M, bwd=True)
+        else:
+            bf = roofline(rows * df_eval_flops(q, S * q, M),
+                          (x,) + operands + (o,))
+            bb = roofline(rows * df_vjp_flops(q, S * q, M),
+                          (x,) + operands + (gbar,) + tuple(bars))
+        out['kernel_ms'][mod.KERNEL] = (kf, pf, bf)
+        out['kernel_ms'][mod.BWD_KERNEL] = (kb, pb, bb)
+        out.setdefault('calls', {}).update({
+            mod.KERNEL: lambda tiled=tiled, x=x, ops_=operands:
+                tiled(x, *ops_),
+            mod.BWD_KERNEL: lambda tiled=tiled, inputs=inputs, gbar=gbar:
+                torch.autograd.grad(tiled(*inputs), inputs, gbar)})
+        log(f'{fam} tiled kernels at the wide shapes (L=5, N=20, D=12, '
+            f'S=1024, M=100): fwd {kf:.4f} ms (plain {pf:.4f}, bound '
+            f'{bf[0]:.5f} {bf[1]}), bwd {kb:.4f} ms through autograd, with '
+            f'slab sums (plain {pb:.4f}, bound {bb[0]:.5f} {bb[1]}); '
+            f'card {card}')
     return out
 
 
@@ -1270,7 +1820,8 @@ def main():
     from vae_gp_ode_tpu_torch.gp.svgp import draw_fn_sample, init_svgp_params
     from vae_gp_ode_tpu_torch.models.odegpvae import init_model
     from vae_gp_ode_tpu_torch.ops import (
-        _build, df_flow_fused, df_pathwise, flow_fused, pathwise)
+        _build, df_flow_fused, df_pathwise, df_pathwise_tiled, flow_fused,
+        pathwise, pathwise_tiled)
     from vae_gp_ode_tpu_torch.ops.pathwise import rbf_fused_operands
     from vae_gp_ode_tpu_torch.serving import (
         MNIST_MEAN, MNIST_STD, make_forecast_fn)
@@ -1288,7 +1839,9 @@ def main():
     t0 = time.perf_counter()
     _build.build(['flow_fused', 'flow_fused_bwd', 'pathwise_fwd',
                   'pathwise_bwd', 'df_pathwise_fwd', 'df_pathwise_bwd',
-                  'df_flow_fused', 'df_flow_fused_bwd'])
+                  'df_flow_fused', 'df_flow_fused_bwd', 'pathwise_tiled_fwd',
+                  'pathwise_tiled_bwd', 'df_pathwise_tiled_fwd',
+                  'df_pathwise_tiled_bwd'])
     flow_fused._kernel()
     flow_fused._bwd_lib()
     pathwise._lib()
@@ -1297,6 +1850,10 @@ def main():
     df_pathwise._bwd_lib()
     df_flow_fused._kernel()
     df_flow_fused._bwd_lib()
+    pathwise_tiled._lib()
+    pathwise_tiled._bwd_lib()
+    df_pathwise_tiled._lib()
+    df_pathwise_tiled._bwd_lib()
     log(f'build: {time.perf_counter() - t0:.1f} s')
 
     # -- 2. the forecaster at full width ---------------------------------
@@ -1500,7 +2057,8 @@ def main():
         # epoch's monitoring eval (one forward launch)
         evals = 1 if i % per_epoch == 0 and ep > 0 else 0
         if d[flow_fused.BWD_KERNEL] != 1 or d[flow_fused.KERNEL] != (
-                1 + evals) or d['pathwise_fwd'] or d['pathwise_bwd']:
+                1 + evals) or any(v for k, v in d.items()
+                                  if not k.startswith('flow_fused')):
             raise AssertionError(f'train step {i} (epoch {ep}, L={L_}) '
                                  f'launched {d}')
     require([L_ for _, L_, _ in steps] == [1] * per_epoch + [L] * per_epoch,
@@ -1571,6 +2129,11 @@ def main():
     df_launches = {k: 0 for k in ops.LAUNCHES}
     dfp = df_paths(args, card, batch, df_launches)
 
+    # -- 6d. the wide shapes: kernels #9-#12 and the dispatch rule ----------
+    wide_launches = {k: 0 for k in ops.LAUNCHES}
+    kern = wide_kernels(args, card)
+    wide = wide_paths(args, card, wide_launches, kern)
+
     # -- 7. timings --------------------------------------------------------
     with torch.no_grad():
         ms_kernel = cuda_ms(
@@ -1615,53 +2178,69 @@ def main():
     profile(dfp['step_profile'], f'one DF L={L} train step')
     profile(dfp['step1_profile'], 'one DF L=1 train step')
     profile(dfp['rk4_profile'], f'one DF L={L} rk4 train step')
+    for kernel, fn_step in wide['profiles'].items():
+        profile(fn_step, f'one wide (q=12, S=1024) {kernel} L={L} train step')
 
     ms_b, ms_bp, bound_b, by_b = bwd_ms[L]
     kf, pf, bf, kb, pb, bb = path['pathwise_ms'][L]
-    for k in ('pathwise_fwd', 'pathwise_bwd'):
-        require(slice_launches[k] > 0, f'{k} was never launched on the '
-                                       f'paths of the solvers')
-    df_entries = []
-    for mod, bwd, err in ((df_pathwise, False, dfp['pathwise_err'][0]),
-                          (df_pathwise, True, dfp['pathwise_err'][1]),
+    # launches: each path run's, counts set to 0 just before it
+    runs = (serve_launches, train_launches, slice_launches, df_launches,
+            wide_launches)
+    total = {k: sum(d[k] for d in runs) for k in ops.LAUNCHES}
+    # #3-#6: the largest error of phases 6b/6c and of 6d's sweep shapes
+    errs = kern['errs']
+    timed = {  # name: (ms, plain ms, (bound ms, bound by), max abs err)
+        flow_fused.KERNEL: (ms_kernel, ms_plain, (bound_ms, bound_by),
+                            max_abs_err),
+        flow_fused.BWD_KERNEL: (ms_b, ms_bp, (bound_b, by_b),
+                                bwd_max_abs_err),
+        pathwise.KERNEL: (kf, pf, bf, max(path['pathwise_err'][0],
+                                          *errs['rbf_single_fwd'])),
+        pathwise.BWD_KERNEL: (kb, pb, bb, max(path['pathwise_err'][1],
+                                              *errs['rbf_single_bwd']))}
+    for mod, bwd, err in ((df_pathwise, False, max(
+                              dfp['pathwise_err'][0], *errs['df_single_fwd'])),
+                          (df_pathwise, True, max(
+                              dfp['pathwise_err'][1], *errs['df_single_bwd'])),
                           (df_flow_fused, False, dfp['flow_err'][0]),
                           (df_flow_fused, True, dfp['flow_err'][1])):
         name = mod.BWD_KERNEL if bwd else mod.KERNEL
-        require(df_launches[name] > 0, f'{name} was never launched on the '
-                                       f'DF paths')
-        k_ms, p_ms, (b_ms, b_by) = dfp['kernel_ms'][L][name]
-        df_entries.append({
-            'name': name, 'route': 'cuda',
-            'source': mod.BWD_SOURCE if bwd else mod.SOURCE,
-            'replaces': mod.BWD_REPLACES if bwd else mod.REPLACES,
-            'launches': df_launches[name], 'max_abs_err': err, 'ms': k_ms,
-            'plain_ms': p_ms, 'bound_ms': b_ms, 'bound_by': b_by,
-            'library_ms': None})
-    log(json.dumps({'kernels': [{
-        'name': flow_fused.KERNEL, 'route': 'cuda',
-        'source': flow_fused.SOURCE, 'replaces': flow_fused.REPLACES,
-        'launches': (serve_launches[flow_fused.KERNEL]
-                     + train_launches[flow_fused.KERNEL]),
-        'max_abs_err': max_abs_err, 'ms': ms_kernel, 'plain_ms': ms_plain,
-        'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None}, {
-        'name': flow_fused.BWD_KERNEL, 'route': 'cuda',
-        'source': flow_fused.BWD_SOURCE,
-        'replaces': flow_fused.BWD_REPLACES,
-        'launches': (serve_launches[flow_fused.BWD_KERNEL]
-                     + train_launches[flow_fused.BWD_KERNEL]),
-        'max_abs_err': bwd_max_abs_err, 'ms': ms_b, 'plain_ms': ms_bp,
-        'bound_ms': bound_b, 'bound_by': by_b, 'library_ms': None}, {
-        'name': pathwise.KERNEL, 'route': 'cuda', 'source': pathwise.SOURCE,
-        'replaces': pathwise.REPLACES,
-        'launches': slice_launches[pathwise.KERNEL],
-        'max_abs_err': path['pathwise_err'][0], 'ms': kf, 'plain_ms': pf,
-        'bound_ms': bf[0], 'bound_by': bf[1], 'library_ms': None}, {
-        'name': pathwise.BWD_KERNEL, 'route': 'cuda',
-        'source': pathwise.BWD_SOURCE, 'replaces': pathwise.BWD_REPLACES,
-        'launches': slice_launches[pathwise.BWD_KERNEL],
-        'max_abs_err': path['pathwise_err'][1], 'ms': kb, 'plain_ms': pb,
-        'bound_ms': bb[0], 'bound_by': bb[1], 'library_ms': None}]
-        + df_entries}))
+        timed[name] = dfp['kernel_ms'][L][name] + (err,)
+    for mod, fam in ((pathwise_tiled, 'rbf'), (df_pathwise_tiled, 'df')):
+        timed[mod.KERNEL] = wide['kernel_ms'][mod.KERNEL] + (
+            max(errs[fam + '_fwd']),)
+        timed[mod.BWD_KERNEL] = wide['kernel_ms'][mod.BWD_KERNEL] + (
+            max(errs[fam + '_bwd']),)
+    entries = []
+    for mod in (flow_fused, pathwise, df_pathwise, df_flow_fused,
+                pathwise_tiled, df_pathwise_tiled):
+        for name, source, replaces in (
+                (mod.KERNEL, mod.SOURCE, mod.REPLACES),
+                (mod.BWD_KERNEL, mod.BWD_SOURCE, mod.BWD_REPLACES)):
+            require(total[name] > 0, f'{name} was never launched on the '
+                                     f'paths of chip_smoke.py')
+            k_ms, p_ms, (b_ms, b_by), err = timed[name]
+            entries.append({
+                'name': name, 'route': 'cuda', 'source': source,
+                'replaces': replaces, 'launches': total[name],
+                'max_abs_err': err, 'ms': k_ms, 'plain_ms': p_ms,
+                'bound_ms': b_ms, 'bound_by': b_by, 'library_ms': None})
+    require(len(entries) == 12, f'{len(entries)} kernels')
+    # device time per launch at the shapes each kernel was timed at
+    calls = {flow_fused.KERNEL: lambda: flow_fused.packed_euler_flow(
+                 *main_operands),
+             flow_fused.BWD_KERNEL: lambda: flow_fused.packed_flow_vjp(
+                 *bwd_operands[L])}
+    for part in (path, dfp, wide):
+        calls.update(part['calls'])
+    dev_us = {}
+    for name, fn_k in calls.items():
+        dev_us.update(device_us(fn_k, [name]))
+    log('device time per launch at the timed shapes (torch.profiler over '
+        '10 calls; L=5, the main widths for #1-#8, the wide ones for '
+        '#9-#12): ' + ', '.join(f'{k} {per_launch(v)}'
+                                for k, v in dev_us.items()) + f'; card {card}')
+    log(json.dumps({'kernels': entries}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))

@@ -11,7 +11,9 @@ over up to 300 rows, 15 steps and 1536 columns in another order. The
 per-step eval and its VJP: the same two tolerances (sums over up to 600
 rows and 12288 feature columns). The divergence-free kernels #5-#8: the
 same two tolerances (sums over up to 6144 feature columns, 100 inducing
-points and 36 output-dim pairs).
+points and 36 output-dim pairs). The grid-tiled kernels #9-#12: the same
+two tolerances (sums over up to 12288 feature columns, in per-block
+partials summed by the wrapper).
 """
 
 import numpy as np
@@ -23,7 +25,8 @@ from vae_gp_ode_tpu_torch.core.transforms import invsoftplus
 from vae_gp_ode_tpu_torch.gp.svgp import draw_fn_sample, init_svgp_params
 from vae_gp_ode_tpu_torch.models.odegpvae import init_model
 from vae_gp_ode_tpu_torch.ops import (
-    df_flow_fused, df_pathwise, flow_fused, pathwise,
+    df_flow_fused, df_pathwise, df_pathwise_tiled, flow_fused, pathwise,
+    pathwise_tiled,
 )
 from vae_gp_ode_tpu_torch.ops.pathwise import rbf_fused_operands
 from vae_gp_ode_tpu_torch.serving import make_forecast_fn
@@ -290,8 +293,8 @@ def test_fused_pair_rule_on_the_card(cuda, order, q, S, fits):
 
 def test_rk4_and_wide_train_steps_take_the_per_step_kernels(cuda):
     """A full-width train step with solver='rk4', and one at S=2048 with
-    euler (which the fused pair refuses), launch the per-step kernels and
-    never the fused pair; losses finite."""
+    euler (which the fused pair refuses), launch the per-step kernels that
+    the dispatch rule names and never the fused pair; losses finite."""
     for kw in (dict(solver='rk4'), dict(num_features=2048)):
         model, gp = init_model(0, device='cuda', lengthscale=2.0,
                                variance=0.7, **kw)
@@ -304,7 +307,10 @@ def test_rk4_and_wide_train_steps_take_the_per_step_kernels(cuda):
         torch.cuda.synchronize()
         d = {k: ops.LAUNCHES[k] - before[k] for k in before}
         assert d['flow_fused_fwd'] == d['flow_fused_bwd'] == 0, (kw, d)
-        assert d['pathwise_fwd'] > 0 and d['pathwise_bwd'] > 0, (kw, d)
+        fwd, bwd = pathwise_tiled.rule_kernels(
+            5, 20, 6, 6, kw.get('num_features', 256), 100, cuda)
+        assert d[fwd] > 0 and d[bwd] > 0, (kw, d)
+        assert sum(d.values()) == d[fwd] + d[bwd], (kw, d)
         assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
 
 
@@ -446,8 +452,8 @@ def test_df_pair_rule_on_the_card(cuda, D, S, fits):
 def test_df_train_steps_launch_their_kernels(cuda):
     """Full-width DF train steps (q=6, S=256, M=100, batch 20, T=16, L=5):
     euler launches #7 and #8 once and nothing else; rk4, and euler at
-    S=512 (which the pair refuses), go through #5/#6 and never #7/#8;
-    losses finite."""
+    S=512 (which the pair refuses), go through the per-step kernels that
+    the dispatch rule names and never #7/#8; losses finite."""
     X = (torch.rand(20, 16, 1, 28, 28, generator=torch.Generator(
         device=cuda).manual_seed(0), device=cuda) - 0.1307) / 0.3081
     for kw, pair in ((dict(), True), (dict(solver='rk4'), False),
@@ -464,7 +470,93 @@ def test_df_train_steps_launch_their_kernels(cuda):
             assert d == {k: int(k in ('df_flow_fused_fwd',
                                       'df_flow_fused_bwd')) for k in d}, d
         else:
-            assert d['df_pathwise_fwd'] > 0 and d['df_pathwise_bwd'] > 0
-            assert d['df_flow_fused_fwd'] == d['df_flow_fused_bwd'] == 0
-            assert d['pathwise_fwd'] == d['flow_fused_fwd'] == 0
+            fwd, bwd = df_pathwise_tiled.rule_kernels(
+                5, 20, 6, 6 * kw.get('num_features', 256), 100, cuda)
+            assert d[fwd] > 0 and d[bwd] > 0, (kw, d)
+            assert sum(d.values()) == d[fwd] + d[bwd], (kw, d)
+        assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
+
+
+# -- the grid-tiled kernels #9-#12 and the dispatch rule ----------------
+
+@pytest.mark.parametrize('L,N,D,S', [(5, 20, 12, 1024), (1, 600, 6, 1000)])
+def test_tiled_pathwise_kernels_match_plain(cuda, L, N, D, S):
+    """#9 and #10 against the plain version (S=1000: a ragged last
+    chunk)."""
+    x, operands, gen = _pathwise_operands(cuda, L, N, D, D, S)
+    before = dict(ops.LAUNCHES)
+    with torch.no_grad():
+        out = pathwise_tiled.tiled_pathwise_eval(x, *operands)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES['pathwise_tiled_fwd'] == \
+        before['pathwise_tiled_fwd'] + 1
+    torch.testing.assert_close(out, pathwise.pathwise_eval_reference(
+        x, *operands), **TOL)
+    inputs = [t.clone().requires_grad_() for t in (x,) + operands]
+    out = pathwise_tiled.tiled_pathwise_eval(*inputs)
+    g = torch.randn(out.shape, generator=gen, device=cuda)
+    grads = torch.autograd.grad(out, inputs, g)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES['pathwise_tiled_bwd'] == \
+        before['pathwise_tiled_bwd'] + 1
+    _assert_cotangents(grads, pathwise.pathwise_vjp_reference(
+        x, *operands, g))
+
+
+@pytest.mark.parametrize('L,N,q,S', [(5, 20, 12, 1024), (1, 600, 6, 100)])
+def test_tiled_df_pathwise_kernels_match_plain(cuda, L, N, q, S):
+    """#11 and #12 against the plain version (S*D = 600: one ragged chunk
+    each)."""
+    x, operands, gen = _df_operands(cuda, L, N, q=q, S=S)
+    before = dict(ops.LAUNCHES)
+    with torch.no_grad():
+        out = df_pathwise_tiled.tiled_df_pathwise_eval(x, *operands)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES['df_pathwise_tiled_fwd'] == \
+        before['df_pathwise_tiled_fwd'] + 1
+    torch.testing.assert_close(out, df_pathwise.df_pathwise_reference(
+        x, *operands), **TOL)
+    inputs = [t.clone().requires_grad_() for t in (x,) + operands]
+    out = df_pathwise_tiled.tiled_df_pathwise_eval(*inputs)
+    g = torch.randn(out.shape, generator=gen, device=cuda)
+    grads = torch.autograd.grad(out, inputs, g)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES['df_pathwise_tiled_bwd'] == \
+        before['df_pathwise_tiled_bwd'] + 1
+    _assert_cotangents(grads, df_pathwise.df_pathwise_vjp_reference(
+        x, *operands, g))
+
+
+def test_rule_at_the_wide_shapes_on_the_card(cuda):
+    """The card's own SM count and shared-memory opt-in give the choices
+    the rule was fixed with, and #10's exported shared-memory need is the
+    formula the rule uses; at the wide configuration (q=12, S=1024, batch
+    20) a train step launches #3 and #10 (RBF) or #11 and #12 (DF): the
+    VJP once per euler step (15), the forward twice (the solver's remat
+    evaluates each step again in the backward pass)."""
+    assert ops.card_properties(cuda) == (132, 232448)
+    lib = pathwise_tiled._bwd_lib()
+    assert lib.pathwise_tiled_bwd_smem_optin(cuda.index or 0) == 232448
+    for D in (6, 12, 209, 210):
+        assert lib.pathwise_tiled_bwd_smem_bytes(D) == \
+            pathwise_tiled.tiled_bwd_smem_bytes(D)
+    X = (torch.rand(20, 16, 1, 28, 28, generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda) - 0.1307) / 0.3081
+    for kernel, want in (('RBF', ('pathwise_fwd', 'pathwise_tiled_bwd')),
+                         ('DF', ('df_pathwise_tiled_fwd',
+                                 'df_pathwise_tiled_bwd'))):
+        assert (df_pathwise_tiled.rule_kernels(5, 20, 12, 12288, 100, cuda)
+                if kernel == 'DF' else pathwise_tiled.rule_kernels(
+                    5, 20, 12, 12, 1024, 100, cuda)) == want
+        model, gp = init_model(0, device='cuda', kernel=kernel,
+                               latent_dim=12, num_features=1024,
+                               lengthscale=2.0, variance=0.7)
+        state = trainer.create_train_state(model, gp)
+        step = trainer.make_train_step(360.0, eps_guard=True)
+        before = dict(ops.LAUNCHES)
+        metrics = step(state, X, 5)
+        torch.cuda.synchronize()
+        d = {k: ops.LAUNCHES[k] - before[k] for k in before if
+             ops.LAUNCHES[k] != before[k]}
+        assert d == {want[0]: 30, want[1]: 15}, (kernel, d)
         assert all(bool(torch.isfinite(v).all()) for v in metrics.values())

@@ -14,7 +14,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, 'vae_gp_ode_tpu_torch')
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'vae_gp_ode_tpu')
 #: the port's scripts at the repository root
-SCRIPTS = ['chip_smoke', 'grad_precision_probe']
+SCRIPTS = ['chip_smoke', 'grad_precision_probe', 'df_state_probe']
 
 
 def _port_modules():
@@ -59,6 +59,7 @@ def test_every_module_imports_with_jax_blocked():
     for mod in ('main', 'data.mnist', 'data.synthetic', 'training.trainer',
                 'training.checkpoint', 'training.meters', 'ops.flow_fused',
                 'ops.pathwise', 'ops.df_pathwise', 'ops.df_flow_fused',
+                'ops.pathwise_tiled', 'ops.df_pathwise_tiled',
                 'kernels.divfree', 'dynamics.solvers', 'dynamics.adjoint',
                 'utils.jax_import'):
         assert f'vae_gp_ode_tpu_torch.{mod}' in _port_modules()
@@ -90,6 +91,8 @@ def test_cuda_sources_are_plain_cuda():
     assert {'flow_fused.cu', 'flow_fused_bwd.cu', 'pathwise_fwd.cu',
             'pathwise_bwd.cu', 'df_pathwise_fwd.cu', 'df_pathwise_bwd.cu',
             'df_flow_fused.cu', 'df_flow_fused_bwd.cu',
+            'pathwise_tiled_fwd.cu', 'pathwise_tiled_bwd.cu',
+            'df_pathwise_tiled_fwd.cu', 'df_pathwise_tiled_bwd.cu',
             'df_common.cuh'} <= set(sources)
     for fn in sources:
         with open(os.path.join(csrc, fn)) as f:

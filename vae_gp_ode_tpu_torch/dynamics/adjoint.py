@@ -9,7 +9,8 @@ system over each output interval in reversed time s = t1 - t:
     dgth/ds =  a^T df/dtheta      (a vector-Jacobian product)
 
 with a += cotangent(z_i) injected at each saved output time. On the GPU
-every product goes through the per-step kernel pair of `ops.pathwise`.
+every product goes through the per-step kernels that the card's dispatch
+rule names (`ops.pathwise_tiled`, `ops.df_pathwise_tiled`).
 
 Three backward integrators, as in the JAX package:
   * euler/midpoint/rk4: fixed steps over the augmented state;
@@ -210,13 +211,13 @@ def flow_forward_adjoint(gp, sample, z0, ts, order=1, solver='euler',
     Us_sqrt (which f does not read: zero cotangents), omega, phase,
     weights and nu, and for the DF kernel its contraction df_G (whose
     weights f then does not read), each with the leading dim of draws.
-    f is the per-step kernel pair of the GP's kernel (`ops.pathwise` or
-    `ops.df_pathwise`).
+    f is the per-step eval of the GP's kernel through the card's dispatch
+    rule (`ops.pathwise_tiled.pathwise_eval`,
+    `ops.df_pathwise_tiled.df_pathwise_eval`).
     Returns (zs (..., N, T, D), nfe) as flow_forward does.
     """
-    from vae_gp_ode_tpu_torch.ops.df_pathwise import (
-        fused_df_pathwise_eval, pack_df_operands)
-    from vae_gp_ode_tpu_torch.ops.pathwise import fused_pathwise_eval
+    from vae_gp_ode_tpu_torch.ops import df_pathwise_tiled, pathwise_tiled
+    from vae_gp_ode_tpu_torch.ops.df_pathwise import pack_df_operands
     dev = resolve_device(device)
     check_device(z0, dev, 'z0')
     if order not in (1, 2):
@@ -245,12 +246,12 @@ def flow_forward_adjoint(gp, sample, z0, ts, order=1, solver='euler',
     def f(th, t, z):
         uls, uvar, Z, _, _, omega, phase, weights, nu = th[:9]
         if df:
-            fz = fused_df_pathwise_eval(z, *pack_df_operands(
+            fz = df_pathwise_tiled.df_pathwise_eval(z, *pack_df_operands(
                 omega, phase, th[9], Z, nu, softplus(uls), softplus(uvar)))
         else:
-            fz = fused_pathwise_eval(z, omega, phase, weights, Z,
-                                     nu[..., 0], softplus(uls),
-                                     softplus(uvar))
+            fz = pathwise_tiled.pathwise_eval(z, omega, phase, weights, Z,
+                                              nu[..., 0], softplus(uls),
+                                              softplus(uvar))
         if order == 2:
             q = z.shape[-1] // 2
             fz = torch.cat([z[..., q:], fz], dim=-1)

@@ -8,8 +8,10 @@ its discrete adjoint in another, wherever that pair takes the shapes
 and 2), `ops.df_flow_fused` for the divergence-free kernel (order 1).
 Every other solver, dense output, and the shapes the pair refuses
 integrate with `dynamics.solvers.odeint` over `gp.svgp.fn_eval`, whose
-per-step evaluation and its VJP are the kernels of `ops.pathwise` (RBF)
-or `ops.df_pathwise` (DF) on the GPU.
+per-step evaluation and its VJP are, on the GPU, the kernels that the
+card's dispatch rule names: the single-block pair of `ops.pathwise` (RBF)
+or `ops.df_pathwise` (DF), or the grid-tiled pair of `ops.pathwise_tiled`
+or `ops.df_pathwise_tiled`.
 """
 
 import torch

@@ -22,7 +22,9 @@ from vae_gp_ode_tpu_torch.core.transforms import (
 )
 from vae_gp_ode_tpu_torch.kernels import divfree as dfk
 from vae_gp_ode_tpu_torch.kernels import rbf as rbfk
-from vae_gp_ode_tpu_torch.ops import df_pathwise, pathwise
+from vae_gp_ode_tpu_torch.ops import (
+    df_pathwise, df_pathwise_tiled, pathwise, pathwise_tiled,
+)
 
 @dataclasses.dataclass
 class SVGPParams:
@@ -206,17 +208,22 @@ def draw_fn_sample(p: SVGPParams, generator, S,
 def fn_eval(p: SVGPParams, s: FnSample, x):
     """Evaluate the sampled posterior function(s): prior + update.
 
-    x (..., N, D_in) with the sample's batch of draws -> (..., N, D_out),
-    through the per-step kernel pair of the GP's kernel at every shape:
-    `ops.pathwise.fused_pathwise_eval` for RBF (`csrc/pathwise_fwd.cu`,
-    its VJP `csrc/pathwise_bwd.cu`), `ops.df_pathwise.
-    fused_df_pathwise_eval` for DF (`csrc/df_pathwise_fwd.cu`,
-    `csrc/df_pathwise_bwd.cu`); on CPU tensors their plain versions.
+    x (..., N, D_in) with the sample's batch of draws -> (..., N, D_out).
+    On CUDA tensors the card's dispatch rule picks, from the shapes and
+    before any launch, the forward kernel and the VJP kernel of the GP's
+    kernel family: for RBF `ops.pathwise_tiled.pathwise_eval` chooses
+    between the single-block pair (`csrc/pathwise_fwd.cu`,
+    `csrc/pathwise_bwd.cu`) and the grid-tiled pair
+    (`csrc/pathwise_tiled_fwd.cu`, `csrc/pathwise_tiled_bwd.cu`) by
+    `use_tiled`; for DF `ops.df_pathwise_tiled.df_pathwise_eval` between
+    `csrc/df_pathwise_fwd.cu` / `df_pathwise_bwd.cu` and
+    `csrc/df_pathwise_tiled_fwd.cu` / `df_pathwise_tiled_bwd.cu` by
+    `use_df_tiled`. On CPU tensors both take their plain versions.
     """
     if p.kernel_name == 'DF':
-        return df_pathwise.fused_df_pathwise_eval(
+        return df_pathwise_tiled.df_pathwise_eval(
             x, *df_pathwise.df_fused_operands(p, s))
-    return pathwise.fused_pathwise_eval(
+    return pathwise_tiled.pathwise_eval(
         x, *pathwise.rbf_fused_operands(p, s))
 
 

@@ -2,14 +2,33 @@
 
 `LAUNCHES` counts, per kernel, the launches its wrapper made: each wrapper
 adds one where it launches its CUDA kernel and nowhere else, so a run can
-show that its path went through the kernels.
+show that its path went through the kernels. `card_properties` gives the
+card's figures that the per-step dispatch rules read.
 """
+
+import functools
+
+import torch
 
 LAUNCHES = {'flow_fused_fwd': 0, 'flow_fused_bwd': 0, 'pathwise_fwd': 0,
             'pathwise_bwd': 0, 'df_flow_fused_fwd': 0, 'df_flow_fused_bwd': 0,
-            'df_pathwise_fwd': 0, 'df_pathwise_bwd': 0}
+            'df_pathwise_fwd': 0, 'df_pathwise_bwd': 0,
+            'pathwise_tiled_fwd': 0, 'pathwise_tiled_bwd': 0,
+            'df_pathwise_tiled_fwd': 0, 'df_pathwise_tiled_bwd': 0}
 
 
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _properties(index):
+    p = torch.cuda.get_device_properties(index)
+    return p.multi_processor_count, p.shared_memory_per_block_optin
+
+
+def card_properties(device):
+    """(SM count, shared-memory opt-in bytes per block) of CUDA `device`."""
+    return _properties(torch.cuda.current_device() if device.index is None
+                       else device.index)

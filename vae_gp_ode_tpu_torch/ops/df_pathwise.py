@@ -27,7 +27,7 @@ import torch
 from vae_gp_ode_tpu_torch import ops
 from vae_gp_ode_tpu_torch.ops import _build
 from vae_gp_ode_tpu_torch.ops.pathwise import (
-    _check_tensors, _draws, _flat, split_slabs,
+    _check_tensors, _flat, apply_routed, split_slabs,
 )
 from vae_gp_ode_tpu_torch.kernels.rbf import rbf_lengthscales, rbf_variance
 
@@ -209,24 +209,6 @@ def _launch_bwd(x, operands, g):
     return (dx,) + split_slabs(slab.sum(dim=1), operands, BASE_DIMS)
 
 
-class _FusedDfPathwiseEval(torch.autograd.Function):
-    """The forward kernel with the VJP kernel as its backward."""
-
-    @staticmethod
-    def forward(ctx, x, omf, phf, G, Z, nur, ls2, var):
-        operands = (omf, phf, G, Z, nur, ls2, var)
-        out = _launch(x, operands)
-        ctx.save_for_backward(x, *operands)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        x, *operands = ctx.saved_tensors
-        grads = _launch_bwd(x, operands, g.contiguous())
-        return tuple(gr if need else None
-                     for gr, need in zip(grads, ctx.needs_input_grad))
-
-
 def fused_df_pathwise_eval(x, omf, phf, G, Z, nur, ls2, var):
     """Per-step DF eval; same arguments and result as
     :func:`df_pathwise_reference` with at most one leading dim of L draws.
@@ -241,7 +223,4 @@ def fused_df_pathwise_eval(x, omf, phf, G, Z, nur, ls2, var):
         return df_pathwise_reference(x, *operands)
     if x.device.type != 'cuda':
         raise ValueError(f'unsupported device {x.device}')
-    L = _draws(x, operands, BASE_DIMS)
-    x3 = x.expand((L or 1,) + tuple(x.shape[-2:])).contiguous()
-    out = _FusedDfPathwiseEval.apply(x3, *(t.contiguous() for t in operands))
-    return out if L is not None else out[0]
+    return apply_routed(_launch, _launch_bwd, x, operands, BASE_DIMS)

@@ -214,24 +214,6 @@ def split_slabs(per_draw, operands, base_dims=_BASE_DIMS):
     return tuple(out)
 
 
-class _FusedPathwiseEval(torch.autograd.Function):
-    """The forward kernel with the VJP kernel as its backward."""
-
-    @staticmethod
-    def forward(ctx, x, omega, phase, weights, Z, nu, ls, var):
-        operands = (omega, phase, weights, Z, nu, ls, var)
-        out = _launch(x, operands)
-        ctx.save_for_backward(x, *operands)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        x, *operands = ctx.saved_tensors
-        grads = _launch_bwd(x, operands, g.contiguous())
-        return tuple(gr if need else None
-                     for gr, need in zip(grads, ctx.needs_input_grad))
-
-
 def _draws(x, operands, base_dims=_BASE_DIMS):
     """The number of draws L of a call (None when no tensor has a draw
     dim); raises unless every tensor has no draw dim or one of size L."""
@@ -258,8 +240,40 @@ def fused_pathwise_eval(x, omega, phase, weights, Z, nu, ls, var):
         return pathwise_eval_reference(x, *operands)
     if x.device.type != 'cuda':
         raise ValueError(f'unsupported device {x.device}')
-    L = _draws(x, operands)
+    return apply_routed(_launch, _launch_bwd, x, operands, _BASE_DIMS)
+
+
+class RoutedEval(torch.autograd.Function):
+    """A per-step eval whose forward is `launch(x, operands)` and whose
+    backward is `launch_bwd(x, operands, g)`: any forward kernel of a
+    family with any VJP kernel of it (the single-block pair here, the
+    grid-tiled one of `ops.pathwise_tiled`), since they compute the same
+    function."""
+
+    @staticmethod
+    def forward(ctx, launch, launch_bwd, x, *operands):
+        out = launch(x, operands)
+        ctx.launch_bwd = launch_bwd
+        ctx.save_for_backward(x, *operands)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *operands = ctx.saved_tensors
+        grads = ctx.launch_bwd(x, operands, g.contiguous())
+        return (None, None) + tuple(
+            gr if need else None
+            for gr, need in zip(grads, ctx.needs_input_grad[2:]))
+
+
+def apply_routed(launch, launch_bwd, x, operands, base_dims):
+    """RoutedEval on x (..., N, D) and operands with at most one leading
+    dim of L draws (`base_dims`: each operand's trailing dims): x is
+    broadcast to (L, N, D), and the draw dim dropped again where no tensor
+    had one."""
+    L = _draws(x, operands, base_dims)
     x3 = x.expand((L or 1,) + tuple(x.shape[-2:])).contiguous()
-    out = _FusedPathwiseEval.apply(x3, *(t.contiguous() for t in operands))
+    out = RoutedEval.apply(launch, launch_bwd, x3,
+                           *(t.contiguous() for t in operands))
     return out if L is not None else out[0]
 

@@ -6,7 +6,9 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py [--seed 0]
 
 1. prints the card's name and power limit, builds every CUDA kernel of the
-   paths with nvcc (all at once) and prints the build time;
+   paths with nvcc (all at once) and prints the build time and each kernel
+   instance's registers and spills (`-Xptxas -v`; the tiled DF pair must
+   not spill);
 2. builds the eval-mode forecaster at the main configuration's full width
    (rot-MNIST 28x28, q=6, n_filt=8, dimwise RBF with S=256 features and
    M=100 inducing points, euler dt=0.1, L=5 draws) with random weights
@@ -67,21 +69,27 @@ Run from the repository root on a machine with an NVIDIA H100:
    and the grid-tiled #9-#12, against their plain versions at every shape
    of the dispatch rule's sweep (RBF (D, K, S) and DF (D, S) at L=1 and 5,
    N=20 and 600), a ragged last chunk, GP operands per draw, no draw dim
-   and the rows of the paths below (400 and 160); the sweep itself (both
-   pairs, forward and VJP, per call with CUDA events, and device time per
-   launch at the wide shapes) beside the pair the rule picks, and how
-   often the rule took the faster one; the training CLI's run() at
+   and the rows of the paths below (400 and 160), with the tiled DF pair
+   launched twice on the same inputs for the same bits; the sweep itself
+   (both pairs, forward and VJP, per call with CUDA events, the median of
+   three rounds in turns, and device time per launch at the wide shapes)
+   beside the pair the rule picks,
+   and how often each family's rule took the faster one; the training
+   CLI's run() at
    `--latent_dim 12 --D_in 12 --D_out 12 --num_features 1024` for 2
    epochs, RBF and then --kernel DF (every step launches the kernels the
    rule names and nothing else; GPU vs CPU float64 gradients; step times
    at L=1 and 5); three requests, a T=32 rollout and a request of 400
    sequences per kernel with random weights; rk4 steps at the main widths
-   by the rule and by the single-block pair in turns, and at batch 160;
+   by the rule and by the single-block pair in turns, at batch 160 (RBF,
+   L=5) and, for DF, at L=1 with 600 sequences;
 7. times kernels, requests and train steps with CUDA events, and traces
    one request, one L=5 train step, one L=5 rk4 train step, one DF
    request, DF L=5, L=1 and rk4 train steps and one wide L=5 train step
    per kernel with torch.profiler (device kernels by time, the device's
-   idle share), and the device time per launch of every kernel;
+   idle share), the device time per launch of every kernel, and the
+   per-shape split: every per-step kernel's launches on the paths at each
+   shape, its device time per launch there and its bound;
 8. prints one JSON line on the twelve kernels and, as the last line,
    {"ok": true, "device": {...}}.
 
@@ -91,6 +99,7 @@ of the repository; it imports nothing of JAX.
 """
 
 import argparse
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -133,6 +142,9 @@ CONFIG = dict(latent_dim=6, n_filt=8, num_features=256, num_inducing=100,
 L, BATCH, T, TROLL = 5, 20, 16, 2
 H100_FP32_FLOPS = 67e12     # dense f32 outside the tensor cores (SXM)
 H100_BYTES_PER_S = 3.35e12
+# launches per (kernel, shape key) on the paths, each path run's counts
+# (`ops.SHAPES`) read just after it: the per-shape split of section 7
+PATH_SHAPES = collections.Counter()
 
 
 def log(msg):
@@ -483,6 +495,7 @@ def solver_paths(args, card, batch, targs, slice_launches):
         d = dict(ops.LAUNCHES)
         for k in slice_launches:
             slice_launches[k] += d[k]
+        PATH_SHAPES.update(ops.SHAPES)
         return res, d
 
     # -- kernels #3 and #4 against their plain versions ------------------
@@ -884,6 +897,7 @@ def df_paths(args, card, batch, slice_launches):
         d = dict(ops.LAUNCHES)
         for k in slice_launches:
             slice_launches[k] += d[k]
+        PATH_SHAPES.update(ops.SHAPES)
         return res, d
 
     def df_ops(L_, N_, q_=q, S_=S, ls=2.0):
@@ -1308,9 +1322,10 @@ RBF_SWEEP = ((6, 6, 256), (12, 12, 256), (6, 6, 1024), (6, 6, 2048),
              (12, 12, 1024))
 DF_SWEEP = ((6, 256), (6, 512), (12, 256), (12, 1024))
 # rows at which the rule takes the other kernel: a wide request of
-# WIDE_BATCH sequences (L*N*K*S >= 2e7: #9; #5 for DF), and rk4 steps of
-# BIG_BATCH sequences at the main widths (#4, #6)
-WIDE_BATCH, BIG_BATCH = 400, 160
+# WIDE_BATCH sequences (L*N*K*S >= 2e7: #9), rk4 steps of BIG_BATCH
+# sequences at the main widths (RBF, L=5: #4), and DF rk4 steps at L=1
+# (the first half of a run's epochs) with DF_BIG_BATCH sequences (#6)
+WIDE_BATCH, BIG_BATCH, DF_BIG_BATCH = 400, 160, 600
 
 
 def device_us(fn, names, reps=10):
@@ -1363,7 +1378,7 @@ def wide_kernels(args, card):
     M = CONFIG['num_inducing']
     gen = torch.Generator(device=dev).manual_seed(args.seed + 41)
     rng = np.random.default_rng(args.seed + 41)
-    out = {'errs': {}, 'sweep': [], 'ops': {}}
+    out = {'errs': {}, 'sweep': [], 'ops': {}, 'repeats': 0}
 
     def rbf_ops(L_, N_, D_, S_):
         g = init_svgp_params(rng, D_, D_, M, lengthscale=2.0, variance=0.7,
@@ -1427,6 +1442,17 @@ def wide_kernels(args, card):
             torch.cuda.synchronize()
             out['errs'].setdefault(key + '_bwd', []).append(compare_bwd(
                 bars, ref, f'bwd {fam} {pair} {name}', names))
+            if fam == 'df' and pair == 'tiled':
+                # #11/#12 sum fixed slabs in a fixed order: a second
+                # launch on the same inputs gives the same bits
+                with torch.no_grad():
+                    o2 = wrapper(x, *operands)
+                bars2 = torch.autograd.grad(wrapper(*inputs), inputs, gbar)
+                require(torch.equal(o, o2) and all(
+                    torch.equal(a, b) for a, b in zip(bars, bars2)),
+                    f'{name}: two launches of the tiled DF pair on the same '
+                    f'inputs differ')
+                out['repeats'] += 1
         return gbar
 
     log('wide shapes: both pairs of each family (single-block '
@@ -1457,12 +1483,20 @@ def wide_kernels(args, card):
                         pick = df_pathwise_tiled.use_df_tiled(
                             L_, N_, D_, S_ * D_, M, dev)
                     gbar = check(fam, name, x, operands)
+                    # ms per call of each pair's forward and VJP: three
+                    # rounds in turns, the median of each (the host's
+                    # jitter moves a single reading by ~10%)
                     reps = 20 if N_ > BATCH else 50
+                    fns = [lambda m=m: m._launch(x, operands)
+                           for m in mods] + [
+                        lambda m=m: m._launch_bwd(x, operands, gbar)
+                        for m in mods]
+                    rounds = [[] for _ in fns]
                     with torch.no_grad():
-                        t = [cuda_ms(lambda m=m: m._launch(x, operands),
-                                     reps) for m in mods]
-                        t += [cuda_ms(lambda m=m: m._launch_bwd(
-                            x, operands, gbar), reps) for m in mods]
+                        for _ in range(3):
+                            for fn, r in zip(fns, rounds):
+                                r.append(cuda_ms(fn, reps))
+                    t = [sorted(r)[1] for r in rounds]
                     out['sweep'].append((fam, shape, L_, N_, t, pick))
                     log(f'  sweep {fam} {name}: fwd single {t[0]:.4f} '
                         f'tiled {t[1]:.4f}; vjp single {t[2]:.4f} tiled '
@@ -1490,21 +1524,30 @@ def wide_kernels(args, card):
               *make(L, WIDE_BATCH, 12, 1024))
         check(fam, f'L=5 N={BIG_BATCH} D=6 S=256 (the batch-{BIG_BATCH} '
                    f'rk4 steps)', *make(L, BIG_BATCH, 6, 256))
-    # the rule against the sweep: the faster kernel of each pair per call
-    hits, misses = 0, []
-    for fam, shape, L_, N_, t, pick in out['sweep']:
-        for role, single, tiled, chose in (('fwd', t[0], t[1], pick[0]),
-                                           ('vjp', t[2], t[3], pick[1])):
-            took, other = (tiled, single) if chose else (single, tiled)
-            if took <= other:
-                hits += 1
-            else:
-                misses.append(f'{fam} {shape} L={L_} N={N_} {role} '
-                              f'+{100 * (took / other - 1):.0f}%')
-    out['rule_hits'] = (hits, hits + len(misses))
-    log(f'the rule took the faster kernel in {hits} of {hits + len(misses)} '
-        f'choices of this sweep; the others (time over the faster one): '
-        + (', '.join(misses) or 'none'))
+    log(f'the tiled DF pair (df_pathwise_tiled_fwd / df_pathwise_tiled_bwd) '
+        f'gave the same bits on two launches at all {out["repeats"]} of '
+        f'its shapes above')
+    # the rule against the sweep: the faster kernel of each pair per call,
+    # tallied per family
+    out['rule_hits'] = {}
+    for fam_ in ('rbf', 'df'):
+        hits, misses = 0, []
+        for fam, shape, L_, N_, t, pick in out['sweep']:
+            if fam != fam_:
+                continue
+            for role, single, tiled, chose in (
+                    ('fwd', t[0], t[1], pick[0]),
+                    ('vjp', t[2], t[3], pick[1])):
+                took, other = (tiled, single) if chose else (single, tiled)
+                if took <= other:
+                    hits += 1
+                else:
+                    misses.append(f'{shape} L={L_} N={N_} {role} '
+                                  f'+{100 * (took / other - 1):.0f}%')
+        out['rule_hits'][fam_] = (hits, hits + len(misses))
+        log(f'the {fam_.upper()} rule took the faster kernel in {hits} of '
+            f'{hits + len(misses)} choices of this sweep; the others (time '
+            f'over the faster one): ' + (', '.join(misses) or 'none'))
     # device time per launch of both pairs at the wide shapes
     out['device_us'] = {}
     for fam, mods in (('rbf', (pathwise, pathwise_tiled)),
@@ -1555,6 +1598,7 @@ def wide_paths(args, card, slice_launches, kern):
         d = dict(ops.LAUNCHES)
         for k in slice_launches:
             slice_launches[k] += d[k]
+        PATH_SHAPES.update(ops.SHAPES)
         return res, d
 
     for kernel in ('RBF', 'DF'):
@@ -1688,14 +1732,17 @@ def wide_paths(args, card, slice_launches, kern):
 
     # the main configuration's rk4 steps: at the default batch the rule
     # sends the VJP to the tiled kernel (before and after, in turns), and
-    # at a batch of BIG_BATCH sequences back to the single-block one
+    # at a batch of BIG_BATCH sequences (RBF, L=5) or of DF_BIG_BATCH
+    # sequences at L=1 (DF) back to the single-block one
     out['rk4_rule_ms'], out['big_ms'] = {}, {}
     q6, S6 = CONFIG['latent_dim'], CONFIG['num_features']
     X20 = (torch.rand((BATCH, T, 1, 28, 28), generator=torch.Generator(
         device=dev).manual_seed(args.seed + 48), device=dev) - 0.1307) / 0.3081
-    Xbig = (torch.rand((BIG_BATCH, T, 1, 28, 28), generator=torch.Generator(
-        device=dev).manual_seed(args.seed + 49), device=dev) - 0.1307) / 0.3081
     for kernel in ('RBF', 'DF'):
+        nbig, Lbig = (BIG_BATCH, L) if kernel == 'RBF' else (DF_BIG_BATCH, 1)
+        Xbig = (torch.rand((nbig, T, 1, 28, 28), generator=torch.Generator(
+            device=dev).manual_seed(args.seed + 49), device=dev)
+            - 0.1307) / 0.3081
         m, g = init_model(args.seed + 50, device='cuda',
                           **dict(CONFIG, solver='rk4', kernel=kernel))
         st = trainer.create_train_state(m, g)
@@ -1711,7 +1758,7 @@ def wide_paths(args, card, slice_launches, kern):
             finally:
                 setattr(mod, rule.__name__, rule)
             out['rk4_rule_ms'].setdefault((kernel, use_rule), []).append(ms)
-        # the batch-BIG_BATCH steps start from a fresh state, with seeded
+        # the big-batch steps start from a fresh state, with seeded
         # draws: the steps above train `st` on random pixels, which can
         # carry the DF gram to a smallest eigenvalue below 0, through the
         # kernels and through the plain version alike; every later step
@@ -1720,23 +1767,24 @@ def wide_paths(args, card, slice_launches, kern):
             args.seed + 51, device='cuda',
             **dict(CONFIG, solver='rk4', kernel=kernel)))
         gbig = torch.Generator(device=dev).manual_seed(args.seed + 52)
-        stp(big, Xbig, L, gbig)                              # warm-up
+        stp(big, Xbig, Lbig, gbig)                           # warm-up
         ev0 = torch.cuda.Event(enable_timing=True)
         ev1 = torch.cuda.Event(enable_timing=True)
 
-        def two(big=big, stp=stp, gbig=gbig):
+        def two(big=big, stp=stp, gbig=gbig, Xbig=Xbig, Lbig=Lbig):
             ev0.record()
-            mets = [stp(big, Xbig, L, gbig) for _ in range(2)]
+            mets = [stp(big, Xbig, Lbig, gbig) for _ in range(2)]
             ev1.record()
             return mets
         mets, d = run_path(two)
-        fk, bk = rule_names(kernel, L, BIG_BATCH, q6, S6, M)
+        fk, bk = rule_names(kernel, Lbig, nbig, q6, S6, M)
         got = {k: v for k, v in d.items() if v}
         bad = [(k, float(v.float().max())) for mt in mets
                for k, v in mt.items() if not bool(torch.isfinite(v).all())]
         require(set(got) == {fk, bk} and not bad,
-                f'{kernel} rk4 steps at batch {BIG_BATCH} launched {got}, '
-                f'the rule names {fk} and {bk}; non-finite metrics {bad}')
+                f'{kernel} rk4 steps at batch {nbig}, L={Lbig} launched '
+                f'{got}, the rule names {fk} and {bk}; non-finite metrics '
+                f'{bad}')
         out['big_ms'][kernel] = ev0.elapsed_time(ev1) / 2
         log(f'{kernel} rk4 train step at the main widths (L={L}), CUDA '
             f'events over 5 steps, batch {BATCH} by the rule (VJP '
@@ -1745,8 +1793,8 @@ def wide_paths(args, card, slice_launches, kern):
                 f'{v:.3f}' for v in out['rk4_rule_ms'][kernel, True])
             + ' ms, single ' + ', '.join(
                 f'{v:.3f}' for v in out['rk4_rule_ms'][kernel, False])
-            + f' ms; batch {BIG_BATCH}: {out["big_ms"][kernel]:.3f} ms a '
-            f'step, launches {got}; card {card}')
+            + f' ms; batch {nbig} at L={Lbig}: {out["big_ms"][kernel]:.3f} '
+            f'ms a step, launches {got}; card {card}')
         del st, big, m, g
 
     # the tiled kernels' times at the wide shapes (L=5, N=20)
@@ -1794,6 +1842,77 @@ def wide_paths(args, card, slice_launches, kern):
     return out
 
 
+def per_shape_split(card):
+    """Launches and device time per launch of each per-step kernel (#3-#6,
+    #9-#12) at every shape the paths launched it at (PATH_SHAPES), each
+    timed on operands drawn at that shape, beside its bound there; per
+    kernel the sum of launches x (device time - bound), the redesign order
+    of ROADMAP Queue B; and the trajectory kernels' launches per shape.
+    Returns {kernel: [(shape, launches, us, bound us)]}."""
+    import numpy as np
+    import torch
+    from vae_gp_ode_tpu_torch.gp.svgp import draw_fn_sample, init_svgp_params
+    from vae_gp_ode_tpu_torch.ops import (
+        df_pathwise, df_pathwise_tiled, pathwise, pathwise_tiled)
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(61)
+    rng = np.random.default_rng(61)
+    mods = {}
+    for m in (pathwise, pathwise_tiled, df_pathwise, df_pathwise_tiled):
+        mods[m.KERNEL], mods[m.BWD_KERNEL] = (m, False), (m, True)
+    drawn, out = {}, {}
+    log('per-shape split of the paths\' launches (shape key: RBF (L, N, D, '
+        'K, S, M), DF (L, N, D, S*D, M), trajectories with T; device us per '
+        'launch, torch.profiler over 10 launches on operands drawn at the '
+        f'shape; bound us from the same operands; card {card}):')
+    for (name, shape), n in sorted(PATH_SHAPES.items()):
+        if name not in mods:
+            log(f'  {name} {shape}: {n} launches')
+            continue
+        mod, bwd = mods[name]
+        df = mod in (df_pathwise, df_pathwise_tiled)
+        if df:
+            L_, N_, D_, SD_, M_ = shape
+            K_, S_ = D_, SD_ // D_
+        else:
+            L_, N_, D_, K_, S_, M_ = shape
+        if (df, shape) not in drawn:
+            g = init_svgp_params(rng, D_, K_, M_, kernel='DF' if df else 'RBF',
+                                 lengthscale=2.0, variance=0.7, device='cuda')
+            with torch.no_grad():
+                sample = draw_fn_sample(g, gen, S_, L=L_)
+                operands = (df_pathwise.df_fused_operands if df else
+                            pathwise.rbf_fused_operands)(g, sample)
+            drawn[df, shape] = (
+                torch.randn((L_, N_, D_), generator=gen, device=dev),
+                operands, torch.randn((L_, N_, K_), generator=gen, device=dev))
+        x, operands, gbar = drawn[df, shape]
+        with torch.no_grad():
+            if bwd:
+                call = (lambda m=mod, x=x, o=operands, g=gbar:
+                        m._launch_bwd(x, o, g))
+                tensors = (x,) + operands + (gbar,) + tuple(call())
+            else:
+                call = lambda m=mod, x=x, o=operands: m._launch(x, o)
+                tensors = (x,) + operands + (call(),)
+            us, seen = device_us(call, [name])[name]
+        if df:
+            flops = L_ * N_ * (df_vjp_flops if bwd else df_eval_flops)(
+                D_, SD_, M_)
+            bound = roofline(flops, tensors)[0]
+        else:
+            bound = pathwise_bound(tensors, L_ * N_, D_, K_, S_, M_, bwd)[0]
+        out.setdefault(name, []).append((shape, n, us if seen else None,
+                                         bound * 1e3))
+        log(f'  {name} {shape}: {n} launches, '
+            f'{per_launch((us, seen))}, bound {bound * 1e3:.2f} us')
+    for name, rows in out.items():
+        if all(us is not None for _, _, us, _ in rows):
+            lost = sum(n * (us - b) for _, n, us, b in rows) / 1e3
+            log(f'  {name}: sum of launches x (us - bound) = {lost:.2f} ms')
+    return out
+
+
 def train_args(save, *extra):
     """The training CLI's arguments at the defaults of main.py, for
     TRAIN_EPOCHS epochs, writing under `save`, with `extra` flags."""
@@ -1837,11 +1956,12 @@ def main():
     log(f'torch {torch.__version__}, CUDA {torch.version.cuda}, '
         f'device {torch.cuda.get_device_name(0)}')
     t0 = time.perf_counter()
-    _build.build(['flow_fused', 'flow_fused_bwd', 'pathwise_fwd',
-                  'pathwise_bwd', 'df_pathwise_fwd', 'df_pathwise_bwd',
-                  'df_flow_fused', 'df_flow_fused_bwd', 'pathwise_tiled_fwd',
-                  'pathwise_tiled_bwd', 'df_pathwise_tiled_fwd',
-                  'df_pathwise_tiled_bwd'])
+    sources = ['flow_fused', 'flow_fused_bwd', 'pathwise_fwd', 'pathwise_bwd',
+               'df_pathwise_fwd', 'df_pathwise_bwd', 'df_flow_fused',
+               'df_flow_fused_bwd', 'pathwise_tiled_fwd',
+               'pathwise_tiled_bwd', 'df_pathwise_tiled_fwd',
+               'df_pathwise_tiled_bwd']
+    _build.build(sources)
     flow_fused._kernel()
     flow_fused._bwd_lib()
     pathwise._lib()
@@ -1855,6 +1975,14 @@ def main():
     df_pathwise_tiled._lib()
     df_pathwise_tiled._bwd_lib()
     log(f'build: {time.perf_counter() - t0:.1f} s')
+    # registers and spills of every kernel instance (nvcc -Xptxas -v); the
+    # tiled DF pair (#11/#12) keeps its per-thread arrays in registers
+    for name in sources:
+        for sym, (regs, st, ld) in sorted(_build.ptxas_usage(name).items()):
+            log(f'ptxas {name}: {sym}: {regs} registers, spill stores {st} '
+                f'bytes, spill loads {ld} bytes')
+            if name.startswith('df_pathwise_tiled'):
+                require(st == 0 and ld == 0, f'{sym} spills registers')
 
     # -- 2. the forecaster at full width ---------------------------------
     dev = torch.device('cuda')
@@ -1993,6 +2121,7 @@ def main():
     terms = [float(x) for x in (lhood, kl_reg, kl_u, mse)]
     require(all(np.isfinite(terms)), f'non-finite ELBO terms {terms}')
     serve_launches = dict(ops.LAUNCHES)
+    PATH_SHAPES.update(ops.SHAPES)
     log(f'  eval step: lhood {terms[0]:.6f} kl_reg {terms[1]:.6f} '
         f'kl_u {terms[2]:.6f} mse(MC mean) {terms[3]:.6f} nfe {nfe}')
     log(f'  launches on the forecaster path: {serve_launches}')
@@ -2047,6 +2176,7 @@ def main():
     result = train_cli.run(targs, on_step=on_step)
     torch.cuda.synchronize()
     train_launches = dict(ops.LAUNCHES)
+    PATH_SHAPES.update(ops.SHAPES)
     train_s = time.perf_counter() - t0
     if result['bailout'] is not None:
         raise AssertionError(f'NaN bailout at epoch {result["bailout"]}')
@@ -2240,6 +2370,7 @@ def main():
         '10 calls; L=5, the main widths for #1-#8, the wide ones for '
         '#9-#12): ' + ', '.join(f'{k} {per_launch(v)}'
                                 for k, v in dev_us.items()) + f'; card {card}')
+    per_shape_split(card)
     log(json.dumps({'kernels': entries}))
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

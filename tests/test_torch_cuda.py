@@ -16,6 +16,8 @@ two tolerances (sums over up to 12288 feature columns, in per-block
 partials summed by the wrapper).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -503,19 +505,27 @@ def test_tiled_pathwise_kernels_match_plain(cuda, L, N, D, S):
         x, *operands, g))
 
 
-@pytest.mark.parametrize('L,N,q,S', [(5, 20, 12, 1024), (1, 600, 6, 100)])
-def test_tiled_df_pathwise_kernels_match_plain(cuda, L, N, q, S):
-    """#11 and #12 against the plain version (S*D = 600: one ragged chunk
-    each)."""
-    x, operands, gen = _df_operands(cuda, L, N, q=q, S=S)
+@pytest.mark.parametrize('L,N,q,S,ls', [
+    (5, 20, 12, 1024, 2.0), (1, 600, 6, 100, 2.0), (5, 20, 16, 64, 2.0),
+    (3, 7, 7, 40, 2.0), (1, 1, 6, 45, 2.0), (2, 21, 12, 23, 2.0),
+    (2, 5, 3, 9, 0.5)])
+def test_tiled_df_pathwise_kernels_match_plain(cuda, L, N, q, S, ls):
+    """#11 and #12 against the plain version, one launch each: the wide
+    shape, N = 600 (one ragged feature chunk), D = 16 and D = 7 and 3 (the
+    generic instance of #12; D = 6 and 12 have their own), N = 1, and
+    feature columns, inducing points and rows that leave ragged last
+    chunks; two launches on the same inputs give the same bits."""
+    x, operands, gen = _df_operands(cuda, L, N, q=q, S=S, ls=ls)
     before = dict(ops.LAUNCHES)
     with torch.no_grad():
         out = df_pathwise_tiled.tiled_df_pathwise_eval(x, *operands)
+        again = df_pathwise_tiled.tiled_df_pathwise_eval(x, *operands)
     torch.cuda.synchronize()
     assert ops.LAUNCHES['df_pathwise_tiled_fwd'] == \
-        before['df_pathwise_tiled_fwd'] + 1
+        before['df_pathwise_tiled_fwd'] + 2
     torch.testing.assert_close(out, df_pathwise.df_pathwise_reference(
         x, *operands), **TOL)
+    assert torch.equal(out, again)
     inputs = [t.clone().requires_grad_() for t in (x,) + operands]
     out = df_pathwise_tiled.tiled_df_pathwise_eval(*inputs)
     g = torch.randn(out.shape, generator=gen, device=cuda)
@@ -525,6 +535,37 @@ def test_tiled_df_pathwise_kernels_match_plain(cuda, L, N, q, S):
         before['df_pathwise_tiled_bwd'] + 1
     _assert_cotangents(grads, df_pathwise.df_pathwise_vjp_reference(
         x, *operands, g))
+    again = torch.autograd.grad(df_pathwise_tiled.tiled_df_pathwise_eval(
+        *inputs), inputs, g)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+def test_tiled_df_kernels_per_draw_gp_operands_and_layouts(cuda):
+    """#11/#12 with Z, ls2 and var per draw give per-draw cotangents; the
+    slab layouts the wrapper sizes are the ones the C launchers compute
+    (they refuse any other)."""
+    L = 3
+    x, operands, gen = _df_operands(cuda, L, 20, q=12, S=64)
+    per = list(operands)
+    for i in (3, 5, 6):
+        per[i] = (operands[i].expand((L,) + tuple(operands[i].shape))
+                  * (1.0 + 0.05 * torch.arange(L, device=cuda).reshape(
+                      (L,) + (1,) * operands[i].dim()))).contiguous()
+    g = torch.randn((L, 20, 12), generator=gen, device=cuda)
+    inputs = [t.clone().requires_grad_() for t in [x] + per]
+    got = torch.autograd.grad(
+        df_pathwise_tiled.tiled_df_pathwise_eval(*inputs), inputs, g)
+    assert got[4].shape == per[3].shape and got[7].shape == per[6].shape
+    _assert_cotangents(got, df_pathwise.df_pathwise_vjp_reference(
+        x, *per, g))
+    fwd, bwd = df_pathwise_tiled._lib(), df_pathwise_tiled._bwd_lib()
+    lay = (ctypes.c_int * 3)()
+    for N, D, SD, M in ((20, 12, 12288, 100), (20, 6, 1536, 100),
+                        (1, 1, 1, 1), (600, 16, 272, 17), (7, 7, 280, 37)):
+        assert fwd.df_pathwise_tiled_fwd_slots(SD, M) == \
+            df_pathwise_tiled.fwd_slots(SD, M)
+        bwd.df_pathwise_tiled_bwd_layout(N, D, SD, M, lay)
+        assert tuple(lay) == df_pathwise_tiled.bwd_layout(N, D, SD, M)
 
 
 def test_rule_at_the_wide_shapes_on_the_card(cuda):

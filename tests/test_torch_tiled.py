@@ -179,16 +179,17 @@ RBF_RULE = {
                    (1, 600): (False, True), (5, 600): (True, True)},
     (12, 12, 1024): {(1, 20): (False, True), (5, 20): (False, True),
                      (1, 600): (False, True), (5, 600): (True, True)}}
-# (D, S) -> {(L, N): (forward tiled, VJP tiled)}
+# (D, S) -> {(L, N): (forward tiled, VJP tiled)}: refit to the redesigned
+# #11/#12 (PERF.md section 6)
 DF_RULE = {
     (6, 256): {(1, 20): (False, True), (5, 20): (False, True),
-               (1, 600): (False, False), (5, 600): (False, False)},
+               (1, 600): (False, False), (5, 600): (False, True)},
     (6, 512): {(1, 20): (False, True), (5, 20): (False, True),
-               (1, 600): (False, False), (5, 600): (False, False)},
+               (1, 600): (False, True), (5, 600): (False, True)},
     (12, 256): {(1, 20): (True, True), (5, 20): (True, True),
-                (1, 600): (False, False), (5, 600): (False, True)},
+                (1, 600): (True, True), (5, 600): (True, True)},
     (12, 1024): {(1, 20): (True, True), (5, 20): (True, True),
-                 (1, 600): (False, True), (5, 600): (False, True)}}
+                 (1, 600): (True, True), (5, 600): (True, True)}}
 
 
 @pytest.mark.parametrize('D,K,S', sorted(RBF_RULE))
@@ -208,18 +209,20 @@ def test_df_rule_at_the_sweep_shapes(D, S):
 def test_rule_at_the_rows_of_the_smoke_paths():
     """The kernels chip_smoke.py's paths rely on: the wide configuration
     (q = 12, S = 1024) at batch 20 takes #3 and #10 (RBF), #11 and #12
-    (DF); a wide request of 400 sequences takes #9 (RBF) and #5 (DF); rk4
-    steps of 160 sequences at the main widths (q = 6, S = 256) take #3/#4
-    and #5/#6, and at batch 20 the tiled VJPs."""
+    (DF); a wide request of 400 sequences takes #9 (RBF) and #11 (DF);
+    rk4 steps of 160 sequences at the main widths (q = 6, S = 256) take
+    #3/#4 (RBF) and #5/#12 (DF), and at batch 20 #3/#10 and #5/#12; DF rk4
+    steps at L = 1 with 600 sequences take #5/#6."""
     for L in (1, 5):
         assert tpt.pick(L, 20, 12, 12, 1024, 100, SMS, OPTIN) == (False, True)
         assert tdpt.pick_df(L, 20, 12, 12288, 100, SMS) == (True, True)
         assert tpt.pick(L, 160, 6, 6, 256, 100, SMS, OPTIN) == (False, False)
-        assert tdpt.pick_df(L, 160, 6, 1536, 100, SMS) == (False, False)
+        assert tdpt.pick_df(L, 160, 6, 1536, 100, SMS) == (False, True)
         assert tpt.pick(L, 20, 6, 6, 256, 100, SMS, OPTIN) == (False, True)
         assert tdpt.pick_df(L, 20, 6, 1536, 100, SMS) == (False, True)
     assert tpt.pick(5, 400, 12, 12, 1024, 100, SMS, OPTIN)[0]
-    assert not tdpt.pick_df(5, 400, 12, 12288, 100, SMS)[0]
+    assert tdpt.pick_df(5, 400, 12, 12288, 100, SMS)[0]
+    assert tdpt.pick_df(1, 600, 6, 1536, 100, SMS) == (False, False)
 
 
 def test_rule_kernels_name_the_picked_pair(monkeypatch):
@@ -237,8 +240,10 @@ def test_rule_kernels_name_the_picked_pair(monkeypatch):
     assert tdpt.rule_kernels(5, 20, 12, 12288, 100, dev) == (
         'df_pathwise_tiled_fwd', 'df_pathwise_tiled_bwd')
     assert tdpt.rule_kernels(5, 400, 12, 12288, 100, dev) == (
-        'df_pathwise_fwd', 'df_pathwise_tiled_bwd')
+        'df_pathwise_tiled_fwd', 'df_pathwise_tiled_bwd')
     assert tdpt.rule_kernels(5, 160, 6, 1536, 100, dev) == (
+        'df_pathwise_fwd', 'df_pathwise_tiled_bwd')
+    assert tdpt.rule_kernels(1, 600, 6, 1536, 100, dev) == (
         'df_pathwise_fwd', 'df_pathwise_bwd')
 
 

@@ -6,12 +6,15 @@ root, where <hash> covers every source in `csrc/` and the flags. No
 source includes PyTorch's headers, so a build takes seconds. All pending
 sources compile at once, one nvcc process each. A build writes a
 temporary file and renames it into place, so a cut-off build never
-leaves a half-written library; nothing takes or waits on a lock.
+leaves a half-written library; nothing takes or waits on a lock. nvcc's
+`-Xptxas -v` report (registers, spills, shared memory per kernel) is kept
+for `ptxas_usage`, in `build/vae_gp_ode_tpu_torch/ptxas/<hash>/<name>.txt`.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -47,6 +50,12 @@ def library_path(name):
             with open(os.path.join(CSRC, fn), 'rb') as f:
                 h.update(f.read())
     return os.path.join(BUILD_ROOT, h.hexdigest()[:16], f'lib{name}.so')
+
+
+def ptxas_path(name):
+    lib = library_path(name)
+    return os.path.join(os.path.dirname(os.path.dirname(lib)), 'ptxas',
+                        os.path.basename(os.path.dirname(lib)), f'{name}.txt')
 
 
 def build(names):
@@ -89,6 +98,9 @@ def build(names):
                 errors.append(f'nvcc failed for {name} '
                               f'(exit {proc.returncode}):\n{stderr}')
                 continue
+            os.makedirs(os.path.dirname(ptxas_path(name)), exist_ok=True)
+            with open(ptxas_path(name), 'w') as f:
+                f.write(stdout + stderr)
             os.replace(tmp, paths[name])
             report = ' | '.join(
                 ln.strip() for ln in (stdout + stderr).splitlines()
@@ -105,6 +117,23 @@ def build(names):
             if os.path.exists(tmp):
                 os.remove(tmp)
     return paths
+
+
+def ptxas_usage(name):
+    """{kernel symbol: (registers, spill store bytes, spill load bytes)} of
+    each kernel in lib<name>.so, from the `-Xptxas -v` report of its
+    build."""
+    with open(ptxas_path(name)) as f:
+        text = f.read()
+    usage = {}
+    for block in text.split('Compiling entry function')[1:]:
+        sym = re.search(r"'([^']+)'", block).group(1)
+        spills = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill '
+                           r'loads', block)
+        regs = re.search(r'Used (\d+) registers', block)
+        usage[sym] = (int(regs.group(1)), int(spills.group(1)),
+                      int(spills.group(2)))
+    return usage
 
 
 def load(name):

@@ -159,7 +159,7 @@ def _launch(z0, operands, dts, T):
     if rc != 0:
         raise RuntimeError(f'{KERNEL} launch failed: CUDA error {rc} '
                            f'(L={L} N={N} D={D} SD={SD} M={M} T={T})')
-    ops.LAUNCHES[KERNEL] += 1
+    ops.count(KERNEL, (L, N, D, SD, M, T))
     return zs
 
 
@@ -193,7 +193,7 @@ def _launch_bwd(zs, zsbar, operands, dts, T):
     if rc != 0:
         raise RuntimeError(f'{BWD_KERNEL} launch failed: CUDA error {rc} '
                            f'(L={L} N={N} D={D} SD={SD} M={M} T={T})')
-    ops.LAUNCHES[BWD_KERNEL] += 1
+    ops.count(BWD_KERNEL, (L, N, D, SD, M, T))
     return (z0bar,) + split_slabs(slab.sum(dim=1), tuple(operands) + (dts,),
                                   BASE_DIMS + (1,))
 

@@ -178,7 +178,7 @@ def _launch(x, operands):
     if rc != 0:
         raise RuntimeError(f'{KERNEL} launch failed: CUDA error {rc} '
                            f'(L={L} N={N} D={D} SD={SD} M={M})')
-    ops.LAUNCHES[KERNEL] += 1
+    ops.count(KERNEL, (L, N, D, SD, M))
     return out
 
 
@@ -205,7 +205,7 @@ def _launch_bwd(x, operands, g):
     if rc != 0:
         raise RuntimeError(f'{BWD_KERNEL} launch failed: CUDA error {rc} '
                            f'(L={L} N={N} D={D} SD={SD} M={M})')
-    ops.LAUNCHES[BWD_KERNEL] += 1
+    ops.count(BWD_KERNEL, (L, N, D, SD, M))
     return (dx,) + split_slabs(slab.sum(dim=1), operands, BASE_DIMS)
 
 

@@ -11,10 +11,14 @@ df_pathwise_reference` (imported here as the plain version):
   (draw, R rows) that walks all S*D feature columns and D^2 output-dim
   pairs.
 * `csrc/df_pathwise_tiled_fwd.cu` / `df_pathwise_tiled_bwd.cu` (#11/#12):
-  the forward over (draw, output column i, feature chunk) with the update
-  of column i in a slot of its own; the VJP over (draw, feature chunk)
-  with i a loop inside the block, plus one update block per (draw, i).
-  Per-block partials go to slabs that the wrapper sums, without atomics.
+  blocks of feature columns, each with one sincos per (row, column) for
+  all D output columns, beside blocks of inducing points for the
+  matrix-valued update (the lowest block indices, so they start first):
+  the forward per (draw, 8 rows), the VJP's prior per draw for all rows
+  and its update per (draw, 4 rows). Per-block partials go to slabs,
+  summed in a fixed order without atomics by a second kernel of the same
+  library call, so a call costs the host one library call; the layouts
+  are `fwd_slots` and `bwd_layout`, which the C launchers check.
 
 `df_pathwise_eval` is the per-step eval that `gp.svgp.fn_eval` calls for
 the DF kernel: CPU tensors take the plain version; CUDA tensors take the
@@ -23,6 +27,8 @@ launch. State dims above 16 raise NotImplementedError on the card.
 """
 
 import ctypes
+import itertools
+import math
 
 import torch
 
@@ -49,8 +55,31 @@ BWD_REPLACES = 'vae_gp_ode_tpu/ops/df_pathwise_tiled.py:154'
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
-_ARGTYPES = [_P, _LL] * 8 + [_P] + [_I] * 6 + [_P]
-_BWD_ARGTYPES = [_P, _LL] * 8 + [_P] * 9 + [_I] * 6 + [_P]
+_ARGTYPES = [_P, _LL] * 8 + [_P, _P] + [_I] * 7 + [_P]
+_BWD_ARGTYPES = [_P, _LL] * 8 + [_P] * 11 + [_I] * 9 + [_P]
+
+#: csrc/df_pathwise_tiled_fwd.cu: inducing points per update block and
+#: feature columns per chunk block
+FWD_UPD_M, FWD_CHUNK = 16, 256
+#: csrc/df_pathwise_tiled_bwd.cu: threads per block (the update blocks take
+#: THREADS // D inducing points), feature columns per chunk block, rows per
+#: update block
+THREADS, BWD_CHUNK, BWD_UPD_ROWS = 256, 256, 4
+
+
+def fwd_slots(SD, M):
+    """Slots of the forward's slab part (L, slots, N, D): one per chunk of
+    inducing points, then one per chunk of feature columns
+    (`df_pathwise_tiled_fwd_slots`)."""
+    return -(-M // FWD_UPD_M) + -(-SD // FWD_CHUNK)
+
+
+def bwd_layout(N, D, SD, M):
+    """(n_chunks, n_mc, n_rt) of the VJP's slabs: chunks of feature
+    columns, chunks of THREADS // D inducing points and update tiles of
+    BWD_UPD_ROWS rows (`df_pathwise_tiled_bwd_layout`)."""
+    return (-(-SD // BWD_CHUNK), -(-M // (THREADS // D)),
+            -(-N // BWD_UPD_ROWS))
 
 
 # -- the kernels --------------------------------------------------------------
@@ -60,8 +89,8 @@ def _lib():
     if lib.df_pathwise_tiled_fwd.argtypes is None:
         lib.df_pathwise_tiled_fwd.argtypes = _ARGTYPES
         lib.df_pathwise_tiled_fwd.restype = ctypes.c_int
-        lib.df_pathwise_tiled_fwd_chunk.argtypes = []
-        lib.df_pathwise_tiled_fwd_chunk.restype = ctypes.c_int
+        lib.df_pathwise_tiled_fwd_slots.argtypes = [_I, _I]
+        lib.df_pathwise_tiled_fwd_slots.restype = ctypes.c_int
     return lib
 
 
@@ -70,36 +99,38 @@ def _bwd_lib():
     if lib.df_pathwise_tiled_bwd.argtypes is None:
         lib.df_pathwise_tiled_bwd.argtypes = _BWD_ARGTYPES
         lib.df_pathwise_tiled_bwd.restype = ctypes.c_int
-        lib.df_pathwise_tiled_bwd_chunk.argtypes = []
-        lib.df_pathwise_tiled_bwd_chunk.restype = ctypes.c_int
+        lib.df_pathwise_tiled_bwd_layout.argtypes = [_I] * 4 + [_P]
+        lib.df_pathwise_tiled_bwd_layout.restype = None
     return lib
 
 
 def _launch(x, operands):
     """Launch the tiled forward kernel; returns (L, N, D), the sum of its
-    per-slot partials."""
+    per-slot partials (summed by the library's second kernel)."""
     _check_tensors(x.device, zip(('x',) + NAMES, (x,) + tuple(operands)))
     L, N, D = _check_x(x)
     SD, M, strides = check_operands(L, D, operands)
     lib = _lib()
-    n_slots = -(-SD // lib.df_pathwise_tiled_fwd_chunk()) + 1
+    n_slots = fwd_slots(SD, M)
     part = torch.empty((L, n_slots, N, D), dtype=torch.float32,
                        device=x.device)
+    out = torch.empty((L, N, D), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.df_pathwise_tiled_fwd(*_flat(x, operands, strides),
-                                   part.data_ptr(), L, N, D, SD, M,
-                                   x.device.index, stream)
+                                   part.data_ptr(), out.data_ptr(), n_slots,
+                                   L, N, D, SD, M, x.device.index, stream)
     if rc != 0:
         raise RuntimeError(f'{KERNEL} launch failed: CUDA error {rc} '
                            f'(L={L} N={N} D={D} SD={SD} M={M})')
-    ops.LAUNCHES[KERNEL] += 1
-    return part.sum(dim=1)
+    ops.count(KERNEL, (L, N, D, SD, M))
+    return out
 
 
 def _launch_bwd(x, operands, g):
     """Launch the tiled VJP kernel for the cotangent g (L, N, D). Returns dx
     (L, N, D) and the operands' cotangents, each in its operand's shape
-    (summed over the draws an operand is shared by)."""
+    (summed over the draws an operand is shared by: by the library for Z,
+    nur, ls2 and var, here for omf, phf and G)."""
     _check_tensors(x.device, zip(('x',) + NAMES + ('g',),
                                  (x,) + tuple(operands) + (g,)))
     L, N, D = _check_x(x)
@@ -108,29 +139,34 @@ def _launch_bwd(x, operands, g):
         raise ValueError(f'g has shape {tuple(g.shape)}, expected '
                          f'({L}, {N}, {D})')
     lib = _bwd_lib()
-    n_slots = -(-SD // lib.df_pathwise_tiled_bwd_chunk()) + D
-
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=x.device)
-    dx_slab = empty(L, n_slots, N, D)
-    domf, dphf, dG = empty(L, D, SD), empty(L, 1, SD), empty(L, 2 * SD, D)
-    dz_slab, dnur_slab = empty(L, D, M, D), empty(L, D, M, D)
-    dls2, dvar = empty(L, D, D), empty(L, D)
+    n_chunks, n_mc, n_rt = bwd_layout(N, D, SD, M)
+    # workspace: dx_slab (L, n_mc + n_chunks, N, D), then upd (L, n_rt,
+    # 2 M D + n_mc (D^2 + D)); out: dx, domf, dphf, dG per draw, then the
+    # library's finished dZ, dnur, dls2, dvar in their operands' shapes
+    n_dx = L * (n_mc + n_chunks) * N * D
+    workspace = torch.empty(
+        n_dx + L * n_rt * (2 * M * D + n_mc * (D * D + D)),
+        dtype=torch.float32, device=x.device)
+    shapes = [(L, N, D), (L, D, SD), (L, 1, SD), (L, 2 * SD, D)] + [
+        tuple(t.shape) for t in operands[3:]]
+    sizes = [math.prod(shape) for shape in shapes]
+    out = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
+    offsets = itertools.accumulate([0] + sizes[:-1])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.df_pathwise_tiled_bwd(
-        *_flat(x, operands, strides), g.data_ptr(), dx_slab.data_ptr(),
-        domf.data_ptr(), dphf.data_ptr(), dG.data_ptr(), dz_slab.data_ptr(),
-        dnur_slab.data_ptr(), dls2.data_ptr(), dvar.data_ptr(), L, N, D, SD,
-        M, x.device.index, stream)
+        *_flat(x, operands, strides), g.data_ptr(), workspace.data_ptr(),
+        workspace.data_ptr() + 4 * n_dx,
+        *(out.data_ptr() + 4 * o for o in offsets), n_chunks, n_mc, n_rt, L,
+        N, D, SD, M, x.device.index, stream)
     if rc != 0:
         raise RuntimeError(f'{BWD_KERNEL} launch failed: CUDA error {rc} '
                            f'(L={L} N={N} D={D} SD={SD} M={M})')
-    ops.LAUNCHES[BWD_KERNEL] += 1
-    per_draw = (domf, dphf, dG, dz_slab.sum(dim=1), dnur_slab.sum(dim=1),
-                dls2, dvar)
-    return (dx_slab.sum(dim=1),) + tuple(
-        bar if t.dim() == bar.dim() else bar.sum(dim=0)
-        for t, bar in zip(operands, per_draw))
+    ops.count(BWD_KERNEL, (L, N, D, SD, M))
+    dx, domf, dphf, dG, *upd = [
+        part.view(shape) for part, shape in zip(out.split(sizes), shapes)]
+    return (dx,) + tuple(
+        bar if bar.shape == t.shape else bar.sum(dim=0)
+        for t, bar in zip(operands[:3], (domf, dphf, dG))) + tuple(upd)
 
 
 def tiled_df_pathwise_eval(x, omf, phf, G, Z, nur, ls2, var):
@@ -153,28 +189,33 @@ def pick_df(L, N, D, SD, M, sms):
     """Which pair takes the DF per-step eval on a card with `sms` SMs:
     (forward tiled, VJP tiled), each True for the tiled kernel (#11, #12)
     and False for the single-block one (#5, #6). Decided from the shapes
-    alone (D is at most 16: both pairs refuse more), as the crossover of
-    the sweep that `chip_smoke.py` phase 6d measures on an H100 (PERF.md
-    section 6).
+    alone (D is at most 16: both pairs refuse more), from the device
+    times of both pairs and the sweep per call that `chip_smoke.py` phase
+    6d measures on an H100 (PERF.md section 6).
 
-    The VJP: #6 runs L*ceil(N/R) blocks (R = 4 rows up to D = 8, else 2)
-    that each walk the SD feature columns for D outputs and the M inducing
-    points for D^2 pairs, W = SD*D + M*D^2 steps, one block per SM; #12
-    runs L*(ceil(SD/256) + D) blocks that each walk the ceil(N/R) row
-    tiles with a block reduction per tile, ~1300 of #6's steps each on
-    the sweep. #12 is taken where its tiles times its waves of blocks cost
-    less than #6's steps times its waves. The forward: #11 recomputes the
-    trig once per output column, so it wins only where #5's grid leaves
-    SMs idle and its blocks walk at least 32768 column-output pairs
-    (SD*D), that is at D = 12 with N = 20.
+    #5 and #6 run one block per (draw, R rows), R = 4 up to D = 8, else 2;
+    each block walks the SD*D column-output pairs and the M*D^2 pairs of
+    the update. #11/#12 do one sincos per (row, column) in blocks of 256
+    columns beside blocks of inducing points.
+
+    The forward: #11 is taken for D > 8, where #5 runs its two-row
+    instance and takes 1.8-8x #11's device time at every measured shape
+    (49 against 14 us at L=5, N=20, D=12, S=256; 670 against 376 at
+    N=600, S=1024). At D <= 8 #5's four rows per block match #11 on the
+    device at large N (57 against 60 us at L=5, N=600, D=6, S=256), and
+    at small N both calls are host-bound, #5's by one allocation less.
+
+    The VJP: #6 takes ~5 ns per pair step per block at one block per SM;
+    #12's chunk blocks (L ceil(SD/256) of them) each walk all N rows,
+    ~(0.25 + 0.015 D) us per row while they fit on the SMs. #12 is taken
+    where that is the shorter time: everywhere but few draws with many
+    rows and few feature columns (L=1, N=600, D=6, S=256: #6 128 us, #12
+    185 us).
     """
-    R = 4 if D <= 8 else 2
-    tiles = -(-N // R)
-    waves6 = -(-L * tiles // sms)
-    waves12 = -(-L * (-(-SD // 256) + D) // sms)
-    bwd = (SD * D + M * D * D) * waves6 > 1300 * tiles * waves12
-    fwd = L * tiles < sms and SD * D >= 32768
-    return fwd, bwd
+    blocks = L * -(-N // (4 if D <= 8 else 2))
+    t6 = -(-blocks // sms) * (SD * D + M * D * D) * 5e-3
+    t12 = N * (0.25 + 0.015 * D) * max(1.0, L * -(-SD // 256) / sms)
+    return D > 8, t12 < t6
 
 
 def use_df_tiled(L, N, D, SD, M, device):

@@ -264,7 +264,7 @@ def _launch(z0, omf, phf, ws, Zb, zn, il2, nus, dts, T, order):
             order, z0.device.index, stream)
     if rc != 0:
         raise RuntimeError(f'{KERNEL} launch failed: CUDA error {rc}')
-    ops.LAUNCHES[KERNEL] += 1
+    ops.count(KERNEL, (L, N, D, K, S, M, T))
     return zs
 
 
@@ -302,7 +302,7 @@ def _launch_bwd(zs, zsbar, operands, dts, T, order):
     if rc != 0:
         raise RuntimeError(f'{BWD_KERNEL} launch failed: CUDA error {rc} '
                            f'(L={L} N={N} D={D} K={K} S={S} M={M} T={T})')
-    ops.LAUNCHES[BWD_KERNEL] += 1
+    ops.count(BWD_KERNEL, (L, N, D, K, S, M, T))
     return (z0bar,) + _split_slabs(slab.sum(dim=1), operands, dts)
 
 

@@ -164,7 +164,7 @@ def _launch(x, operands):
     if rc != 0:
         raise RuntimeError(f'{KERNEL} launch failed: CUDA error {rc} '
                            f'(L={L} N={N} D={D} K={K} S={S} M={M})')
-    ops.LAUNCHES[KERNEL] += 1
+    ops.count(KERNEL, (L, N, D, K, S, M))
     return out
 
 
@@ -190,7 +190,7 @@ def _launch_bwd(x, operands, g):
     if rc != 0:
         raise RuntimeError(f'{BWD_KERNEL} launch failed: CUDA error {rc} '
                            f'(L={L} N={N} D={D} K={K} S={S} M={M})')
-    ops.LAUNCHES[BWD_KERNEL] += 1
+    ops.count(BWD_KERNEL, (L, N, D, K, S, M))
     return (dx,) + split_slabs(slab.sum(dim=1), operands)
 
 

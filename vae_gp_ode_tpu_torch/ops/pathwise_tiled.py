@@ -89,7 +89,7 @@ def _launch(x, operands):
     if rc != 0:
         raise RuntimeError(f'{KERNEL} launch failed: CUDA error {rc} '
                            f'(L={L} N={N} D={D} K={K} S={S} M={M})')
-    ops.LAUNCHES[KERNEL] += 1
+    ops.count(KERNEL, (L, N, D, K, S, M))
     return part.sum(dim=1)
 
 
@@ -120,7 +120,7 @@ def _launch_bwd(x, operands, g):
     if rc != 0:
         raise RuntimeError(f'{BWD_KERNEL} launch failed: CUDA error {rc} '
                            f'(L={L} N={N} D={D} K={K} S={S} M={M})')
-    ops.LAUNCHES[BWD_KERNEL] += 1
+    ops.count(BWD_KERNEL, (L, N, D, K, S, M))
     per_draw = (dom, dph, dw, dz_slab.sum(dim=1), dnu, dls,
                 dvar_slab.sum(dim=1))
     return (dx_slab.sum(dim=(1, 2)),) + tuple(

@@ -7,8 +7,8 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 1. prints the card's name and power limit, builds every CUDA kernel of the
    paths with nvcc (all at once) and prints the build time and each kernel
-   instance's registers and spills (`-Xptxas -v`; the tiled DF pair must
-   not spill);
+   instance's registers and spills (`-Xptxas -v`; the tiled DF pair and
+   the RBF pair #3/#10 must not spill);
 2. builds the eval-mode forecaster at the main configuration's full width
    (rot-MNIST 28x28, q=6, n_filt=8, dimwise RBF with S=256 features and
    M=100 inducing points, euler dt=0.1, L=5 draws) with random weights
@@ -69,8 +69,10 @@ Run from the repository root on a machine with an NVIDIA H100:
    and the grid-tiled #9-#12, against their plain versions at every shape
    of the dispatch rule's sweep (RBF (D, K, S) and DF (D, S) at L=1 and 5,
    N=20 and 600), a ragged last chunk, GP operands per draw, no draw dim
-   and the rows of the paths below (400 and 160), with the tiled DF pair
-   launched twice on the same inputs for the same bits; the sweep itself
+   and the rows of the paths below (400 and 160; the RBF single-block pair
+   also at the latent width 72 of the rk4 steps below), with both RBF
+   pairs and the tiled DF pair launched twice on the same inputs for the
+   same bits; the sweep itself
    (both pairs, forward and VJP, per call with CUDA events, the median of
    three rounds in turns, and device time per launch at the wide shapes)
    beside the pair the rule picks,
@@ -81,15 +83,18 @@ Run from the repository root on a machine with an NVIDIA H100:
    rule names and nothing else; GPU vs CPU float64 gradients; step times
    at L=1 and 5); three requests, a T=32 rollout and a request of 400
    sequences per kernel with random weights; rk4 steps at the main widths
-   by the rule and by the single-block pair in turns, at batch 160 (RBF,
-   L=5) and, for DF, at L=1 with 600 sequences;
+   by the rule and by the single-block pair in turns (six rounds each,
+   medians), RBF rk4 steps of 160 sequences (L=5) and at latent_dim 72
+   (L=5), wider than the tiled VJP's block holds, and, for DF, at L=1
+   with 600 sequences;
 7. times kernels, requests and train steps with CUDA events, and traces
    one request, one L=5 train step, one L=5 rk4 train step, one DF
    request, DF L=5, L=1 and rk4 train steps and one wide L=5 train step
    per kernel with torch.profiler (device kernels by time, the device's
-   idle share), the device time per launch of every kernel, and the
-   per-shape split: every per-step kernel's launches on the paths at each
-   shape, its device time per launch there and its bound;
+   idle share), the device time per launch of an empty kernel (the floor)
+   and of every kernel (the tiled RBF VJP's summing kernel apart), and
+   the per-shape split: every per-step kernel's launches on the paths at
+   each shape, its device time per launch there and its bound;
 8. prints one JSON line on the twelve kernels and, as the last line,
    {"ok": true, "device": {...}}.
 
@@ -106,6 +111,7 @@ import dataclasses
 import faulthandler
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -1321,17 +1327,21 @@ WIDE = dict(CONFIG, latent_dim=12, num_features=1024)
 RBF_SWEEP = ((6, 6, 256), (12, 12, 256), (6, 6, 1024), (6, 6, 2048),
              (12, 12, 1024))
 DF_SWEEP = ((6, 256), (6, 512), (12, 256), (12, 1024))
-# rows at which the rule takes the other kernel: a wide request of
-# WIDE_BATCH sequences (L*N*K*S >= 2e7: #9), rk4 steps of BIG_BATCH
-# sequences at the main widths (RBF, L=5: #4), and DF rk4 steps at L=1
-# (the first half of a run's epochs) with DF_BIG_BATCH sequences (#6)
-WIDE_BATCH, BIG_BATCH, DF_BIG_BATCH = 400, 160, 600
+# shapes at which the rule takes another kernel: a wide request of
+# WIDE_BATCH sequences (L*N*K*(S+M) >= 2.4e7: #9), RBF rk4 steps of
+# BIG_BATCH sequences at the main widths (#3 in blocks of 8 rows), RBF
+# rk4 steps at latent_dim RBF_WIDE_Q, wider than #10's block holds (#4),
+# and DF rk4 steps at L=1 (the first half of a run's epochs) with
+# DF_BIG_BATCH sequences (#6)
+WIDE_BATCH, BIG_BATCH, DF_BIG_BATCH, RBF_WIDE_Q = 400, 160, 600, 72
 
 
 def device_us(fn, names, reps=10):
     """{name: (device microseconds per launch, launches)} of the CUDA
     kernels `<name>_kernel` over `reps` calls of fn(), from torch.profiler
-    (one warm-up call first)."""
+    (one warm-up call first); beside each, every other kernel of its
+    library that the trace held (`<name>_<suffix>`, such as the kernel
+    that sums a VJP's slabs), under its own name without `_kernel`."""
     import re
     import torch
     from torch.autograd import DeviceType
@@ -1344,13 +1354,38 @@ def device_us(fn, names, reps=10):
             fn()
         torch.cuda.synchronize()
     out = {}
+    cuda = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     for name in names:
-        pat = re.compile(r'(?<![A-Za-z_])' + name + '_kernel')
-        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and pat.search(e.name)]
-        out[name] = (sum(e.time_range.elapsed_us() for e in ev)
-                     / max(len(ev), 1), len(ev))
+        pat = re.compile(r'(?<![A-Za-z_])(' + name + r'_\w+)')
+        found = {}
+        for e in cuda:
+            m = pat.search(e.name)
+            if m:
+                key = re.sub(r'_kernel$', '', m.group(1))
+                found.setdefault(key, []).append(e.time_range.elapsed_us())
+        out[name] = (0.0, 0)
+        for key, ev in found.items():
+            out[key] = (sum(ev) / len(ev), len(ev))
     return out
+
+
+def floor_us():
+    """Device microseconds per launch of an empty kernel (one warp) built
+    into the library of pathwise_fwd.cu (`pathwise_fwd_empty`;
+    torch.profiler over 10 launches, as `device_us`): the floor under every
+    kernel's device time on this card. None where the trace held none of
+    its launches."""
+    import torch
+    from vae_gp_ode_tpu_torch.ops import pathwise
+    lib = pathwise._lib()
+
+    def launch():
+        rc = lib.pathwise_fwd_empty(torch.cuda.current_device(),
+                                    torch.cuda.current_stream().cuda_stream)
+        require(rc == 0, f'the empty kernel failed to launch: CUDA error '
+                         f'{rc}')
+    us, seen = device_us(launch, ['empty'])['empty']
+    return us if seen else None
 
 
 def per_launch(v):
@@ -1378,7 +1413,8 @@ def wide_kernels(args, card):
     M = CONFIG['num_inducing']
     gen = torch.Generator(device=dev).manual_seed(args.seed + 41)
     rng = np.random.default_rng(args.seed + 41)
-    out = {'errs': {}, 'sweep': [], 'ops': {}, 'repeats': 0}
+    out = {'errs': {}, 'sweep': [], 'ops': {},
+           'repeats': {'rbf': 0, 'df': 0}}
 
     def rbf_ops(L_, N_, D_, S_):
         g = init_svgp_params(rng, D_, D_, M, lengthscale=2.0, variance=0.7,
@@ -1408,11 +1444,12 @@ def wide_kernels(args, card):
                     (L_,) + (1,) * operands[i].dim()))).contiguous()
         return tuple(operands)
 
-    def check(fam, name, x, operands):
-        """Both pairs of the family, each wrapper forward and every
-        cotangent through torch.autograd.grad, against the plain version:
-        the tiled pair's errors go to out['errs'][fam + '_fwd'/'_bwd'],
-        the single-block pair's to fam + '_fwd_single'/'_bwd_single'."""
+    def check(fam, name, x, operands, single_only=False):
+        """Both pairs of the family (the single-block one alone where
+        `single_only`), each wrapper forward and every cotangent through
+        torch.autograd.grad, against the plain version: the tiled pair's
+        errors go to out['errs'][fam + '_fwd'/'_bwd'], the single-block
+        pair's to fam + '_fwd_single'/'_bwd_single'."""
         if fam == 'rbf':
             pairs = (('single', pathwise.fused_pathwise_eval),
                      ('tiled', pathwise_tiled.tiled_pathwise_eval))
@@ -1429,7 +1466,7 @@ def wide_kernels(args, card):
             r = plain(x, *operands)
         gbar = torch.randn(r.shape, generator=gen, device=dev)
         ref = vjp_ref(x, *operands, gbar)
-        for pair, wrapper in pairs:
+        for pair, wrapper in pairs[:1] if single_only else pairs:
             key = fam + ('_single' if pair == 'single' else '')
             with torch.no_grad():
                 o = wrapper(x, *operands)
@@ -1442,17 +1479,18 @@ def wide_kernels(args, card):
             torch.cuda.synchronize()
             out['errs'].setdefault(key + '_bwd', []).append(compare_bwd(
                 bars, ref, f'bwd {fam} {pair} {name}', names))
-            if fam == 'df' and pair == 'tiled':
-                # #11/#12 sum fixed slabs in a fixed order: a second
-                # launch on the same inputs gives the same bits
+            if fam == 'rbf' or pair == 'tiled':
+                # #3/#4, #9/#10 and #11/#12 sum fixed partials in a fixed
+                # order: a second launch on the same inputs gives the same
+                # bits
                 with torch.no_grad():
                     o2 = wrapper(x, *operands)
                 bars2 = torch.autograd.grad(wrapper(*inputs), inputs, gbar)
                 require(torch.equal(o, o2) and all(
                     torch.equal(a, b) for a, b in zip(bars, bars2)),
-                    f'{name}: two launches of the tiled DF pair on the same '
-                    f'inputs differ')
-                out['repeats'] += 1
+                    f'{name}: two launches of the {pair} {fam} pair on the '
+                    f'same inputs differ')
+                out['repeats'][fam] += 1
         return gbar
 
     log('wide shapes: both pairs of each family (single-block '
@@ -1507,9 +1545,11 @@ def wide_kernels(args, card):
                                                             (12, 1024)):
                         out['ops'][fam] = (x, operands, gbar)
     # beside the sweep: a ragged last chunk, GP operands per draw, no draw
-    # dim (an operand shared by all draws gets the draws' sum), and the
-    # rows of the wide requests of WIDE_BATCH sequences and of the rk4
-    # steps of BIG_BATCH sequences at the main widths
+    # dim (an operand shared by all draws gets the draws' sum), the rows
+    # of the wide requests of WIDE_BATCH sequences and of the rk4 steps of
+    # BIG_BATCH sequences, and (RBF, single-block pair: #10 refuses it) the
+    # state
+    # width of the RBF_WIDE_Q rk4 steps
     for fam in ('rbf', 'df'):
         make = rbf_ops if fam == 'rbf' else df_ops
         check(fam, 'L=5 N=20 D=12 S=1000 (ragged last chunk)',
@@ -1524,9 +1564,14 @@ def wide_kernels(args, card):
               *make(L, WIDE_BATCH, 12, 1024))
         check(fam, f'L=5 N={BIG_BATCH} D=6 S=256 (the batch-{BIG_BATCH} '
                    f'rk4 steps)', *make(L, BIG_BATCH, 6, 256))
-    log(f'the tiled DF pair (df_pathwise_tiled_fwd / df_pathwise_tiled_bwd) '
-        f'gave the same bits on two launches at all {out["repeats"]} of '
-        f'its shapes above')
+    check('rbf', f'L=5 N=20 D={RBF_WIDE_Q} S=256 (the rk4 steps at '
+                 f'latent_dim {RBF_WIDE_Q})',
+          *rbf_ops(L, BATCH, RBF_WIDE_Q, 256), single_only=True)
+    log(f'two launches on the same inputs gave the same bits: both RBF '
+        f'pairs (pathwise_fwd / pathwise_bwd, pathwise_tiled_fwd / '
+        f'pathwise_tiled_bwd) at all {out["repeats"]["rbf"]} of their '
+        f'checks above, the tiled DF pair (df_pathwise_tiled_fwd / '
+        f'df_pathwise_tiled_bwd) at all {out["repeats"]["df"]} of its')
     # the rule against the sweep: the faster kernel of each pair per call,
     # tallied per family
     out['rule_hits'] = {}
@@ -1731,25 +1776,26 @@ def wide_paths(args, card, slice_launches, kern):
         del state, result, fm, fgp
 
     # the main configuration's rk4 steps: at the default batch the rule
-    # sends the VJP to the tiled kernel (before and after, in turns), and
-    # at a batch of BIG_BATCH sequences (RBF, L=5) or of DF_BIG_BATCH
-    # sequences at L=1 (DF) back to the single-block one
+    # sends the VJP to the tiled kernel (before and after, in turns); at a
+    # batch of BIG_BATCH sequences (RBF, L=5) the rule's pair again (#3
+    # with 8-row blocks, #10), and at latent_dim RBF_WIDE_Q (RBF, L=5) or
+    # a batch of DF_BIG_BATCH sequences at L=1 (DF) the single-block VJP
     out['rk4_rule_ms'], out['big_ms'] = {}, {}
     q6, S6 = CONFIG['latent_dim'], CONFIG['num_features']
     X20 = (torch.rand((BATCH, T, 1, 28, 28), generator=torch.Generator(
         device=dev).manual_seed(args.seed + 48), device=dev) - 0.1307) / 0.3081
+    bigs = {'RBF': ((BIG_BATCH, L, q6), (BATCH, L, RBF_WIDE_Q)),
+            'DF': ((DF_BIG_BATCH, 1, q6),)}
     for kernel in ('RBF', 'DF'):
-        nbig, Lbig = (BIG_BATCH, L) if kernel == 'RBF' else (DF_BIG_BATCH, 1)
-        Xbig = (torch.rand((nbig, T, 1, 28, 28), generator=torch.Generator(
-            device=dev).manual_seed(args.seed + 49), device=dev)
-            - 0.1307) / 0.3081
         m, g = init_model(args.seed + 50, device='cuda',
                           **dict(CONFIG, solver='rk4', kernel=kernel))
         st = trainer.create_train_state(m, g)
         stp = trainer.make_train_step(360.0, eps_guard=True)
         mod = df_pathwise_tiled if kernel == 'DF' else pathwise_tiled
         rule = mod.use_df_tiled if kernel == 'DF' else mod.use_tiled
-        for use_rule in (True, False, False, True):
+        # six rounds of each in turns: the steps are host-bound, and the
+        # host's time moves by tens of percent between rounds
+        for use_rule in (True, False, False, True) * 3:
             if not use_rule:
                 setattr(mod, rule.__name__, lambda *a: (False, False))
             try:
@@ -1758,34 +1804,8 @@ def wide_paths(args, card, slice_launches, kern):
             finally:
                 setattr(mod, rule.__name__, rule)
             out['rk4_rule_ms'].setdefault((kernel, use_rule), []).append(ms)
-        # the big-batch steps start from a fresh state, with seeded
-        # draws: the steps above train `st` on random pixels, which can
-        # carry the DF gram to a smallest eigenvalue below 0, through the
-        # kernels and through the plain version alike; every later step
-        # is then NaN and the guard drops it (df_state_probe.py, PERF.md)
-        big = trainer.create_train_state(*init_model(
-            args.seed + 51, device='cuda',
-            **dict(CONFIG, solver='rk4', kernel=kernel)))
-        gbig = torch.Generator(device=dev).manual_seed(args.seed + 52)
-        stp(big, Xbig, Lbig, gbig)                           # warm-up
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-
-        def two(big=big, stp=stp, gbig=gbig, Xbig=Xbig, Lbig=Lbig):
-            ev0.record()
-            mets = [stp(big, Xbig, Lbig, gbig) for _ in range(2)]
-            ev1.record()
-            return mets
-        mets, d = run_path(two)
-        fk, bk = rule_names(kernel, Lbig, nbig, q6, S6, M)
-        got = {k: v for k, v in d.items() if v}
-        bad = [(k, float(v.float().max())) for mt in mets
-               for k, v in mt.items() if not bool(torch.isfinite(v).all())]
-        require(set(got) == {fk, bk} and not bad,
-                f'{kernel} rk4 steps at batch {nbig}, L={Lbig} launched '
-                f'{got}, the rule names {fk} and {bk}; non-finite metrics '
-                f'{bad}')
-        out['big_ms'][kernel] = ev0.elapsed_time(ev1) / 2
+        med = {u: statistics.median(out['rk4_rule_ms'][kernel, u])
+               for u in (True, False)}
         log(f'{kernel} rk4 train step at the main widths (L={L}), CUDA '
             f'events over 5 steps, batch {BATCH} by the rule (VJP '
             f'{rule_names(kernel, L, BATCH, q6, S6, M)[1]}) '
@@ -1793,9 +1813,49 @@ def wide_paths(args, card, slice_launches, kern):
                 f'{v:.3f}' for v in out['rk4_rule_ms'][kernel, True])
             + ' ms, single ' + ', '.join(
                 f'{v:.3f}' for v in out['rk4_rule_ms'][kernel, False])
-            + f' ms; batch {nbig} at L={Lbig}: {out["big_ms"][kernel]:.3f} '
-            f'ms a step, launches {got}; card {card}')
-        del st, big, m, g
+            + f' ms; medians: rule {med[True]:.3f}, single '
+            f'{med[False]:.3f} ms; card {card}')
+        del st, m, g
+        for nbig, Lbig, qbig in bigs[kernel]:
+            # these steps start from a fresh state, with seeded draws: the
+            # steps above train `st` on random pixels, which can carry the
+            # DF gram to a smallest eigenvalue below 0, through the kernels
+            # and through the plain version alike; every later step is
+            # then NaN and the guard drops it (df_state_probe.py, PERF.md)
+            Xbig = (torch.rand((nbig, T, 1, 28, 28),
+                               generator=torch.Generator(device=dev)
+                               .manual_seed(args.seed + 49), device=dev)
+                    - 0.1307) / 0.3081
+            big = trainer.create_train_state(*init_model(
+                args.seed + 51, device='cuda',
+                **dict(CONFIG, solver='rk4', kernel=kernel,
+                       latent_dim=qbig)))
+            gbig = torch.Generator(device=dev).manual_seed(args.seed + 52)
+            stp(big, Xbig, Lbig, gbig)                       # warm-up
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+
+            def two(big=big, gbig=gbig, Xbig=Xbig, Lbig=Lbig):
+                ev0.record()
+                mets = [stp(big, Xbig, Lbig, gbig) for _ in range(2)]
+                ev1.record()
+                return mets
+            mets, d = run_path(two)
+            fk, bk = rule_names(kernel, Lbig, nbig, qbig, S6, M)
+            got = {k: v for k, v in d.items() if v}
+            bad = [(k, float(v.float().max())) for mt in mets
+                   for k, v in mt.items()
+                   if not bool(torch.isfinite(v).all())]
+            require(set(got) == {fk, bk} and not bad,
+                    f'{kernel} rk4 steps at batch {nbig}, L={Lbig}, '
+                    f'q={qbig} launched {got}, the rule names {fk} and '
+                    f'{bk}; non-finite metrics {bad}')
+            out['big_ms'][kernel, nbig, qbig] = ev0.elapsed_time(ev1) / 2
+            log(f'{kernel} rk4 train step at batch {nbig}, L={Lbig}, '
+                f'q={qbig} (CUDA events over 2 steps): '
+                f'{out["big_ms"][kernel, nbig, qbig]:.3f} ms a step, '
+                f'launches {got}; card {card}')
+            del big
 
     # the tiled kernels' times at the wide shapes (L=5, N=20)
     out['kernel_ms'] = {}
@@ -1895,7 +1955,8 @@ def per_shape_split(card):
             else:
                 call = lambda m=mod, x=x, o=operands: m._launch(x, o)
                 tensors = (x,) + operands + (call(),)
-            us, seen = device_us(call, [name])[name]
+            timed = device_us(call, [name])
+            us, seen = timed.pop(name)
         if df:
             flops = L_ * N_ * (df_vjp_flops if bwd else df_eval_flops)(
                 D_, SD_, M_)
@@ -1905,7 +1966,8 @@ def per_shape_split(card):
         out.setdefault(name, []).append((shape, n, us if seen else None,
                                          bound * 1e3))
         log(f'  {name} {shape}: {n} launches, '
-            f'{per_launch((us, seen))}, bound {bound * 1e3:.2f} us')
+            f'{per_launch((us, seen))}, bound {bound * 1e3:.2f} us' + ''.join(
+                f'; {k} {per_launch(v)}' for k, v in timed.items()))
     for name, rows in out.items():
         if all(us is not None for _, _, us, _ in rows):
             lost = sum(n * (us - b) for _, n, us, b in rows) / 1e3
@@ -1976,12 +2038,14 @@ def main():
     df_pathwise_tiled._bwd_lib()
     log(f'build: {time.perf_counter() - t0:.1f} s')
     # registers and spills of every kernel instance (nvcc -Xptxas -v); the
-    # tiled DF pair (#11/#12) keeps its per-thread arrays in registers
+    # tiled DF pair (#11/#12) and the RBF pair #3/#10 keep their per-thread
+    # arrays in registers
     for name in sources:
         for sym, (regs, st, ld) in sorted(_build.ptxas_usage(name).items()):
             log(f'ptxas {name}: {sym}: {regs} registers, spill stores {st} '
                 f'bytes, spill loads {ld} bytes')
-            if name.startswith('df_pathwise_tiled'):
+            if name.startswith('df_pathwise_tiled') or name in (
+                    'pathwise_fwd', 'pathwise_tiled_bwd'):
                 require(st == 0 and ld == 0, f'{sym} spills registers')
 
     # -- 2. the forecaster at full width ---------------------------------
@@ -2366,10 +2430,16 @@ def main():
     dev_us = {}
     for name, fn_k in calls.items():
         dev_us.update(device_us(fn_k, [name]))
+    floor = floor_us()
+    log('device time per launch of an empty kernel (pathwise_fwd_empty, '
+        'the floor under every kernel\'s device time; torch.profiler over '
+        '10 launches): ' + (f'{floor:.2f} us' if floor is not None else
+                            'not measured') + f'; card {card}')
     log('device time per launch at the timed shapes (torch.profiler over '
         '10 calls; L=5, the main widths for #1-#8, the wide ones for '
-        '#9-#12): ' + ', '.join(f'{k} {per_launch(v)}'
-                                for k, v in dev_us.items()) + f'; card {card}')
+        '#9-#12; a library\'s second kernel apart): ' + ', '.join(
+            f'{k} {per_launch(v)}' for k, v in dev_us.items())
+        + f'; card {card}')
     per_shape_split(card)
     log(json.dumps({'kernels': entries}))
     log(json.dumps({'ok': True, 'device': {

@@ -1,18 +1,30 @@
 // CPU emulation of the CUDA features that the port's grid-tiled DF
-// kernels (vae_gp_ode_tpu_torch/csrc/df_pathwise_tiled_*.cu) use, so that
-// their source runs on the CPU under g++ (tests/test_torch_cuda_emulated.py):
-// one std::thread per CUDA thread, the blocks of a launch one after another,
+// kernels (vae_gp_ode_tpu_torch/csrc/df_pathwise_tiled_*.cu) and its RBF
+// per-step kernels (pathwise_fwd.cu, pathwise_tiled_bwd.cu) use, so that
+// their source runs on the CPU under g++ (tests/test_torch_cuda_emulated.py,
+// tests/test_torch_cuda_emulated_rbf.py): one std::thread per CUDA thread,
 // __syncthreads a std::barrier of the block, warp shuffles an exchange
 // through memory between two barriers of the warp. __shared__ variables are
-// function statics, shared by the block's threads. Launches written
-// `kernel<<<blocks, threads, smem, stream>>>(args)` are rewritten to
-// emu_launch(kernel, blocks, threads, args) by the test. Only 1-D grids and
-// blocks of whole warps are emulated.
+// function statics, shared by the block's threads, so a launch written
+// `kernel<<<blocks, threads, smem, stream>>>(args)` (rewritten by the tests
+// to emu_launch_smem(kernel, blocks, threads, smem, args)) runs its blocks
+// one after another. The dynamic shared memory of a block (`extern
+// __shared__ float smem[]`, rewritten by the tests to a pointer to
+// emu_dyn_smem) is a fresh buffer filled with NaN, so a read of an entry no
+// thread wrote shows in the results. A launch through cudaLaunchKernelEx
+// with a cluster dimension runs the blocks of each cluster together, with a
+// barrier of all their threads for the cluster's sync and each block's
+// dynamic shared memory readable by the others (cooperative_groups.h of
+// this directory); the asynchronous copies of cuda_pipeline.h are plain
+// copies. Only 1-D grids, 1-D clusters and blocks of whole warps are
+// emulated.
 #pragma once
 
 #include <algorithm>
 #include <barrier>
 #include <cmath>
+#include <cstddef>
+#include <limits>
 #include <memory>
 #include <thread>
 #include <vector>
@@ -32,6 +44,10 @@ inline thread_local emu_idx threadIdx;
 inline thread_local emu_idx blockIdx;
 inline emu_idx blockDim;
 
+struct alignas(8) float2 {
+  float x, y;
+};
+
 struct alignas(16) float4 {
   float x, y, z, w;
 };
@@ -42,26 +58,54 @@ typedef void* cudaStream_t;
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
+// An H100's SM count and opt-in limit of shared memory per block.
+enum {
+  cudaDevAttrMultiProcessorCount = 16,
+  cudaDevAttrMaxSharedMemoryPerBlockOptin = 97
+};
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+inline cudaError_t cudaDeviceGetAttribute(int* value, int attr, int) {
+  *value = attr == cudaDevAttrMultiProcessorCount ? 132 : 232448;
+  return cudaSuccess;
+}
+template <class K>
+inline cudaError_t cudaFuncSetAttribute(K, int, int) { return cudaSuccess; }
+
 using std::max;
 using std::min;
 
 template <class T>
 inline T __ldg(const T* p) { return *p; }
 
-inline std::barrier<>* emu_block_barrier;
-inline std::vector<std::unique_ptr<std::barrier<>>> emu_warp_barriers;
-inline float emu_exchange[64][32];
+// What the threads of one block share.
+struct emu_block_state {
+  std::barrier<> barrier;
+  std::vector<std::unique_ptr<std::barrier<>>> warp_barriers;
+  float exchange[64][32];
+  std::vector<float> dyn;
+  emu_block_state(unsigned threads, size_t smem)
+      : barrier(threads),
+        dyn(smem / sizeof(float) + 1,
+            std::numeric_limits<float>::quiet_NaN()) {
+    for (unsigned w = 0; w < threads / 32; ++w)
+      warp_barriers.emplace_back(new std::barrier<>(32));
+  }
+};
 
-inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
+inline thread_local emu_block_state* emu_block;
+#define emu_dyn_smem (emu_block->dyn.data())
+
+inline void __syncthreads() { emu_block->barrier.arrive_and_wait(); }
 
 // The value of lane `src` of this thread's warp (its own for src out of
 // range); every lane of the warp must call it.
 inline float emu_shfl(float v, int src) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  emu_exchange[warp][lane] = v;
-  emu_warp_barriers[warp]->arrive_and_wait();
-  const float r = src >= 0 && src < 32 ? emu_exchange[warp][src] : v;
-  emu_warp_barriers[warp]->arrive_and_wait();
+  emu_block->exchange[warp][lane] = v;
+  emu_block->warp_barriers[warp]->arrive_and_wait();
+  const float r =
+      src >= 0 && src < 32 ? emu_block->exchange[warp][src] : v;
+  emu_block->warp_barriers[warp]->arrive_and_wait();
   return r;
 }
 
@@ -74,22 +118,88 @@ inline float __shfl_xor_sync(unsigned, float v, int off) {
   return emu_shfl(v, (int)(threadIdx.x & 31) ^ off);
 }
 
-template <class K, class A>
-void emu_launch(K kernel, unsigned blocks, unsigned threads, A args) {
+template <class K, class... A>
+void emu_launch_smem(K kernel, unsigned blocks, unsigned threads,
+                     size_t smem, A... args) {
   blockDim = {threads, 1, 1};
   for (unsigned b = 0; b < blocks; ++b) {
-    std::barrier<> block_barrier(threads);
-    emu_block_barrier = &block_barrier;
-    emu_warp_barriers.clear();
-    for (unsigned w = 0; w < threads / 32; ++w)
-      emu_warp_barriers.emplace_back(new std::barrier<>(32));
+    emu_block_state block(threads, smem);
     std::vector<std::thread> pool;
     for (unsigned t = 0; t < threads; ++t)
-      pool.emplace_back([=] {
+      pool.emplace_back([=, &block] {
+        emu_block = &block;
         threadIdx = {t, 0, 0};
         blockIdx = {b, 0, 0};
-        kernel(args);
+        kernel(args...);
       });
     for (auto& th : pool) th.join();
   }
+}
+
+// -- cluster launches -----------------------------------------------------
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
+      : x(x_), y(y_), z(z_) {}
+};
+
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  struct {
+    struct {
+      unsigned x, y, z;
+    } clusterDim;
+  } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+
+// What the threads of one cluster share: a barrier of all of them and
+// its blocks' states, by rank.
+struct emu_cluster_state {
+  std::barrier<> barrier;
+  std::vector<emu_block_state*> blocks;
+  explicit emu_cluster_state(unsigned threads) : barrier(threads) {}
+};
+inline thread_local emu_cluster_state* emu_cluster;
+inline thread_local unsigned emu_cluster_rank;
+
+template <class... Exp, class... Act>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
+                               void (*kernel)(Exp...), Act&&... args) {
+  unsigned C = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension)
+      C = cfg->attrs[i].val.clusterDim.x;
+  const unsigned threads = cfg->blockDim.x, blocks = cfg->gridDim.x;
+  if (C < 1 || blocks % C) return cudaErrorInvalidValue;
+  blockDim = {threads, 1, 1};
+  for (unsigned c0 = 0; c0 < blocks; c0 += C) {
+    std::vector<std::unique_ptr<emu_block_state>> owned;
+    emu_cluster_state cluster(C * threads);
+    for (unsigned r = 0; r < C; ++r) {
+      owned.emplace_back(new emu_block_state(threads, cfg->dynamicSmemBytes));
+      cluster.blocks.push_back(owned.back().get());
+    }
+    std::vector<std::thread> pool;
+    for (unsigned r = 0; r < C; ++r)
+      for (unsigned t = 0; t < threads; ++t)
+        pool.emplace_back([=, &cluster, &args...] {
+          emu_block = cluster.blocks[r];
+          emu_cluster = &cluster;
+          emu_cluster_rank = r;
+          threadIdx = {t, 0, 0};
+          blockIdx = {c0 + r, 0, 0};
+          kernel(args...);
+        });
+    for (auto& th : pool) th.join();
+  }
+  return cudaSuccess;
 }

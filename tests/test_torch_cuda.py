@@ -224,16 +224,22 @@ def _pathwise_operands(dev, L, N, D, K, S, M=100, seed=0):
 @pytest.mark.parametrize('L,N,D,K,S', [
     (1, 20, 6, 6, 256), (5, 20, 6, 6, 256), (5, 20, 12, 6, 256),
     (5, 600, 6, 6, 256), (5, 20, 6, 6, 2048), (5, 20, 12, 12, 256),
-    (2, 3, 1, 1, 1)])
+    (2, 3, 1, 1, 1), (2, 33, 7, 5, 30), (1, 1, 12, 12, 1024)])
 def test_pathwise_kernels_match_plain(cuda, L, N, D, K, S):
+    """#3 and #4 against the plain version, among them N = 33 (past a row
+    tile), K other than D, D = 1, 7, short item lists (#3's blocks of
+    their own) and long ones (#3's clusters); two launches of #3 on the
+    same inputs give the same bits."""
     x, operands, gen = _pathwise_operands(cuda, L, N, D, K, S)
     before = dict(ops.LAUNCHES)
     with torch.no_grad():
         out = pathwise.fused_pathwise_eval(x, *operands)
+        again = pathwise.fused_pathwise_eval(x, *operands)
         ref = pathwise.pathwise_eval_reference(x, *operands)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES['pathwise_fwd'] == before['pathwise_fwd'] + 1
+    assert ops.LAUNCHES['pathwise_fwd'] == before['pathwise_fwd'] + 2
     torch.testing.assert_close(out, ref, **TOL)
+    assert torch.equal(out, again)
     inputs = [t.clone().requires_grad_() for t in (x,) + operands]
     out = pathwise.fused_pathwise_eval(*inputs)
     g = torch.randn(out.shape, generator=gen, device=cuda)
@@ -242,6 +248,23 @@ def test_pathwise_kernels_match_plain(cuda, L, N, D, K, S):
     assert ops.LAUNCHES['pathwise_bwd'] == before['pathwise_bwd'] + 1
     _assert_cotangents(grads, pathwise.pathwise_vjp_reference(
         x, *operands, g))
+
+
+# (L, N, D, K, S) at which #3's launcher picks each instance on an H100
+# (132 SMs, M = 100): direct; one block of 4 rows staging two rounds; one
+# block of 8 rows; clusters of 3 and 8 blocks of 4 rows, of 3 of 8 rows
+@pytest.mark.parametrize('plan', [
+    (2, 37, 6, 5, 90), (1, 20, 6, 1, 400), (2, 60, 6, 5, 90),
+    (1, 20, 6, 1, 800), (1, 20, 6, 12, 700), (2, 60, 6, 1, 700)])
+def test_pathwise_fwd_plans_on_the_card(cuda, plan):
+    """#3 at shapes where its launcher picks each instance, staged and
+    direct, with and without a cluster, against the plain version."""
+    x, operands, _ = _pathwise_operands(cuda, *plan)
+    with torch.no_grad():
+        out = pathwise.fused_pathwise_eval(x, *operands)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, pathwise.pathwise_eval_reference(
+        x, *operands), **TOL)
 
 
 def test_pathwise_kernels_per_draw_gp_operands_and_no_draw_dim(cuda):
@@ -481,11 +504,14 @@ def test_df_train_steps_launch_their_kernels(cuda):
 
 # -- the grid-tiled kernels #9-#12 and the dispatch rule ----------------
 
-@pytest.mark.parametrize('L,N,D,S', [(5, 20, 12, 1024), (1, 600, 6, 1000)])
-def test_tiled_pathwise_kernels_match_plain(cuda, L, N, D, S):
-    """#9 and #10 against the plain version (S=1000: a ragged last
-    chunk)."""
-    x, operands, gen = _pathwise_operands(cuda, L, N, D, D, S)
+@pytest.mark.parametrize('L,N,D,K,S', [
+    (5, 20, 12, 12, 1024), (1, 600, 6, 6, 1000), (5, 20, 6, 6, 256),
+    (2, 33, 7, 5, 30), (1, 1, 1, 1, 3), (5, 160, 6, 6, 256)])
+def test_tiled_pathwise_kernels_match_plain(cuda, L, N, D, K, S):
+    """#9 and #10 against the plain version (S=1000 and 30: ragged last
+    chunks; N = 33 past one of #10's 32-row tiles, K other than D, D = 1
+    and 7); two launches of #10 on the same inputs give the same bits."""
+    x, operands, gen = _pathwise_operands(cuda, L, N, D, K, S)
     before = dict(ops.LAUNCHES)
     with torch.no_grad():
         out = pathwise_tiled.tiled_pathwise_eval(x, *operands)
@@ -503,6 +529,35 @@ def test_tiled_pathwise_kernels_match_plain(cuda, L, N, D, S):
         before['pathwise_tiled_bwd'] + 1
     _assert_cotangents(grads, pathwise.pathwise_vjp_reference(
         x, *operands, g))
+    again = torch.autograd.grad(pathwise_tiled.tiled_pathwise_eval(
+        *inputs), inputs, g)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+def test_tiled_pathwise_vjp_per_draw_gp_operands_and_layouts(cuda):
+    """#10 with Z, ls and var per draw gives per-draw cotangents, and
+    without a draw dim the operands' own shapes."""
+    L = 3
+    x, operands, gen = _pathwise_operands(cuda, L, 20, 6, 6, 256)
+    per = list(operands)
+    for i in (3, 5, 6):
+        per[i] = (operands[i].expand((L,) + tuple(operands[i].shape))
+                  * (1.0 + 0.1 * torch.arange(L, device=cuda).reshape(
+                      (L,) + (1,) * operands[i].dim()))).contiguous()
+    g = torch.randn((L, 20, 6), generator=gen, device=cuda)
+    inputs = [t.clone().requires_grad_() for t in [x] + per]
+    got = torch.autograd.grad(pathwise_tiled.tiled_pathwise_eval(*inputs),
+                              inputs, g)
+    assert got[4].shape == per[3].shape and got[7].shape == per[6].shape
+    _assert_cotangents(got, pathwise.pathwise_vjp_reference(x, *per, g))
+    one = [t[0] if t.dim() > nd else t for t, nd in zip(
+        operands, pathwise._BASE_DIMS)]
+    inputs = [t.clone().requires_grad_() for t in [x[0]] + one]
+    out = pathwise_tiled.tiled_pathwise_eval(*inputs)
+    assert out.shape == (20, 6)
+    got = torch.autograd.grad(out, inputs, g[0])
+    _assert_cotangents(got, pathwise.pathwise_vjp_reference(x[0], *one,
+                                                            g[0]))
 
 
 @pytest.mark.parametrize('L,N,q,S,ls', [
@@ -578,7 +633,7 @@ def test_rule_at_the_wide_shapes_on_the_card(cuda):
     assert ops.card_properties(cuda) == (132, 232448)
     lib = pathwise_tiled._bwd_lib()
     assert lib.pathwise_tiled_bwd_smem_optin(cuda.index or 0) == 232448
-    for D in (6, 12, 209, 210):
+    for D in (6, 12, 65, 66):
         assert lib.pathwise_tiled_bwd_smem_bytes(D) == \
             pathwise_tiled.tiled_bwd_smem_bytes(D)
     X = (torch.rand(20, 16, 1, 28, 28, generator=torch.Generator(

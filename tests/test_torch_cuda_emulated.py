@@ -62,30 +62,53 @@ def _gxx(args, cwd):
                           cwd=cwd)
 
 
-@pytest.fixture(scope='module')
-def libs(tmp_path_factory):
-    """The two kernels built for the CPU emulation, {name: library}."""
+def _launch(m):
+    """`kernel<<<blocks, threads, smem, stream>>>(args)` as the shim's
+    emu_launch_smem(kernel, blocks, threads, smem, args)."""
+    blocks, threads, smem, _ = (p.strip() for p in m.group(2).split(','))
+    args = m.group(3).strip()
+    return (f'emu_launch_smem({m.group(1)}, {blocks}, {threads}, {smem}'
+            + (f', {args})' if args else ')'))
+
+
+def build_emulated(names, out):
+    """Compile each `csrc/<name>.cu` with g++ against the shim into `out`
+    (a pathlib.Path), the launches and the dynamic shared memory
+    rewritten for it; {name: library}. Skips the caller without a C++20
+    g++."""
     gxx = shutil.which('g++')
     if gxx is None:
         pytest.skip('needs g++')
-    out = tmp_path_factory.mktemp('emulated')
     flags = ['-std=c++20', '-pthread', '-I', SHIM, '-I', str(out)]
     (out / 'probe.cpp').write_text('#include <barrier>\nint main() {}\n')
     if _gxx([gxx, *flags, '-o', 'probe', 'probe.cpp'], out).returncode:
         pytest.skip('needs a g++ with C++20 <barrier>')
-    shutil.copy(os.path.join(_build.CSRC, 'df_common.cuh'), out)
-    built = {}
-    for name in NAMES:
+    for fn in os.listdir(_build.CSRC):
+        if fn.endswith('.cuh'):
+            shutil.copy(os.path.join(_build.CSRC, fn), out)
+    built, procs = {}, {}
+    for name in names:
         with open(os.path.join(_build.CSRC, name + '.cu')) as f:
-            src = re.sub(r'(\w+(?:<\d+>)?)<<<(.*?),\s*(\w+),.*?>>>\((\w+)\)',
-                         r'emu_launch(\1, \2, \3, \4)', f.read(),
-                         flags=re.S)
+            src = re.sub(r'(\w+(?:<\d+>)?)<<<(.*?)>>>\((.*?)\)', _launch,
+                         f.read(), flags=re.S)
+        src = re.sub(r'extern __shared__ float (\w+)\[\];',
+                     r'float* \1 = emu_dyn_smem;', src)
         (out / (name + '.cpp')).write_text(src)
-        res = _gxx([gxx, *flags, '-O1', '-shared', '-fPIC', '-o',
-                    f'lib{name}.so', name + '.cpp'], out)
-        assert res.returncode == 0, res.stderr[-4000:]
+        procs[name] = subprocess.Popen(
+            [gxx, *flags, '-O1', '-shared', '-fPIC', '-o', f'lib{name}.so',
+             name + '.cpp'], cwd=out, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    for name, proc in procs.items():
+        _, err = proc.communicate(timeout=600)
+        assert proc.returncode == 0, err[-4000:]
         built[name] = _Lib(str(out / f'lib{name}.so'))
     return built
+
+
+@pytest.fixture(scope='module')
+def libs(tmp_path_factory):
+    """The two kernels built for the CPU emulation, {name: library}."""
+    return build_emulated(NAMES, tmp_path_factory.mktemp('emulated'))
 
 
 @pytest.fixture

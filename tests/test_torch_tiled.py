@@ -166,19 +166,21 @@ def test_df_plain_vjp_matches_jax_tiled_kernel():
 
 # -- the card's dispatch rule ----------------------------------------------------
 
-# (D, K, S) -> {(L, N): (forward tiled, VJP tiled)} on an H100: the
-# crossover of the sweep in chip_smoke.py phase 6d (PERF.md section 6)
+# (D, K, S) -> {(L, N): (forward tiled, VJP tiled)} on an H100: refit to
+# the redesigned #3/#10 from the sweep in chip_smoke.py phase 6d (PERF.md
+# section 6): the VJP tiled wherever #10's block fits, the forward tiled
+# for S + M > 768 from L*N*K*(S + M) = 8e6
 RBF_RULE = {
     (6, 6, 256): {(1, 20): (False, True), (5, 20): (False, True),
-                  (1, 600): (False, False), (5, 600): (False, False)},
+                  (1, 600): (False, True), (5, 600): (False, True)},
     (12, 12, 256): {(1, 20): (False, True), (5, 20): (False, True),
-                    (1, 600): (False, False), (5, 600): (False, False)},
+                    (1, 600): (False, True), (5, 600): (False, True)},
     (6, 6, 1024): {(1, 20): (False, True), (5, 20): (False, True),
-                   (1, 600): (False, False), (5, 600): (False, True)},
+                   (1, 600): (False, True), (5, 600): (True, True)},
     (6, 6, 2048): {(1, 20): (False, True), (5, 20): (False, True),
                    (1, 600): (False, True), (5, 600): (True, True)},
     (12, 12, 1024): {(1, 20): (False, True), (5, 20): (False, True),
-                     (1, 600): (False, True), (5, 600): (True, True)}}
+                     (1, 600): (True, True), (5, 600): (True, True)}}
 # (D, S) -> {(L, N): (forward tiled, VJP tiled)}: refit to the redesigned
 # #11/#12 (PERF.md section 6)
 DF_RULE = {
@@ -194,7 +196,7 @@ DF_RULE = {
 
 @pytest.mark.parametrize('D,K,S', sorted(RBF_RULE))
 def test_rbf_rule_at_the_sweep_shapes(D, K, S):
-    got = {LN: tpt.pick(*LN, D, K, S, 100, SMS, OPTIN)
+    got = {LN: tpt.pick(*LN, D, K, S, 100, OPTIN)
            for LN in RBF_RULE[D, K, S]}
     assert got == RBF_RULE[D, K, S]
 
@@ -211,16 +213,18 @@ def test_rule_at_the_rows_of_the_smoke_paths():
     (q = 12, S = 1024) at batch 20 takes #3 and #10 (RBF), #11 and #12
     (DF); a wide request of 400 sequences takes #9 (RBF) and #11 (DF);
     rk4 steps of 160 sequences at the main widths (q = 6, S = 256) take
-    #3/#4 (RBF) and #5/#12 (DF), and at batch 20 #3/#10 and #5/#12; DF rk4
+    #3/#10 (RBF) and #5/#12 (DF), and at batch 20 #3/#10 and #5/#12; RBF
+    rk4 steps at q = 72, wider than #10's block holds, take #3/#4; DF rk4
     steps at L = 1 with 600 sequences take #5/#6."""
     for L in (1, 5):
-        assert tpt.pick(L, 20, 12, 12, 1024, 100, SMS, OPTIN) == (False, True)
+        assert tpt.pick(L, 20, 12, 12, 1024, 100, OPTIN) == (False, True)
         assert tdpt.pick_df(L, 20, 12, 12288, 100, SMS) == (True, True)
-        assert tpt.pick(L, 160, 6, 6, 256, 100, SMS, OPTIN) == (False, False)
+        assert tpt.pick(L, 160, 6, 6, 256, 100, OPTIN) == (False, True)
         assert tdpt.pick_df(L, 160, 6, 1536, 100, SMS) == (False, True)
-        assert tpt.pick(L, 20, 6, 6, 256, 100, SMS, OPTIN) == (False, True)
+        assert tpt.pick(L, 20, 6, 6, 256, 100, OPTIN) == (False, True)
         assert tdpt.pick_df(L, 20, 6, 1536, 100, SMS) == (False, True)
-    assert tpt.pick(5, 400, 12, 12, 1024, 100, SMS, OPTIN)[0]
+        assert tpt.pick(L, 20, 72, 72, 256, 100, OPTIN) == (False, False)
+    assert tpt.pick(5, 400, 12, 12, 1024, 100, OPTIN)[0]
     assert tdpt.pick_df(5, 400, 12, 12288, 100, SMS)[0]
     assert tdpt.pick_df(1, 600, 6, 1536, 100, SMS) == (False, False)
 
@@ -236,6 +240,8 @@ def test_rule_kernels_name_the_picked_pair(monkeypatch):
     assert tpt.rule_kernels(5, 400, 12, 12, 1024, 100, dev) == (
         'pathwise_tiled_fwd', 'pathwise_tiled_bwd')
     assert tpt.rule_kernels(5, 160, 6, 6, 256, 100, dev) == (
+        'pathwise_fwd', 'pathwise_tiled_bwd')
+    assert tpt.rule_kernels(5, 20, 72, 72, 256, 100, dev) == (
         'pathwise_fwd', 'pathwise_bwd')
     assert tdpt.rule_kernels(5, 20, 12, 12288, 100, dev) == (
         'df_pathwise_tiled_fwd', 'df_pathwise_tiled_bwd')
@@ -248,15 +254,18 @@ def test_rule_kernels_name_the_picked_pair(monkeypatch):
 
 
 def test_rbf_rule_keeps_the_single_block_vjp_where_the_tiled_block_is_too_big():
-    """#10's block holds the chunk's omega and domega in shared memory
+    """#10's inducing-point block holds its rows, Z, the tile's per-row
+    terms, its points' dZ, dls and dnu sums and the warps' dx terms in
+    shared memory
     (`tiled_bwd_smem_bytes`, csrc/pathwise_tiled_bwd.cu): a state dim
     whose block exceeds the opt-in limit goes to #4."""
-    assert tpt.tiled_bwd_smem_bytes(12) == 4 * (192 + 8 + 12 + 1024 + 3072)
-    D = 210
+    assert tpt.tiled_bwd_smem_bytes(12) == 4 * (
+        240 + 12 + 864 + 1344 + 4 * 25 * 64 + 3072)
+    D = 66
     assert tpt.tiled_bwd_smem_bytes(D) > OPTIN >= tpt.tiled_bwd_smem_bytes(
         D - 1)
-    assert tpt.pick(5, 20, D - 1, 12, 1024, 100, SMS, OPTIN)[1]
-    assert not tpt.pick(5, 20, D, 12, 1024, 100, SMS, OPTIN)[1]
+    assert tpt.pick(5, 20, D - 1, 12, 1024, 100, OPTIN)[1]
+    assert not tpt.pick(5, 20, D, 12, 1024, 100, OPTIN)[1]
 
 
 # -- the CPU path ----------------------------------------------------------------

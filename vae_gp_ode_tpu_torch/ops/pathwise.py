@@ -14,9 +14,10 @@ inside a `torch.autograd.Function` whose backward launches
 `csrc/pathwise_bwd.cu`; CPU tensors take the plain version,
 `pathwise_eval_reference`, and autograd through it. Every operand may
 carry a leading dim of L draws or be shared by all draws (one launch for
-all L, as the JAX package's vmap over `pallas_call`); cotangents of
-shared operands are summed over the draws from per-block slabs, without
-atomics.
+all L, as the JAX package's vmap over `pallas_call`); the forward's
+blocks sum their partials within a thread-block cluster and the VJP's
+cotangents of shared operands are summed over the draws from per-block
+slabs, both in a fixed order, without atomics.
 """
 
 import ctypes
@@ -131,6 +132,8 @@ def _lib():
     if lib.pathwise_fwd.argtypes is None:
         lib.pathwise_fwd.argtypes = _ARGTYPES
         lib.pathwise_fwd.restype = ctypes.c_int
+        lib.pathwise_fwd_empty.argtypes = [_I, _P]
+        lib.pathwise_fwd_empty.restype = ctypes.c_int
     return lib
 
 

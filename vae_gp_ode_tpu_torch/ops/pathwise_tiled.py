@@ -6,13 +6,23 @@ between them and the single-block pair of `ops.pathwise`.
 Both pairs compute the same function, `ops.pathwise.pathwise_eval_reference`
 (imported here as the plain version). They split the work differently:
 
-* `csrc/pathwise_fwd.cu` / `pathwise_bwd.cu` (#3/#4): one block per
-  (draw, row tile[, output dim]); the VJP's blocks each walk all K*S
-  feature columns.
-* `csrc/pathwise_tiled_fwd.cu` / `pathwise_tiled_bwd.cu` (#9/#10): a grid
-  over (draw, output dim k, feature chunk), with the inducing update in a
-  slot of its own; per-block partials go to slabs that the wrapper sums,
-  without atomics.
+* `csrc/pathwise_fwd.cu` (#3): one launch; a thread-block cluster per
+  (draw, row tile, chunk of output dims) whose blocks share out the
+  features and inducing points and sum their partials through
+  distributed shared memory (clusters of 8 for long feature lists, of one
+  block that loads its own items for short ones).
+* `csrc/pathwise_bwd.cu` (#4): one block per (draw, row tile) that walks
+  all K*S feature columns.
+* `csrc/pathwise_tiled_fwd.cu` (#9): a grid over (draw, output dim k,
+  feature chunk), with the inducing update in a slot of its own; per-block
+  partials go to a slab that the wrapper sums, without atomics.
+* `csrc/pathwise_tiled_bwd.cu` (#10): blocks of 64 contiguous feature
+  columns of omega's (D, S*K) layout beside blocks of 64 inducing points
+  of one output dim, all rows per block in tiles of 20; per-block partials
+  go to slabs that a second kernel of the same library call sums in a
+  fixed order (and over the draws of a shared operand), so the wrapper
+  runs no reduction; the library exports the size of its workspace, and
+  its launcher checks the buffer it is given.
 
 `pathwise_eval` is the per-step eval that `gp.svgp.fn_eval` calls: CPU
 tensors take the plain version; CUDA tensors take the kernels that
@@ -20,6 +30,8 @@ tensors take the plain version; CUDA tensors take the kernels that
 """
 
 import ctypes
+import itertools
+import math
 
 import torch
 
@@ -44,9 +56,7 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _ARGTYPES = [_P, _LL] * 8 + [_P] + [_I] * 7 + [_P]
-_BWD_ARGTYPES = [_P, _LL] * 8 + [_P] * 9 + [_I] * 7 + [_P]
-
-
+_BWD_ARGTYPES = [_P, _LL] * 8 + [_P, _P, _LL] + [_P] * 8 + [_I] * 7 + [_P]
 # -- the kernels --------------------------------------------------------------
 
 def _lib():
@@ -64,8 +74,8 @@ def _bwd_lib():
     if lib.pathwise_tiled_bwd.argtypes is None:
         lib.pathwise_tiled_bwd.argtypes = _BWD_ARGTYPES
         lib.pathwise_tiled_bwd.restype = ctypes.c_int
-        lib.pathwise_tiled_bwd_chunk.argtypes = []
-        lib.pathwise_tiled_bwd_chunk.restype = ctypes.c_int
+        lib.pathwise_tiled_bwd_workspace.argtypes = [_I] * 6 + [_LL] * 4
+        lib.pathwise_tiled_bwd_workspace.restype = ctypes.c_longlong
         lib.pathwise_tiled_bwd_smem_bytes.argtypes = [_I]
         lib.pathwise_tiled_bwd_smem_bytes.restype = ctypes.c_longlong
         lib.pathwise_tiled_bwd_smem_optin.argtypes = [_I]
@@ -94,9 +104,10 @@ def _launch(x, operands):
 
 
 def _launch_bwd(x, operands, g):
-    """Launch the tiled VJP kernel for the cotangent g (L, N, K). Returns dx
-    (L, N, D) and the operands' cotangents, each in its operand's shape
-    (summed over the draws an operand is shared by)."""
+    """Launch the tiled VJP kernel and its sums for the cotangent g (L, N,
+    K). Returns dx (L, N, D) and the operands' cotangents, each in its
+    operand's shape (summed by the library over the draws an operand is
+    shared by)."""
     _check_tensors(x.device, zip(('x',) + NAMES + ('g',),
                                  (x,) + tuple(operands) + (g,)))
     L, N, D, K, S, M, strides = _check(x, operands)
@@ -104,28 +115,24 @@ def _launch_bwd(x, operands, g):
         raise ValueError(f'g has shape {tuple(g.shape)}, expected '
                          f'({L}, {N}, {K})')
     lib = _bwd_lib()
-    n_slots = -(-S // lib.pathwise_tiled_bwd_chunk()) + 1
-
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=x.device)
-    dx_slab, dvar_slab = empty(L, n_slots, K, N, D), empty(L, n_slots, K)
-    dom, dph, dw = empty(L, D, S, K), empty(L, 1, S, K), empty(L, S, K)
-    dz_slab, dnu, dls = empty(L, K, M, D), empty(L, K, M), empty(L, K, D)
+    om, ph, w, _, nu, _, _ = strides
+    n_ws = lib.pathwise_tiled_bwd_workspace(L, N, D, K, S, M, om, ph, w, nu)
+    workspace = torch.empty(n_ws, dtype=torch.float32, device=x.device)
+    shapes = [(L, N, D)] + [tuple(t.shape) for t in operands]
+    sizes = [math.prod(shape) for shape in shapes]
+    out = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
+    offsets = itertools.accumulate([0] + sizes[:-1])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.pathwise_tiled_bwd(
-        *_flat(x, operands, strides), g.data_ptr(), dx_slab.data_ptr(),
-        dvar_slab.data_ptr(), dom.data_ptr(), dph.data_ptr(), dw.data_ptr(),
-        dz_slab.data_ptr(), dnu.data_ptr(), dls.data_ptr(), L, N, D, K, S, M,
+        *_flat(x, operands, strides), g.data_ptr(), workspace.data_ptr(),
+        n_ws, *(out.data_ptr() + 4 * o for o in offsets), L, N, D, K, S, M,
         x.device.index, stream)
     if rc != 0:
         raise RuntimeError(f'{BWD_KERNEL} launch failed: CUDA error {rc} '
                            f'(L={L} N={N} D={D} K={K} S={S} M={M})')
     ops.count(BWD_KERNEL, (L, N, D, K, S, M))
-    per_draw = (dom, dph, dw, dz_slab.sum(dim=1), dnu, dls,
-                dvar_slab.sum(dim=1))
-    return (dx_slab.sum(dim=(1, 2)),) + tuple(
-        bar if t.dim() == bar.dim() else bar.sum(dim=0)
-        for t, bar in zip(operands, per_draw))
+    return tuple(part.view(shape)
+                 for part, shape in zip(out.split(sizes), shapes))
 
 
 def tiled_pathwise_eval(x, omega, phase, weights, Z, nu, ls, var):
@@ -147,41 +154,45 @@ def tiled_pathwise_eval(x, omega, phase, weights, Z, nu, ls, var):
 
 def tiled_bwd_smem_bytes(D):
     """Shared memory of one #10 block at state dim D (csrc/
-    pathwise_tiled_bwd.cu smem_bytes: 8 rows, 128 threads)."""
-    return 4 * (2 * 8 * D + 8 + D + 8 * 128 + 2 * 128 * D)
+    pathwise_tiled_bwd.cu smem_bytes: the larger kind, an inducing-point
+    block of 64 points, 4 row groups and 20-row tiles, its rows (D padded
+    to whole float4s), 1/ls, Z,
+    the tile's dq, its points' sums and the warps' dx terms)."""
+    return 4 * (20 * -(-D // 4) * 4 + D + 72 * D + 64 * 21
+                + 4 * (2 * D + 1) * 64 + 8 * 32 * D)
 
 
-def pick(L, N, D, K, S, M, sms, optin):
-    """Which pair takes the per-step eval on a card with `sms` SMs and
-    `optin` bytes of shared memory per block: (forward tiled, VJP tiled),
+def pick(L, N, D, K, S, M, optin):
+    """Which pair takes the per-step eval on a card with `optin` bytes of
+    shared memory per block: (forward tiled, VJP tiled),
     each True for the tiled kernel (#9, #10) and False for the
-    single-block one (#3, #4). Decided from the shapes alone, as the
-    crossover of the sweep that `chip_smoke.py` phase 6d measures on an
-    H100 (PERF.md section 6).
+    single-block one (#3, #4). Decided from the shapes alone, from the
+    sweep per call that `chip_smoke.py` phase 6d measures on an H100 and
+    the device time per launch of both pairs (PERF.md section 6).
 
-    The VJP: #4's blocks each walk K*(ceil(S/128) + ceil(M/128)) chunks of
-    128 columns (8 rows at a time), #10's each walk ceil(N/8) row tiles
-    (times ceil(M/128) in the update slot). #10 is taken where #4's chain
-    is the longer one, or more than 0.6 of #10's once #4's L*ceil(N/8)
-    blocks no longer fit one wave on the SMs, and where #10's block fits
-    the shared memory. The forward: both are bound by the host's issue
-    time (~35-70 us a call) up to L*N*K*S ~ 2e7, where #3's device time
-    takes over; below it the tiled forward's extra summation launch makes
-    it the slower one.
+    The VJP: #10 takes every shape whose block fits the shared memory
+    (`tiled_bwd_smem_bytes`, D <= 65 at the H100's opt-in): it was the
+    faster call at all 20 shapes of the sweep, by 1.3-8x, and the faster
+    kernel on the device at every measured shape. #4 remains for wider
+    states.
+
+    The forward: both kernels are one call's host issue (~40-70 us on
+    the sweep's host) plus a few to a few hundred microseconds of device
+    time, and #9's partials need a second launch. #3 takes a short
+    feature list (S + M <= 768) in clusters of one block at any row
+    count. A long list takes clusters of 8 blocks per (draw, row tile),
+    which cost more than #9's grid once there are many rows: #9 takes
+    S + M > 768 from L*N*K*(S + M) >= 8e6 row-feature products, where the
+    sweep's calls favour it (1.4-2x at N = 600).
     """
-    chain4 = K * (-(-S // 128) + -(-M // 128))
-    chain10 = -(-N // 8) * -(-M // 128)
-    share = 0.6 if L * -(-N // 8) > sms else 1.0
-    bwd = (chain4 > share * chain10
-           and tiled_bwd_smem_bytes(D) <= optin)
-    fwd = L * N * K * S >= 2e7
+    fwd = S + M > 768 and L * N * K * (S + M) >= 8e6
+    bwd = tiled_bwd_smem_bytes(D) <= optin
     return fwd, bwd
 
 
 def use_tiled(L, N, D, K, S, M, device):
-    """`pick` on CUDA `device` from its own SM count and shared-memory
-    opt-in limit."""
-    return pick(L, N, D, K, S, M, *ops.card_properties(device))
+    """`pick` on CUDA `device` from its own shared-memory opt-in limit."""
+    return pick(L, N, D, K, S, M, ops.card_properties(device)[1])
 
 
 def rule_kernels(L, N, D, K, S, M, device):

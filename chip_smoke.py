@@ -7,8 +7,8 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 1. prints the card's name and power limit, builds every CUDA kernel of the
    paths with nvcc (all at once) and prints the build time and each kernel
-   instance's registers and spills (`-Xptxas -v`; the tiled DF pair and
-   the RBF pair #3/#10 must not spill);
+   instance's registers and spills (`-Xptxas -v`; the tiled DF pair's
+   instances for D <= 16 and the RBF pair #3/#10 must not spill);
 2. builds the eval-mode forecaster at the main configuration's full width
    (rot-MNIST 28x28, q=6, n_filt=8, dimwise RBF with S=256 features and
    M=100 inducing points, euler dt=0.1, L=5 draws) with random weights
@@ -52,11 +52,15 @@ Run from the repository root on a machine with an NVIDIA H100:
 6c. the divergence-free (DF) kernel's paths, each run with the counts set
    to 0 just before and read just after: kernels #5-#8 (the per-step eval
    and its VJP, the euler trajectory and its adjoint) against their plain
-   versions (L=1 and 5, N=20 and 600, D=6 and 3, non-uniform dts, GP
-   operands per draw, z0 per draw, S=512); the pair's rule and one train
-   step at S=512, which it refuses, through #5/#6 against the plain
-   version on the card; the training CLI's run() with --kernel DF for 2
-   epochs (every step launches #7 and #8 once and no other kernel; GPU vs
+   versions (L=1 and 5, N=20 and 600, D=6, 3 and 12, non-uniform dts, GP
+   operands per draw, z0 per draw, S=512), #5 and #8 (with its summing
+   kernel) launched twice for the same bits; #8 in the chaotic D=3 field
+   also held to a float64 plain version (no farther from it than
+   F64_NOISE times the f32 plain version), there on a second draw too;
+   the pair's rule (its boundary since #8's clusters) and one train step
+   at S=2048, which it refuses, through the per-step kernels against the
+   plain version on the card; the training CLI's run() with --kernel DF
+   for 2 epochs (every step launches #7 and #8 once and no other kernel; GPU vs
    CPU float64 gradients); 3 steps with --solver rk4 through #5/#6 (GPU vs
    CPU gradients) and one rk4-adjoint step held to rk4 backprop; three DF
    requests and a T=32 rollout with random weights (one #7 launch each);
@@ -87,14 +91,21 @@ Run from the repository root on a machine with an NVIDIA H100:
    medians), RBF rk4 steps of 160 sequences (L=5) and at latent_dim 72
    (L=5), wider than the tiled VJP's block holds, and, for DF, at L=1
    with 600 sequences;
+6e. DF above state dim 16, where only the tiled pair's wide instance runs:
+   #11/#12 against their plain versions at D = 20 and 48 (two launches
+   for the same bits), D = 49 refused before any launch, and one DF euler
+   and one DF rk4 train step at latent_dim 20 (L=5) through #11/#12
+   against autograd through the plain version on the card;
 7. times kernels, requests and train steps with CUDA events, and traces
    one request, one L=5 train step, one L=5 rk4 train step, one DF
    request, DF L=5, L=1 and rk4 train steps and one wide L=5 train step
    per kernel with torch.profiler (device kernels by time, the device's
    idle share), the device time per launch of an empty kernel (the floor)
    and of every kernel (the tiled RBF VJP's summing kernel apart), and
-   the per-shape split: every per-step kernel's launches on the paths at
-   each shape, its device time per launch there and its bound;
+   the per-shape split: every kernel's launches on the paths at each
+   shape (trajectory kernels included), its device time per launch there
+   (timed again where the profiler recorded none; a shape without a
+   reading fails the run), its CUDA-event time per call and its bound;
 8. prints one JSON line on the twelve kernels and, as the last line,
    {"ok": true, "device": {...}}.
 
@@ -142,6 +153,12 @@ TRAIN_EPOCHS = 2
 # runs' own inputs disagree on to have a reference input within
 # RELU_FLIP of its layer's largest |input|.
 RELU_FLIP = 1e-4
+
+# the chaotic DF trajectory check (D=3, lengthscale 0.5): #8's distance
+# from a float64 plain version may be at most this many times the f32
+# plain version's, per cotangent (on an H100 it sat at 0.09-0.31 times;
+# PERF.md)
+F64_NOISE = 2.0
 
 CONFIG = dict(latent_dim=6, n_filt=8, num_features=256, num_inducing=100,
               dt=0.1, lengthscale=2.0, variance=0.7)
@@ -867,6 +884,11 @@ def to_device(obj, device, dtype=None):
     return dataclasses.replace(obj, **kw)
 
 
+# a DF width at q=6 whose adjoint block of an 8-block cluster exceeds the
+# H100's opt-in shared memory: the pair refuses it (df_pair_fits)
+DF_REFUSED_S = 2048
+
+
 def df_paths(args, card, batch, slice_launches):
     """The divergence-free (DF) paths of this slice: kernels #5-#8 against
     their plain versions, the training CLI's run() with --kernel DF, DF
@@ -926,8 +948,7 @@ def df_paths(args, card, batch, slice_launches):
             ('L=5, N=600', L, 600, q, S, 2.0, False),
             ('L=5, D=3 (ls 0.5)', L, BATCH, 3, S, 0.5, False),
             ('L=5, Z, ls2, var per draw', L, BATCH, q, S, 2.0, True),
-            ('L=5, S=512 (refused by the pair)', L, BATCH, q, 512, 2.0,
-             False)):
+            ('L=5, S=512', L, BATCH, q, 512, 2.0, False)):
         x, operands = df_ops(L_, N_, q_, S_, ls)
         if per_draw:
             operands = list(operands)
@@ -939,10 +960,14 @@ def df_paths(args, card, batch, slice_launches):
             operands = tuple(operands)
         with torch.no_grad():
             o = df_pathwise.fused_df_pathwise_eval(x, *operands)
+            o2 = df_pathwise.fused_df_pathwise_eval(x, *operands)
             r = df_pathwise.df_pathwise_reference(x, *operands)
         torch.cuda.synchronize()
         require(o.shape == (L_, N_, q_), f'shape {o.shape}')
         fwd_errs.append(compare(o, r, 'fwd ' + name))
+        # #5 sums fixed partials in a fixed order over its cluster
+        require(torch.equal(o, o2), f'{name}: two launches of '
+                                    f'df_pathwise_fwd differ')
         inputs = [t.clone().requires_grad_() for t in (x,) + operands]
         o = df_pathwise.fused_df_pathwise_eval(*inputs)
         gbar = torch.randn(o.shape, generator=gen, device=dev)
@@ -961,19 +986,71 @@ def df_paths(args, card, batch, slice_launches):
     # D=3 runs 3 steps: its field (|f| ~ 20 at lengthscale 0.5) triples an
     # f32 rounding difference every step, so at T=16 the f32 and float64
     # trajectories of the plain version already differ by 2.2 (CPU)
-    fwd_errs, bwd_errs, main7 = [], [], {}
-    for name, L_, N_, q_, ls, T_, uniform, z0_per_draw in (
-            ('L=1, N=20, T=16 (main)', 1, BATCH, q, 2.0, T, True, False),
-            ('L=5, N=20, T=16 (main)', L, BATCH, q, 2.0, T, True, False),
-            ('L=5, N=600', L, 600, q, 2.0, T, True, False),
-            ('L=5, D=3 (ls 0.5), T=4, non-uniform dts', L, BATCH, 3, 0.5, 4,
-             False, False),
-            ('L=5, z0 per draw', L, BATCH, q, 2.0, T, True, True)):
-        x, operands = df_ops(L_, N_, q_, S, ls)
-        z0 = x if z0_per_draw else x[0]
+    flow_cases = (
+        ('L=1, N=20, T=16 (main)', 1, BATCH, q, S, 2.0, T, True, False,
+         False),
+        ('L=5, N=20, T=16 (main)', L, BATCH, q, S, 2.0, T, True, False,
+         False),
+        ('L=5, N=600', L, 600, q, S, 2.0, T, True, False, False),
+        ('L=5, D=3 (ls 0.5), T=4, non-uniform dts', L, BATCH, 3, S, 0.5,
+         4, False, False, False),
+        ('L=5, z0 per draw', L, BATCH, q, S, 2.0, T, True, True, False),
+        ('L=5, Z, ls2, var per draw', L, BATCH, q, S, 2.0, T, True,
+         False, True),
+        ('L=5, S=512 (taken since the adjoint\'s clusters)', L, BATCH, q,
+         512, 2.0, T, True, False, False),
+        ('L=1, D=12 (two-row instances; taken since the clusters)', 1,
+         BATCH, 12, S, 2.0, T, True, False, False))
+
+    def flow_inputs(L_, N_, q_, S_, ls, T_, uniform, z0_per_draw,
+                    per_draw):
+        """z0, the operands, dts and the cotangent zsbar of a trajectory
+        case, drawn in this order from gen and rng."""
+        x, operands = df_ops(L_, N_, q_, S_, ls)
+        if per_draw:
+            operands = list(operands)
+            for i in (3, 5, 6):
+                operands[i] = (operands[i].expand(
+                    (L_,) + tuple(operands[i].shape)) * (
+                    1.0 + 0.05 * torch.arange(L_, device=dev).reshape(
+                        (L_,) + (1,) * operands[i].dim()))).contiguous()
+            operands = tuple(operands)
         dts = (torch.full((T_ - 1,), CONFIG['dt'], device=dev) if uniform
                else torch.rand(T_ - 1, generator=gen, device=dev) * 0.15
                + 0.05)
+        zsbar = torch.randn((L_, T_, N_, q_), generator=gen, device=dev)
+        return x if z0_per_draw else x[0], operands, dts, zsbar
+
+    def f64_errors(bars, ref, zs, zsbar, operands, dts, T_, z0_per_draw):
+        """Per cotangent, max |kernel - float64 plain| and max |f32 plain
+        - float64 plain|, the float64 plain version on the same zs."""
+        r64 = list(df_flow_fused.df_flow_vjp_reference(
+            zs.double(), zsbar.double(), *(t.double() for t in operands),
+            dts.double(), T_))
+        if not z0_per_draw:
+            r64[0] = r64[0].sum(0)
+        return [(float((a.double() - c).abs().max()),
+                 float((b.double() - c).abs().max()))
+                for a, b, c in zip(bars, ref, r64)]
+
+    def within_f32_noise(name, errs):
+        """Logs the float64 errors of a chaotic case and requires the
+        kernel to be no farther from float64 than F64_NOISE times the f32
+        plain version, per cotangent."""
+        log('  ' + name + ', float64 plain version: max |kernel - f64| / '
+            'max |f32 plain - f64| per cotangent: ' + ', '.join(
+                f'{k:.2e} / {p:.2e}' for k, p in errs))
+        require(all(k <= F64_NOISE * p for k, p in errs),
+                f'{name}: #8 is farther from float64 than {F64_NOISE} '
+                f'times the f32 plain version: {errs}')
+
+    fwd_errs, bwd_errs, main7 = [], [], {}
+    # the draws' state before the trajectory checks, for the D=3 case on
+    # the inputs that an earlier order of the checks gave it (below)
+    before_flows = (gen.get_state(), rng.bit_generator.state)
+    for case in flow_cases:
+        name, L_, N_, q_, S_, ls, T_, uniform, z0_per_draw, per_draw = case
+        z0, operands, dts, zsbar = flow_inputs(*case[1:])
         with torch.no_grad():
             zs = df_flow_fused.packed_df_euler_flow(z0, *operands, dts, T_)
             ref = df_flow_fused.df_euler_flow_reference(z0, *operands, dts,
@@ -983,41 +1060,111 @@ def df_paths(args, card, batch, slice_launches):
         fwd_errs.append(compare(zs, ref, 'fwd ' + name))
         inputs = [t.clone().requires_grad_() for t in (z0, *operands, dts)]
         zs = df_flow_fused.packed_df_euler_flow(*inputs, T_)
-        zsbar = torch.randn(zs.shape, generator=gen, device=dev)
         bars = torch.autograd.grad(zs, inputs, zsbar)
         ref = list(df_flow_fused.df_flow_vjp_reference(
             zs.detach(), zsbar, *operands, dts, T_))
         if not z0_per_draw:
             ref[0] = ref[0].sum(0)
         torch.cuda.synchronize()
+        if q_ == 3:
+            within_f32_noise(name, f64_errors(bars, ref, zs.detach(), zsbar,
+                                              operands, dts, T_,
+                                              z0_per_draw))
         bwd_errs.append(compare_bwd(bars, ref, 'bwd ' + name,
                                     ('z0',) + df_pathwise.NAMES + ('dts',)))
+        # #8 and its summing kernel add fixed partials in a fixed order
+        again = torch.autograd.grad(
+            df_flow_fused.packed_df_euler_flow(*inputs, T_), inputs, zsbar)
+        require(all(torch.equal(a, b) for a, b in zip(bars, again)),
+                f'{name}: two launches of df_flow_fused_bwd differ')
         if 'main' in name:
             main7[L_] = (z0, operands, dts, zs.detach(), zsbar)
     out['flow_err'] = (max(fwd_errs), max(bwd_errs))
 
+    # #5 and #6 at D=12 (their two-row instances)
+    d12 = (1, BATCH, 12, 512, 2.0)
+    x, operands = df_ops(*d12)
+    name = 'L=1, S=512, D=12 (two-row instances)'
+    with torch.no_grad():
+        o = df_pathwise.fused_df_pathwise_eval(x, *operands)
+        o2 = df_pathwise.fused_df_pathwise_eval(x, *operands)
+        r = df_pathwise.df_pathwise_reference(x, *operands)
+    torch.cuda.synchronize()
+    errs5 = [compare(o, r, 'fwd ' + name)]
+    require(torch.equal(o, o2), f'{name}: two launches of df_pathwise_fwd '
+                                f'differ')
+    inputs = [t.clone().requires_grad_() for t in (x,) + operands]
+    gbar = torch.randn(o.shape, generator=gen, device=dev)
+    bars = torch.autograd.grad(df_pathwise.fused_df_pathwise_eval(*inputs),
+                               inputs, gbar)
+    ref = df_pathwise.df_pathwise_vjp_reference(x, *operands, gbar)
+    torch.cuda.synchronize()
+    errs6 = [compare_bwd(bars, ref, 'bwd ' + name,
+                         ('x',) + df_pathwise.NAMES)]
+    out['pathwise_err'] = (max(out['pathwise_err'][0], *errs5),
+                           max(out['pathwise_err'][1], *errs6))
+
+    # The chaotic D=3 case again, on the inputs it drew when the D=12 case
+    # above ran before the trajectory checks: there #8 against the f32
+    # plain version missed the tolerance (PERF.md section 7), while both
+    # sit at f32 noise from float64. Held to float64 as above; the f32
+    # comparison is logged. The draws go on from where they were.
+    after = (gen.get_state(), rng.bit_generator.state)
+    gen.set_state(before_flows[0])
+    rng.bit_generator.state = before_flows[1]
+    df_ops(*d12)
+    torch.randn((1, BATCH, 12), generator=gen, device=dev)
+    for case in flow_cases[:3]:
+        flow_inputs(*case[1:])
+    case = flow_cases[3]
+    name, L_, N_, q_, S_, ls, T_, uniform, z0_per_draw, per_draw = case
+    name += ', the inputs of the earlier order'
+    z0, operands, dts, zsbar = flow_inputs(*case[1:])
+    gen.set_state(after[0])
+    rng.bit_generator.state = after[1]
+    inputs = [t.clone().requires_grad_() for t in (z0, *operands, dts)]
+    zs = df_flow_fused.packed_df_euler_flow(*inputs, T_)
+    with torch.no_grad():
+        fwd_ref = df_flow_fused.df_euler_flow_reference(z0, *operands, dts,
+                                                        T_)
+    compare(zs.detach(), fwd_ref, 'fwd ' + name)
+    bars = torch.autograd.grad(zs, inputs, zsbar)
+    ref = list(df_flow_fused.df_flow_vjp_reference(
+        zs.detach(), zsbar, *operands, dts, T_))
+    ref[0] = ref[0].sum(0)
+    torch.cuda.synchronize()
+    within_f32_noise(name, f64_errors(bars, ref, zs.detach(), zsbar,
+                                      operands, dts, T_, z0_per_draw))
+    try:
+        compare_bwd(bars, ref, 'bwd ' + name,
+                    ('z0',) + df_pathwise.NAMES + ('dts',))
+    except AssertionError:
+        log(f'  {name}: outside the f32 tolerance of the f32 plain '
+            f'version, within the float64 noise check above')
+
     # -- the pair's rule, and a step at a shape it refuses -----------------
     lib = df_flow_fused._bwd_lib()
     optin = lib.df_flow_fused_bwd_smem_optin(0)
-    for (q_, S_), fits in (((6, 256), True), ((6, 384), True),
-                           ((6, 512), False), ((12, 256), False)):
-        nbytes = lib.df_flow_fused_bwd_smem_bytes(q_, S_ * q_, M, T)
-        got = df_flow_fused.df_fused_pair_fits(q_, S_ * q_, M, T, dev)
+    for (q_, S_), fits in (((6, 256), True), ((6, 512), True),
+                           ((12, 256), True), ((6, 2048), False),
+                           ((16, 256), False)):
+        nbytes = lib.df_flow_fused_bwd_smem_bytes(q_, S_ * q_, M)
+        got = df_flow_fused.df_fused_pair_fits(q_, S_ * q_, M, dev)
         require(got == fits, f'DF rule at q={q_} S={S_}: {got}')
         log(f'  DF rule: q={q_}, S={S_}: adjoint block {nbytes} B of '
             f'{optin} B opt-in -> {"fused pair" if got else "per-step"}')
     wide, wide_gp = init_model(args.seed + 22, device='cuda',
-                               **dict(DFC, num_features=512))
-    noise = step_noise(args.seed + 23, q, 512, M, df=True)
+                               **dict(DFC, num_features=DF_REFUSED_S))
+    noise = step_noise(args.seed + 23, q, DF_REFUSED_S, M, df=True)
     relu_k = {}
     with cudnn_deterministic():
         (loss_g, _, _, g_gpu), d = run_path(lambda: step_grads(
             wide, wide_gp, batch, noise, 360.0, True, 'cuda',
             relu_in=relu_k))
-    fk, bk = rule_names('DF', 1, BATCH, q, 512, M)
+    fk, bk = rule_names('DF', 1, BATCH, q, DF_REFUSED_S, M)
     require(d[fk] > 0 and d[bk] > 0 and d['df_flow_fused_fwd'] == 0 and
-            d['df_flow_fused_bwd'] == 0, f'the DF S=512 step launched {d}, '
-            f'the rule names {fk} and {bk}')
+            d['df_flow_fused_bwd'] == 0, f'the DF S={DF_REFUSED_S} step '
+            f'launched {d}, the rule names {fk} and {bk}')
     kernel_eval = df_pathwise_tiled.df_pathwise_eval
     df_pathwise_tiled.df_pathwise_eval = df_pathwise.df_pathwise_reference
     relu_p = {}
@@ -1028,8 +1175,10 @@ def df_paths(args, card, batch, slice_launches):
                 relu_in=relu_p, relu_pin=relu_k))
     finally:
         df_pathwise_tiled.df_pathwise_eval = kernel_eval
-    require(not any(dp.values()), f'the plain DF S=512 step launched {dp}')
-    check_grads(f'DF, one train step at S=512 (the pair refuses it; L=1), '
+    require(not any(dp.values()), f'the plain DF S={DF_REFUSED_S} step '
+                                  f'launched {dp}')
+    check_grads(f'DF, one train step at S={DF_REFUSED_S} (the pair refuses '
+                f'it; L=1), '
                 f'launches {d}, against autograd through the plain version '
                 f'on the card', (float(loss_g), float(loss_p),
                                  *worst_grad_error(g_gpu, g_plain, wide),
@@ -1315,6 +1464,125 @@ def df_paths(args, card, batch, slice_launches):
     out['step_profile'] = lambda: dstep(dstate, batch, L)
     out['step1_profile'] = lambda: dstep(dstate, batch, 1)
     out['request_profile'] = lambda: fn(raw[1], args.seed)
+    return out
+
+
+# the DF state width of phase 6e: above the 16 of the single-block pair
+# (#5/#6) and of the trajectory pair (#7/#8), so only the tiled pair's
+# wide instance (#11/#12) takes it
+DF_WIDE_Q = 20
+
+
+def df_wide_state(args, card, batch, slice_launches):
+    """DF above state dim 16 (phase 6e): the tiled pair #11/#12 against
+    its plain version on the card at D = DF_WIDE_Q and 48 (its wide
+    instance; L = 1 and 5, two launches for the same bits), D = 49
+    refused before any launch, and one DF euler and one DF rk4 train step
+    at latent_dim DF_WIDE_Q (L=5) through the kernels the rule names
+    against autograd through the plain version on the card, same noise
+    (TOL_GRAD, RELU_FLIP). Adds each path run's launches to
+    `slice_launches` (counts set to 0 just before it, read just after)
+    and returns the largest kernel errors."""
+    import numpy as np
+    import torch
+    from vae_gp_ode_tpu_torch import ops
+    from vae_gp_ode_tpu_torch.gp.svgp import draw_fn_sample, init_svgp_params
+    from vae_gp_ode_tpu_torch.models.odegpvae import init_model
+    from vae_gp_ode_tpu_torch.ops import df_pathwise, df_pathwise_tiled
+
+    dev = torch.device('cuda')
+    S, M = CONFIG['num_features'], CONFIG['num_inducing']
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 71)
+    rng = np.random.default_rng(args.seed + 71)
+    out = {'fwd': [], 'bwd': []}
+
+    def run_path(fn):
+        ops.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        d = dict(ops.LAUNCHES)
+        for k in slice_launches:
+            slice_launches[k] += d[k]
+        PATH_SHAPES.update(ops.SHAPES)
+        return res, d
+
+    log(f'DF above state dim 16: df_pathwise_tiled_fwd / '
+        f'df_pathwise_tiled_bwd (their wide instance) vs '
+        f'df_pathwise_reference (and autograd through it) on the card:')
+    tiled = df_pathwise_tiled.tiled_df_pathwise_eval
+    for L_, D_, S_ in ((1, DF_WIDE_Q, S), (L, DF_WIDE_Q, S), (L, 48, 64)):
+        g = init_svgp_params(rng, D_, D_, M, kernel='DF', lengthscale=2.0,
+                             variance=0.7, device='cuda')
+        with torch.no_grad():
+            operands = df_pathwise.df_fused_operands(
+                g, draw_fn_sample(g, gen, S_, L=L_))
+        x = torch.randn((L_, BATCH, D_), generator=gen, device=dev)
+        name = f'L={L_} N={BATCH} D={D_} S={S_}'
+        with torch.no_grad():
+            o = tiled(x, *operands)
+            o2 = tiled(x, *operands)
+            r = df_pathwise.df_pathwise_reference(x, *operands)
+        torch.cuda.synchronize()
+        out['fwd'].append(compare(o, r, f'fwd {name}'))
+        gbar = torch.randn(r.shape, generator=gen, device=dev)
+        inputs = [t.clone().requires_grad_() for t in (x,) + operands]
+        bars = torch.autograd.grad(tiled(*inputs), inputs, gbar)
+        bars2 = torch.autograd.grad(tiled(*inputs), inputs, gbar)
+        ref = df_pathwise.df_pathwise_vjp_reference(x, *operands, gbar)
+        torch.cuda.synchronize()
+        out['bwd'].append(compare_bwd(bars, ref, f'bwd {name}',
+                                      ('x',) + df_pathwise.NAMES))
+        require(torch.equal(o, o2) and all(
+            torch.equal(a, b) for a, b in zip(bars, bars2)),
+            f'{name}: two launches of the tiled DF pair differ')
+    x49 = torch.zeros((1, 4, 49), device=dev)
+    ops49 = df_pathwise.pack_df_operands(
+        torch.zeros((49, 2, 49), device=dev),
+        torch.zeros((1, 2, 49), device=dev),
+        torch.zeros((4 * 49, 49), device=dev),
+        torch.zeros((3, 49), device=dev), torch.zeros((3 * 49, 1),
+                                                      device=dev),
+        torch.ones((49, 49), device=dev), torch.ones(49, device=dev))
+    before = dict(ops.LAUNCHES)
+    try:
+        df_pathwise_tiled.df_pathwise_eval(x49, *ops49)
+        raise AssertionError('the DF eval took D=49')
+    except NotImplementedError as e:
+        require('48' in str(e) and ops.LAUNCHES == before,
+                f'D=49: {e}; launches {ops.LAUNCHES}')
+        log(f'  D=49 refused before any launch: {e}')
+
+    kernel_eval = df_pathwise_tiled.df_pathwise_eval
+    for solver in ('euler', 'rk4'):
+        m, gp = init_model(args.seed + 72, device='cuda', **dict(
+            CONFIG, kernel='DF', latent_dim=DF_WIDE_Q, solver=solver))
+        noise = step_noise(args.seed + 73, DF_WIDE_Q, S, M, L_=L, df=True)
+        relu_k, relu_p = {}, {}
+        with cudnn_deterministic():
+            (loss_k, _, _, g_gpu), d = run_path(lambda: step_grads(
+                m, gp, batch, noise, 360.0, True, 'cuda', L, relu_in=relu_k))
+        fk, bk = rule_names('DF', L, BATCH, DF_WIDE_Q, S, M)
+        got = {k: v for k, v in d.items() if v}
+        require((fk, bk) == (df_pathwise_tiled.KERNEL,
+                             df_pathwise_tiled.BWD_KERNEL) and
+                set(got) == {fk, bk}, f'the DF {solver} step at latent_dim '
+                f'{DF_WIDE_Q} launched {got}, the rule names {fk} and {bk}')
+        df_pathwise_tiled.df_pathwise_eval = df_pathwise.df_pathwise_reference
+        try:
+            with cudnn_deterministic():
+                (loss_p, _, _, g_plain), dp = run_path(lambda: step_grads(
+                    m, gp, batch, noise, 360.0, True, 'cuda', L,
+                    relu_in=relu_p, relu_pin=relu_k))
+        finally:
+            df_pathwise_tiled.df_pathwise_eval = kernel_eval
+        require(not any(dp.values()), f'the plain step launched {dp}')
+        check_grads(f'DF {solver}, one train step at latent_dim {DF_WIDE_Q} '
+                    f'(L={L}; launches {got}) against autograd through the '
+                    f'plain version on the card', (
+                        float(loss_k), float(loss_p),
+                        *worst_grad_error(g_gpu, g_plain, m),
+                        *relu_flips(relu_k, relu_p)))
+        del m, gp
     return out
 
 
@@ -1902,76 +2170,154 @@ def wide_paths(args, card, slice_launches, kern):
     return out
 
 
+def trajectory_call(name, shape, rng, gen):
+    """A call of trajectory kernel `name` (#1, #2, #7 or #8) at the shape
+    key its wrapper counts (RBF (L, N, D, K, S, M, T), DF (L, N, D, S*D,
+    M, T)) on operands drawn there (z0 shared by the draws, dt = 0.1 as
+    main.py's), and the tensors and operations that bound one launch:
+    (call, bound ms)."""
+    import torch
+    from vae_gp_ode_tpu_torch.gp.svgp import draw_fn_sample, init_svgp_params
+    from vae_gp_ode_tpu_torch.ops import (
+        df_flow_fused, df_pathwise, flow_fused, pathwise)
+    dev = torch.device('cuda')
+    df = name.startswith('df_')
+    if df:
+        L_, N_, D_, SD_, M_, T_ = shape
+        K_, S_, order = D_, SD_ // D_, 1
+    else:
+        L_, N_, D_, K_, S_, M_, T_ = shape
+        order = D_ // K_
+    g = init_svgp_params(rng, D_, K_, M_, kernel='DF' if df else 'RBF',
+                         lengthscale=2.0, variance=0.7, device='cuda')
+    z0 = torch.randn((N_, D_), generator=gen, device=dev)
+    dts = torch.full((T_ - 1,), CONFIG['dt'], device=dev)
+    with torch.no_grad():
+        sample = draw_fn_sample(g, gen, S_, L=L_)
+        if df:
+            ops_ = df_pathwise.df_fused_operands(g, sample)
+            fwd = lambda: df_flow_fused.packed_df_euler_flow(z0, *ops_, dts,
+                                                             T_)
+        else:
+            ops_ = flow_fused._pack_operands(
+                *pathwise.rbf_fused_operands(g, sample))
+            fwd = lambda: flow_fused.packed_euler_flow(z0, *ops_, dts, T_,
+                                                       order)
+        zs = fwd().reshape((L_, T_, N_, D_))
+    if not name.endswith('_bwd'):
+        if df:
+            bound = roofline(L_ * N_ * (T_ - 1) * (
+                df_eval_flops(D_, SD_, M_) + 2 * D_), (z0,) + ops_ + (
+                dts, zs))[0]
+        else:
+            bound = flow_bound(L_, N_, D_, K_, S_, M_, T_)[0]
+        return fwd, bound
+    zsbar = torch.randn(zs.shape, generator=gen, device=dev)
+    if df:
+        bwd = lambda: df_flow_fused.df_flow_vjp(zs, zsbar, *ops_, dts, T_)
+        outs = bwd()
+        bound = roofline(L_ * N_ * (T_ - 1) * df_vjp_flops(D_, SD_, M_),
+                         (zs, zsbar) + ops_ + (dts,) + tuple(outs))[0]
+    else:
+        bwd = lambda: flow_fused.packed_flow_vjp(zs, zsbar, *ops_, dts, T_,
+                                                 order)
+        outs = bwd()
+        bound = flow_bwd_bound(L_, N_, D_, K_, S_, M_, T_, [zs, zsbar] +
+                               list(ops_) + [dts] + list(outs))[0]
+    return bwd, bound
+
+
 def per_shape_split(card):
-    """Launches and device time per launch of each per-step kernel (#3-#6,
-    #9-#12) at every shape the paths launched it at (PATH_SHAPES), each
-    timed on operands drawn at that shape, beside its bound there; per
-    kernel the sum of launches x (device time - bound), the redesign order
-    of ROADMAP Queue B; and the trajectory kernels' launches per shape.
-    Returns {kernel: [(shape, launches, us, bound us)]}."""
+    """Launches and device time per launch of every kernel at every shape
+    the paths launched it at (PATH_SHAPES), each timed on operands drawn
+    at that shape, beside its bound there: the per-step kernels (#3-#6,
+    #9-#12) and the trajectory kernels (#1, #2, #7, #8) alike. A shape
+    whose launches torch.profiler dropped is timed again, with more
+    launches, up to three times, and a shape without a reading fails the
+    run. Beside each device time, the CUDA-event time per call of the
+    same call (host issue and the library's second kernel included): a
+    device time far under it is a reading to doubt. Per kernel the sum of
+    launches x (device time - bound), the redesign order of ROADMAP Queue
+    B. Returns {kernel: [(shape, launches, us, bound us)]}."""
     import numpy as np
     import torch
     from vae_gp_ode_tpu_torch.gp.svgp import draw_fn_sample, init_svgp_params
     from vae_gp_ode_tpu_torch.ops import (
-        df_pathwise, df_pathwise_tiled, pathwise, pathwise_tiled)
+        df_flow_fused, df_pathwise, df_pathwise_tiled, flow_fused, pathwise,
+        pathwise_tiled)
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(61)
     rng = np.random.default_rng(61)
     mods = {}
     for m in (pathwise, pathwise_tiled, df_pathwise, df_pathwise_tiled):
         mods[m.KERNEL], mods[m.BWD_KERNEL] = (m, False), (m, True)
+    trajectories = (flow_fused.KERNEL, flow_fused.BWD_KERNEL,
+                    df_flow_fused.KERNEL, df_flow_fused.BWD_KERNEL)
     drawn, out = {}, {}
     log('per-shape split of the paths\' launches (shape key: RBF (L, N, D, '
         'K, S, M), DF (L, N, D, S*D, M), trajectories with T; device us per '
         'launch, torch.profiler over 10 launches on operands drawn at the '
-        f'shape; bound us from the same operands; card {card}):')
+        'shape, again over 20 and 40 where it recorded none; CUDA-event us '
+        f'per call; bound us from the same operands; card {card}):')
     for (name, shape), n in sorted(PATH_SHAPES.items()):
-        if name not in mods:
-            log(f'  {name} {shape}: {n} launches')
-            continue
-        mod, bwd = mods[name]
-        df = mod in (df_pathwise, df_pathwise_tiled)
-        if df:
-            L_, N_, D_, SD_, M_ = shape
-            K_, S_ = D_, SD_ // D_
+        if name in trajectories:
+            call, bound = trajectory_call(name, shape, rng, gen)
         else:
-            L_, N_, D_, K_, S_, M_ = shape
-        if (df, shape) not in drawn:
-            g = init_svgp_params(rng, D_, K_, M_, kernel='DF' if df else 'RBF',
-                                 lengthscale=2.0, variance=0.7, device='cuda')
-            with torch.no_grad():
-                sample = draw_fn_sample(g, gen, S_, L=L_)
-                operands = (df_pathwise.df_fused_operands if df else
-                            pathwise.rbf_fused_operands)(g, sample)
-            drawn[df, shape] = (
-                torch.randn((L_, N_, D_), generator=gen, device=dev),
-                operands, torch.randn((L_, N_, K_), generator=gen, device=dev))
-        x, operands, gbar = drawn[df, shape]
-        with torch.no_grad():
-            if bwd:
-                call = (lambda m=mod, x=x, o=operands, g=gbar:
-                        m._launch_bwd(x, o, g))
-                tensors = (x,) + operands + (gbar,) + tuple(call())
+            require(name in mods, f'{name}: a kernel the split does not know')
+            mod, bwd = mods[name]
+            df = mod in (df_pathwise, df_pathwise_tiled)
+            if df:
+                L_, N_, D_, SD_, M_ = shape
+                K_, S_ = D_, SD_ // D_
             else:
-                call = lambda m=mod, x=x, o=operands: m._launch(x, o)
-                tensors = (x,) + operands + (call(),)
-            timed = device_us(call, [name])
-            us, seen = timed.pop(name)
-        if df:
-            flops = L_ * N_ * (df_vjp_flops if bwd else df_eval_flops)(
-                D_, SD_, M_)
-            bound = roofline(flops, tensors)[0]
-        else:
-            bound = pathwise_bound(tensors, L_ * N_, D_, K_, S_, M_, bwd)[0]
-        out.setdefault(name, []).append((shape, n, us if seen else None,
-                                         bound * 1e3))
+                L_, N_, D_, K_, S_, M_ = shape
+            if (df, shape) not in drawn:
+                g = init_svgp_params(rng, D_, K_, M_,
+                                     kernel='DF' if df else 'RBF',
+                                     lengthscale=2.0, variance=0.7,
+                                     device='cuda')
+                with torch.no_grad():
+                    sample = draw_fn_sample(g, gen, S_, L=L_)
+                    operands = (df_pathwise.df_fused_operands if df else
+                                pathwise.rbf_fused_operands)(g, sample)
+                drawn[df, shape] = (
+                    torch.randn((L_, N_, D_), generator=gen, device=dev),
+                    operands,
+                    torch.randn((L_, N_, K_), generator=gen, device=dev))
+            x, operands, gbar = drawn[df, shape]
+            with torch.no_grad():
+                if bwd:
+                    call = (lambda m=mod, x=x, o=operands, g=gbar:
+                            m._launch_bwd(x, o, g))
+                    tensors = (x,) + operands + (gbar,) + tuple(call())
+                else:
+                    call = lambda m=mod, x=x, o=operands: m._launch(x, o)
+                    tensors = (x,) + operands + (call(),)
+            if df:
+                flops = L_ * N_ * (df_vjp_flops if bwd else df_eval_flops)(
+                    D_, SD_, M_)
+                bound = roofline(flops, tensors)[0]
+            else:
+                bound = pathwise_bound(tensors, L_ * N_, D_, K_, S_, M_,
+                                       bwd)[0]
+        with torch.no_grad():
+            for reps in (10, 20, 40):
+                timed = device_us(call, [name], reps)
+                us, seen = timed.pop(name)
+                if seen:
+                    break
+            call_us = 1e3 * cuda_ms(call, 20)
+        require(seen, f'{name} {shape}: torch.profiler recorded none of its '
+                      f'launches in three tries')
+        out.setdefault(name, []).append((shape, n, us, bound * 1e3))
         log(f'  {name} {shape}: {n} launches, '
-            f'{per_launch((us, seen))}, bound {bound * 1e3:.2f} us' + ''.join(
+            f'{per_launch((us, seen))}, {call_us:.1f} us per call, bound '
+            f'{bound * 1e3:.2f} us' + ''.join(
                 f'; {k} {per_launch(v)}' for k, v in timed.items()))
-    for name, rows in out.items():
-        if all(us is not None for _, _, us, _ in rows):
-            lost = sum(n * (us - b) for _, n, us, b in rows) / 1e3
-            log(f'  {name}: sum of launches x (us - bound) = {lost:.2f} ms')
+    for name, rows in sorted(out.items(), key=lambda kv: -sum(
+            n * (us - b) for _, n, us, b in kv[1])):
+        lost = sum(n * (us - b) for _, n, us, b in rows) / 1e3
+        log(f'  {name}: sum of launches x (us - bound) = {lost:.2f} ms')
     return out
 
 
@@ -2044,8 +2390,12 @@ def main():
         for sym, (regs, st, ld) in sorted(_build.ptxas_usage(name).items()):
             log(f'ptxas {name}: {sym}: {regs} registers, spill stores {st} '
                 f'bytes, spill loads {ld} bytes')
-            if name.startswith('df_pathwise_tiled') or name in (
-                    'pathwise_fwd', 'pathwise_tiled_bwd'):
+            # the tiled DF pair's wide instance (16 < D <= 48: template
+            # argument 48) keeps arrays of 48 floats per thread, which
+            # spill: right, not tuned
+            wide_df = 'Li48E' in sym
+            if (name.startswith('df_pathwise_tiled') and not wide_df) or (
+                    name in ('pathwise_fwd', 'pathwise_tiled_bwd')):
                 require(st == 0 and ld == 0, f'{sym} spills registers')
 
     # -- 2. the forecaster at full width ---------------------------------
@@ -2328,6 +2678,10 @@ def main():
     kern = wide_kernels(args, card)
     wide = wide_paths(args, card, wide_launches, kern)
 
+    # -- 6e. DF above state dim 16: the tiled pair's wide instance ----------
+    dfw_launches = {k: 0 for k in ops.LAUNCHES}
+    dfw = df_wide_state(args, card, batch, dfw_launches)
+
     # -- 7. timings --------------------------------------------------------
     with torch.no_grad():
         ms_kernel = cuda_ms(
@@ -2379,7 +2733,7 @@ def main():
     kf, pf, bf, kb, pb, bb = path['pathwise_ms'][L]
     # launches: each path run's, counts set to 0 just before it
     runs = (serve_launches, train_launches, slice_launches, df_launches,
-            wide_launches)
+            wide_launches, dfw_launches)
     total = {k: sum(d[k] for d in runs) for k in ops.LAUNCHES}
     # #3-#6: the largest error of phases 6b/6c and of 6d's sweep shapes
     errs = kern['errs']
@@ -2401,10 +2755,11 @@ def main():
         name = mod.BWD_KERNEL if bwd else mod.KERNEL
         timed[name] = dfp['kernel_ms'][L][name] + (err,)
     for mod, fam in ((pathwise_tiled, 'rbf'), (df_pathwise_tiled, 'df')):
+        wider = dfw if fam == 'df' else {'fwd': [], 'bwd': []}
         timed[mod.KERNEL] = wide['kernel_ms'][mod.KERNEL] + (
-            max(errs[fam + '_fwd']),)
+            max(errs[fam + '_fwd'] + wider['fwd']),)
         timed[mod.BWD_KERNEL] = wide['kernel_ms'][mod.BWD_KERNEL] + (
-            max(errs[fam + '_bwd']),)
+            max(errs[fam + '_bwd'] + wider['bwd']),)
     entries = []
     for mod in (flow_fused, pathwise, df_pathwise, df_flow_fused,
                 pathwise_tiled, df_pathwise_tiled):

@@ -1,8 +1,9 @@
 // CPU emulation of the CUDA features that the port's grid-tiled DF
-// kernels (vae_gp_ode_tpu_torch/csrc/df_pathwise_tiled_*.cu) and its RBF
-// per-step kernels (pathwise_fwd.cu, pathwise_tiled_bwd.cu) use, so that
+// kernels (vae_gp_ode_tpu_torch/csrc/df_pathwise_tiled_*.cu), its RBF
+// per-step kernels (pathwise_fwd.cu, pathwise_tiled_bwd.cu) and its DF
+// cluster kernels (df_pathwise_fwd.cu, df_flow_fused_bwd.cu) use, so that
 // their source runs on the CPU under g++ (tests/test_torch_cuda_emulated.py,
-// tests/test_torch_cuda_emulated_rbf.py): one std::thread per CUDA thread,
+// ..._rbf.py, ..._df.py): one std::thread per CUDA thread,
 // __syncthreads a std::barrier of the block, warp shuffles an exchange
 // through memory between two barriers of the warp. __shared__ variables are
 // function statics, shared by the block's threads, so a launch written

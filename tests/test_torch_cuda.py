@@ -419,8 +419,8 @@ def test_df_flow_kernels_match_plain(cuda, N, L, q, S, uniform,
                                      z0_per_draw):
     """Kernels #7/#8 through the autograd Function (as the train step runs
     them) against the plain version and autograd through it, at T=16;
-    z0 shared by the draws gets their sum. (q = 12 at S = 256 is refused
-    by the pair's rule: its adjoint block needs more shared memory.)"""
+    z0 shared by the draws gets their sum; q = 12 at S = 64 runs the
+    adjoint's two-row instances."""
     T = 16
     z0, operands, gen = _df_operands(cuda, L, N, q, S)
     z0 = z0 if z0_per_draw else z0[0]
@@ -452,37 +452,42 @@ def test_df_flow_kernels_match_plain(cuda, N, L, q, S, uniform,
         zs.detach(), zsbar, *operands, dts, T))
 
 
-def _df_bwd_smem_bytes(D, S, M, T, threads=256):
-    """csrc/df_flow_fused_bwd.cu's smem_bytes, transcribed (as in
-    tests/test_torch_df.py)."""
-    SD = S * D
+def _df_bwd_smem_bytes(D, S, M):
+    """csrc/df_flow_fused_bwd.cu's df_flow_fused_bwd_smem_bytes, transcribed (as in
+    tests/test_torch_df.py):
+    one block of an 8-block cluster at the most rows per cluster (4 up to
+    D = 8, else 2) holds 2 (3D + 1) floats for each item of its share
+    (ceil(S D / 8) feature columns and ceil(M / 8) points of D items
+    each), the rows' g, z_t and zsbar, 1/ls2 | var and its ls2 | var sums,
+    and the warps' and the block's partial sums of R D + 1 values."""
     R = 4 if D <= 8 else 2
-    slab = D * SD + SD + 2 * SD * D + 2 * M * D + D * D + D + (T - 1)
-    red = max(R * D + 1, D * D + D)
-    return 4 * (slab + 3 * R * D + D * D + D + (threads // 32 + 1) * red)
+    IB = -(-S * D // 8) + -(-M // 8) * D
+    RD, V = R * D, R * D + 1
+    return 4 * (2 * (3 * D + 1) * IB + 3 * RD + 2 * (D * D + D) + 8 * V
+                + 2 * V)
 
 
-@pytest.mark.parametrize('D,S,fits', [(6, 256, True), (6, 384, True),
-                                      (6, 512, False), (12, 256, False),
-                                      (3, 1024, True)])
+@pytest.mark.parametrize('D,S,fits', [(6, 256, True), (6, 512, True),
+                                      (6, 2048, False), (12, 256, True),
+                                      (16, 256, False), (3, 1024, True)])
 def test_df_pair_rule_on_the_card(cuda, D, S, fits):
     """The DF adjoint's exported shared-memory need is the formula the CPU
     tests hold the rule to, and the rule decides as they do on an H100."""
     lib = df_flow_fused._bwd_lib()
-    assert lib.df_flow_fused_bwd_smem_bytes(D, S * D, 100, 16) == \
-        _df_bwd_smem_bytes(D, S, 100, 16)
-    assert df_flow_fused.df_fused_pair_fits(D, S * D, 100, 16, cuda) == fits
+    assert lib.df_flow_fused_bwd_smem_bytes(D, S * D, 100) == \
+        _df_bwd_smem_bytes(D, S, 100)
+    assert df_flow_fused.df_fused_pair_fits(D, S * D, 100, cuda) == fits
 
 
 def test_df_train_steps_launch_their_kernels(cuda):
     """Full-width DF train steps (q=6, S=256, M=100, batch 20, T=16, L=5):
     euler launches #7 and #8 once and nothing else; rk4, and euler at
-    S=512 (which the pair refuses), go through the per-step kernels that
+    S=2048 (which the pair refuses), go through the per-step kernels that
     the dispatch rule names and never #7/#8; losses finite."""
     X = (torch.rand(20, 16, 1, 28, 28, generator=torch.Generator(
         device=cuda).manual_seed(0), device=cuda) - 0.1307) / 0.3081
     for kw, pair in ((dict(), True), (dict(solver='rk4'), False),
-                     (dict(num_features=512), False)):
+                     (dict(num_features=2048), False)):
         model, gp = init_model(0, device='cuda', kernel='DF',
                                lengthscale=2.0, variance=0.7, **kw)
         state = trainer.create_train_state(model, gp)

@@ -7,7 +7,8 @@ and the port's wrappers launch it through ctypes as they do on the card
 Held against `df_pathwise_reference` and autograd
 through it with chip_smoke.py's tolerances (abs 1e-4 + rel 1e-4;
 cotangents 1e-4 (1 + max |plain|)), at D = 1, 4, 6, 7, 12 and 16 (the
-VJP's D = 6 and D = 12 instances and its generic one), with ragged
+VJP's D = 6 and D = 12 instances and its generic one) and at D = 20 and
+48 (the wide instances of both kernels, up to 48), with ragged
 feature, inducing-point and row chunks, GP operands per draw, and two
 launches for the same bits. The module skips without a C++20 g++. It
 shows the kernels' block logic, not what nvcc makes of it: registers,
@@ -89,7 +90,7 @@ def build_emulated(names, out):
     built, procs = {}, {}
     for name in names:
         with open(os.path.join(_build.CSRC, name + '.cu')) as f:
-            src = re.sub(r'(\w+(?:<\d+>)?)<<<(.*?)>>>\((.*?)\)', _launch,
+            src = re.sub(r'(\w+(?:<[\w, ]+>)?)<<<(.*?)>>>\((.*?)\)', _launch,
                          f.read(), flags=re.S)
         src = re.sub(r'extern __shared__ float (\w+)\[\];',
                      r'float* \1 = emu_dyn_smem;', src)
@@ -138,7 +139,8 @@ def _operands(seed, L, N, S, M, D, per_draw):
 @pytest.mark.parametrize('L,N,S,M,D,per_draw', [
     (2, 5, 8, 7, 4, False), (1, 1, 300, 17, 1, False),
     (2, 9, 45, 50, 6, False), (3, 20, 24, 23, 12, True),
-    (1, 13, 40, 37, 7, False), (2, 6, 17, 20, 16, False)])
+    (1, 13, 40, 37, 7, False), (2, 6, 17, 20, 16, False),
+    (2, 9, 14, 30, 20, True), (1, 10, 6, 11, 48, False)])
 def test_kernels_match_plain(emulated, L, N, S, M, D, per_draw):
     x, *ops_ = _operands(70 + D, L, N, S, M, D, per_draw)
     g = torch.as_tensor(np.random.default_rng(80 + D).standard_normal(

@@ -181,6 +181,36 @@ def test_plain_flow_and_adjoint_match_jax_kernel(uniform):
                        names, rel=1e-6)
 
 
+@pytest.mark.parametrize('what', ['eval', 'flow'])
+def test_plain_versions_match_jax_at_state_dim_20(what):
+    """Above D = 16 the card runs the DF path through the tiled pair's
+    wide instance (#11/#12), held on the card to the plain versions that
+    the CPU runs; here those plain versions, the per-step eval and the
+    euler flow, forward and every cotangent, against JAX's references
+    (`df_pathwise_reference`, `df_euler_flow_reference`, plain jnp as the
+    JAX package's tests run them) at D = 20 on the same numpy inputs:
+    forward 1e-5, each cotangent 1e-4 of its largest entry."""
+    rng = np.random.default_rng(20)
+    T = 5
+    args = _operands(rng, N=5, D=20, S=8, M=6)
+    if what == 'eval':
+        tfn, jfn = tdpw.df_pathwise_reference, jdpw.df_pathwise_reference
+        names = NAMES
+    else:
+        args = args + (rng.uniform(0.05, 0.15, T - 1).astype(np.float32),)
+        tfn = lambda *a: tdff.df_euler_flow_reference(*a, T)
+        jfn = lambda *a: jdff.df_euler_flow_reference(*a, T)
+        names = ('z0',) + tdpw.NAMES + ('dts',)
+    inputs = [t.requires_grad_() for t in _t(args)]
+    out = tfn(*inputs)
+    ref, vjp = jax.vjp(jfn, *map(jnp.asarray, args))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **TOL)
+    g = rng.standard_normal(out.shape).astype(np.float32)
+    mine = torch.autograd.grad(out, inputs, torch.as_tensor(g))
+    _assert_cotangents([m.numpy() for m in mine], vjp(jnp.asarray(g)),
+                       names, rel=1e-4)
+
+
 # -- the DF sample, fn_eval and the flow ---------------------------------------
 
 Q, S, M, N, L = 3, 16, 8, 5, 2
@@ -283,31 +313,41 @@ def test_flow_forward_matches(solver, monkeypatch):
 
 # -- the pair's dispatch rule ---------------------------------------------------
 
-def _df_bwd_smem_bytes(D, S, M, T, threads=256):
-    """csrc/df_flow_fused_bwd.cu's smem_bytes, transcribed (its exported
-    df_flow_fused_bwd_smem_bytes is held to this on the GPU in
-    tests/test_torch_cuda.py)."""
-    SD = S * D
+def _df_bwd_smem_bytes(D, S, M):
+    """csrc/df_flow_fused_bwd.cu's df_flow_fused_bwd_smem_bytes, transcribed (its export is held to this on the GPU in
+    tests/test_torch_cuda.py):
+    one block of an 8-block cluster at the most rows per cluster (4 up to
+    D = 8, else 2) holds 2 (3D + 1) floats for each item of its share
+    (ceil(S D / 8) feature columns and ceil(M / 8) points of D items
+    each), the rows' g, z_t and zsbar, 1/ls2 | var and its ls2 | var sums,
+    and the warps' and the block's partial sums of R D + 1 values."""
     R = 4 if D <= 8 else 2
-    slab = D * SD + SD + 2 * SD * D + 2 * M * D + D * D + D + (T - 1)
-    red = max(R * D + 1, D * D + D)
-    return 4 * (slab + 3 * R * D + D * D + D + (threads // 32 + 1) * red)
+    IB = -(-S * D // 8) + -(-M // 8) * D
+    RD, V = R * D, R * D + 1
+    return 4 * (2 * (3 * D + 1) * IB + 3 * RD + 2 * (D * D + D) + 8 * V
+                + 2 * V)
 
 
 H100_SMEM_OPTIN = 232448      # bytes per block, cudaDevAttrMaxSharedMemoryPerBlockOptin
 
 
 @pytest.mark.parametrize('D,S,fits', [
-    (6, 256, True),            # the default DF run: 123,768 bytes
-    (6, 384, True),
-    (6, 512, False),           # 238,808 bytes
-    (12, 256, False),
+    (6, 256, True),            # the default DF run: 42,664 bytes
+    (6, 512, True),            # refused before the adjoint's clusters
+    (6, 1024, True),
+    (6, 2048, False),          # 246,952 bytes
+    (12, 256, True),           # refused before the adjoint's clusters
+    (16, 256, False),
+    (12, 1024, False),
     (3, 1024, True),
-    (17, 16, False)])          # D > 16: no DF kernel takes it
+    (17, 16, False)])          # D > 16: only the tiled pair takes it
 def test_df_pair_rule_on_the_refused_shapes(D, S, fits):
     """The rule sends the shapes the DF adjoint kernel refuses to the
-    euler scan over the per-step kernels, before any launch."""
-    assert tdff.df_pair_fits(D, _df_bwd_smem_bytes(D, S, 100, 16),
+    euler scan over the per-step kernels, before any launch: the adjoint
+    block's shared memory grows with its share of the columns and points
+    of an 8-block cluster, so since the clusters the pair takes S up to
+    ~1900 at D = 6 and D up to 14 at S = 256."""
+    assert tdff.df_pair_fits(D, _df_bwd_smem_bytes(D, S, 100),
                              H100_SMEM_OPTIN) == fits
     assert not tdff.df_pair_fits(6, 1024, -1)   # an unreadable limit refuses
 

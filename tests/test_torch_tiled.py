@@ -43,6 +43,7 @@ from vae_gp_ode_tpu.training.objectives import compute_loss as jcompute_loss
 from vae_gp_ode_tpu_torch import ops
 from vae_gp_ode_tpu_torch.dynamics import flow as tflow
 from vae_gp_ode_tpu_torch.ops import _build
+from vae_gp_ode_tpu_torch.ops import df_pathwise
 from vae_gp_ode_tpu_torch.ops import df_pathwise_tiled as tdpt
 from vae_gp_ode_tpu_torch.ops import pathwise as tpw
 from vae_gp_ode_tpu_torch.ops import pathwise_tiled as tpt
@@ -182,7 +183,8 @@ RBF_RULE = {
     (12, 12, 1024): {(1, 20): (False, True), (5, 20): (False, True),
                      (1, 600): (True, True), (5, 600): (True, True)}}
 # (D, S) -> {(L, N): (forward tiled, VJP tiled)}: refit to the redesigned
-# #11/#12 (PERF.md section 6)
+# #11/#12 (PERF.md section 6); the forward at D <= 8 checked again against
+# the redesigned #5 (the sweep kept it at every D <= 8 shape)
 DF_RULE = {
     (6, 256): {(1, 20): (False, True), (5, 20): (False, True),
                (1, 600): (False, False), (5, 600): (False, True)},
@@ -294,17 +296,41 @@ def test_cpu_path_never_touches_a_library(monkeypatch):
     assert ops.LAUNCHES == before
 
 
-def test_df_wrappers_refuse_state_dims_above_16(monkeypatch):
-    """The tiled DF kernels take D <= 16 (csrc/df_common.cuh kMaxD): the
-    wrappers raise before they load a library or launch."""
+def test_df_wrappers_refuse_state_dims_above_48(monkeypatch):
+    """The tiled DF kernels take D <= 48 (`MAX_TILED_D`, their wide
+    instance) and the single-block pair D <= 16: past its limit each
+    wrapper raises, naming the limit, before it loads a library or
+    launches; the plain version takes any D."""
     _no_library(monkeypatch)
+    args = _t(_df_operands(np.random.default_rng(4), 3, 2, 4, 49, (1,)))
+    x, operands = args[0], tuple(args[1:])
+    with pytest.raises(NotImplementedError, match='up to 48'):
+        tdpt._launch(x, operands)
+    with pytest.raises(NotImplementedError, match='up to 48'):
+        tdpt._launch_bwd(x, operands, torch.zeros_like(x))
+    assert tdpt.df_pathwise_eval(x, *operands).shape == x.shape  # plain
     args = _t(_df_operands(np.random.default_rng(4), 3, 2, 4, 17, (1,)))
     x, operands = args[0], tuple(args[1:])
     with pytest.raises(NotImplementedError, match='up to 16'):
-        tdpt._launch(x, operands)
+        df_pathwise._launch(x, operands)
     with pytest.raises(NotImplementedError, match='up to 16'):
-        tdpt._launch_bwd(x, operands, torch.zeros_like(x))
-    assert tdpt.df_pathwise_eval(x, *operands).shape == x.shape  # plain
+        df_pathwise._launch_bwd(x, operands, torch.zeros_like(x))
+
+
+def test_df_rule_takes_the_tiled_pair_above_16(monkeypatch):
+    """Above D = 16 the single-block pair refuses, so the rule names #11
+    and #12 for the forward and the VJP at every L and N (the latent
+    width 20 of chip_smoke.py's DF steps among them), up to D = 48."""
+    from vae_gp_ode_tpu_torch import ops
+    monkeypatch.setattr(ops, '_properties', lambda index: (SMS, OPTIN))
+    dev = torch.device('cuda', 0)
+    for D in (17, 20, 48):
+        for L, N in ((1, 20), (5, 20), (1, 600), (5, 600)):
+            assert tdpt.pick_df(L, N, D, 256 * D, 100, SMS) == (True, True)
+    assert tdpt.rule_kernels(5, 20, 20, 20 * 256, 100, dev) == (
+        'df_pathwise_tiled_fwd', 'df_pathwise_tiled_bwd')
+    assert tdpt.rule_kernels(1, 20, 20, 20 * 256, 100, dev) == (
+        'df_pathwise_tiled_fwd', 'df_pathwise_tiled_bwd')
 
 
 def test_wrappers_refuse_other_devices():

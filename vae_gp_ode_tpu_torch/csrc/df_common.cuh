@@ -1,10 +1,14 @@
-// Device routines shared by the four divergence-free (DF) kernels: the
-// per-step eval (df_pathwise_fwd.cu) and its VJP (df_pathwise_bwd.cu), the
-// euler trajectory (df_flow_fused.cu) and its discrete adjoint
-// (df_flow_fused_bwd.cu). They replace the value-level bodies
-// `_df_eval_body`, `_df_update_body`, `_df_eval_vjp_body` and
-// `_df_update_vjp_body` of vae_gp_ode_tpu/ops/df_pathwise.py, which the
-// TPU's four DF kernels share in the same way.
+// Device routines of the divergence-free (DF) kernels: the single-block
+// per-step VJP (df_pathwise_bwd.cu) and the euler trajectory
+// (df_flow_fused.cu) run on the block routines below; the per-step eval
+// (df_pathwise_fwd.cu) and the trajectory's discrete adjoint
+// (df_flow_fused_bwd.cu), clusters of blocks
+// (df_cluster.cuh), and the grid-tiled pair take the operand layout, the
+// parameter loads and the warp sums. The block routines replace the
+// value-level bodies `_df_eval_body`, `_df_update_body`,
+// `_df_eval_vjp_body` and `_df_update_vjp_body` of
+// vae_gp_ode_tpu/ops/df_pathwise.py, which the TPU's four DF kernels
+// share in the same way.
 //
 // What one evaluation computes, per batch row x (D,) and output dim i
 // (the operand layout of `df_pathwise_reference`):

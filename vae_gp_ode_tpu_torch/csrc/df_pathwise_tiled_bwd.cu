@@ -43,7 +43,13 @@
 // over the draws where its operand is shared by all draws (stride 0); so a
 // call costs the host one library call and no PyTorch reductions. No
 // atomics: two launches on the same inputs give the same bits. Any N, S and
-// M is taken; D above 16 is refused (df_common.cuh kMaxD).
+// M is taken. The widest state dim is a template parameter DMAX of the
+// blocks: instances for D <= 16 (D = 6 and 12 unrolled, and a generic
+// one), and a generic one for 16 < D <= 48 (kMaxWideD; every D that the
+// JAX package's `df_tiled_fits` admits at S = 256, M = 100), whose shared
+// memory is dynamic (~68 KB) and whose per-column and per-point arrays
+// of 48 floats spill to local memory: right, not tuned. D above 48 is
+// refused.
 //
 // The design it replaced: D update blocks per draw of one thread per
 // inducing point, each walking all N rows and D pairs with its pair loop
@@ -62,7 +68,7 @@ constexpr int kRows = 8;           // rows per tile of a chunk block
 constexpr int kChunk = kThreads;   // feature columns per chunk block
 constexpr int kPad = kChunk + 8;   // row stride of du and omf in shared memory
 constexpr int kUpdRows = 4;        // rows per update block
-constexpr int kMaxD = df::kMaxD;
+constexpr int kMaxWideD = 48;      // the wide instance's widest state dim
 
 struct BwdArgs {
   const float* x;    // (N, D) per draw at x_ls
@@ -90,32 +96,39 @@ struct BwdArgs {
   int L, N, D, SD, M, n_chunks, n_mc, n_rt;
 };
 
+template <int DMAX>
 struct ChunkSmem {
-  float om[kMaxD * kPad];   // [d][c] omf of the chunk
+  float om[DMAX * kPad];    // [d][c] omf of the chunk
   float du[kRows * kPad];   // [r][c] du of the tile
 };
 
+template <int DMAX>
 struct UpdSmem {
-  float buf[kMaxD * kThreads];             // [j][thread] partials
+  float buf[DMAX * kThreads];              // [j][thread] partials
   float dvb[kThreads];
-  float redx[df::kWarps * kUpdRows * kMaxD];  // [warp][r][k] dx terms
+  float redx[df::kWarps * kUpdRows * DMAX];   // [warp][r][k] dx terms
   float zs[kThreads];                      // the block's points' Z rows
   float nus[kThreads];                     // and nur rows
-  float par[kMaxD * kMaxD + kMaxD];        // 1 / ls2 [j, i] | var
+  float par[DMAX * DMAX + DMAX];           // 1 / ls2 [j, i] | var
 };
 
+template <int DMAX>
 union Smem {
-  ChunkSmem c;
-  UpdSmem u;
+  ChunkSmem<DMAX> c;
+  UpdSmem<DMAX> u;
 };
+
+// Bytes of the wide instance's dynamic shared memory.
+constexpr size_t kWideSmem = sizeof(Smem<kMaxWideD>);
 
 // The update term of kUpdRows rows (tile rt) and the block's inducing
 // points (chunk mc).
-template <int DT>
+template <int DT, int DMAX>
 __device__ __forceinline__ void update_block(const BwdArgs& a, long long l,
-                                             int rt, int mc, UpdSmem& sm,
-                                             float* xs, float* gsm) {
-  constexpr int DM = DT ? DT : kMaxD;
+                                             int rt, int mc,
+                                             UpdSmem<DMAX>& sm, float* xs,
+                                             float* gsm) {
+  constexpr int DM = DT ? DT : DMAX;
   const int D = DT ? DT : a.D;
   const int N = a.N, M = a.M;
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -200,7 +213,7 @@ __device__ __forceinline__ void update_block(const BwdArgs& a, long long l,
         if (!own) t = 0.f;
         dz[k] -= t;
         t = df::warp_sum(t);
-        if (lane == 0) sm.redx[(warp * kUpdRows + r) * kMaxD + k] = t;
+        if (lane == 0) sm.redx[(warp * kUpdRows + r) * DMAX + k] = t;
       }
     }
   }
@@ -218,7 +231,7 @@ __device__ __forceinline__ void update_block(const BwdArgs& a, long long l,
     const int r = t / D, k = t % D;
     float s = 0.f;
     for (int w = 0; w < df::kWarps; ++w)
-      s += sm.redx[(w * kUpdRows + r) * kMaxD + k];
+      s += sm.redx[(w * kUpdRows + r) * DMAX + k];
     dx[t] = s;
   }
   for (int t = tid; t < cnt * D; t += nt) {
@@ -260,11 +273,11 @@ __device__ __forceinline__ void update_block(const BwdArgs& a, long long l,
 
 // The ORFF prior's VJP over feature columns ch * kChunk .. (ch+1) * kChunk
 // - 1, for all N rows.
-template <int DT>
+template <int DT, int DMAX>
 __device__ __forceinline__ void chunk_block(const BwdArgs& a, long long l,
-                                            int ch, ChunkSmem& sm, float* xs,
-                                            float* gsm) {
-  constexpr int DM = DT ? DT : kMaxD;
+                                            int ch, ChunkSmem<DMAX>& sm,
+                                            float* xs, float* gsm) {
+  constexpr int DM = DT ? DT : DMAX;
   const int D = DT ? DT : a.D;
   const int N = a.N, SD = a.SD;
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -367,23 +380,38 @@ __device__ __forceinline__ void chunk_block(const BwdArgs& a, long long l,
   }
 }
 
-// DT: the state dim the block loops are unrolled for (0: any D <= 16).
-template <int DT>
-__global__ void __launch_bounds__(kThreads, DT ? 2 : 1)
-    df_pathwise_tiled_bwd_kernel(BwdArgs a) {
-  __shared__ __align__(16) Smem sm;
-  __shared__ float xs[kRows * kMaxD];
-  __shared__ float gsm[kRows * kMaxD];
+// The blocks of both kinds on the shared memory `sm`.
+template <int DT, int DMAX>
+__device__ __forceinline__ void run_block(const BwdArgs& a, Smem<DMAX>& sm,
+                                          float* xs, float* gsm) {
   long long b = blockIdx.x;
   const long long n_upd = (long long)a.L * a.n_rt * a.n_mc;
   if (b < n_upd) {
     const int mc = (int)(b % a.n_mc);
     b /= a.n_mc;
-    update_block<DT>(a, b / a.n_rt, (int)(b % a.n_rt), mc, sm.u, xs, gsm);
+    update_block<DT, DMAX>(a, b / a.n_rt, (int)(b % a.n_rt), mc, sm.u, xs,
+                           gsm);
   } else {
     b -= n_upd;
-    chunk_block<DT>(a, b / a.n_chunks, (int)(b % a.n_chunks), sm.c, xs,
-                    gsm);
+    chunk_block<DT, DMAX>(a, b / a.n_chunks, (int)(b % a.n_chunks), sm.c,
+                          xs, gsm);
+  }
+}
+
+// DT: the state dim the block loops are unrolled for (0: any D <= DMAX);
+// DMAX: the widest state dim of the instance, 16 or kMaxWideD, whose Smem
+// (kWideSmem bytes) is dynamic shared memory.
+template <int DT, int DMAX>
+__global__ void __launch_bounds__(kThreads, DT ? 2 : 1)
+    df_pathwise_tiled_bwd_kernel(BwdArgs a) {
+  __shared__ float xs[kRows * DMAX];
+  __shared__ float gsm[kRows * DMAX];
+  if constexpr (DMAX > 16) {
+    extern __shared__ float smem[];
+    run_block<DT, DMAX>(a, *reinterpret_cast<Smem<DMAX>*>(smem), xs, gsm);
+  } else {
+    __shared__ __align__(16) Smem<DMAX> sm;
+    run_block<DT, DMAX>(a, sm, xs, gsm);
   }
 }
 
@@ -451,7 +479,7 @@ static_assert(kChunk % 8 == 0 && kPad % 4 == 0,
 // inducing-point chunks, update row tiles); zeros for a D it refuses.
 extern "C" void df_pathwise_tiled_bwd_layout(int N, int D, int SD, int M,
                                              int* out) {
-  const bool ok = D >= 1 && D <= kMaxD && N >= 1 && SD >= 1 && M >= 1;
+  const bool ok = D >= 1 && D <= kMaxWideD && N >= 1 && SD >= 1 && M >= 1;
   const int MU = ok ? kThreads / D : 1;
   out[0] = ok ? (SD + kChunk - 1) / kChunk : 0;
   out[1] = ok ? (M + MU - 1) / MU : 0;
@@ -460,7 +488,7 @@ extern "C" void df_pathwise_tiled_bwd_layout(int N, int D, int SD, int M,
 
 // Launches the VJP kernel and its finishing sums on `stream` and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for shapes it does not take
-// (D above 16, a layout other than df_pathwise_tiled_bwd_layout's, a grid
+// (D above 48, a layout other than df_pathwise_tiled_bwd_layout's, a grid
 // past its limit). Operands as in df_pathwise_tiled_fwd; g is (L, N, D);
 // dx_slab and upd are workspace; the outputs are laid out as BwdArgs states,
 // and every entry is written.
@@ -495,12 +523,23 @@ extern "C" int df_pathwise_tiled_bwd(
   a.n_chunks = n_chunks; a.n_mc = n_mc; a.n_rt = n_rt;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 6)
-    df_pathwise_tiled_bwd_kernel<6><<<(unsigned)blocks, kThreads, 0, s>>>(a);
-  else if (D == 12)
-    df_pathwise_tiled_bwd_kernel<12><<<(unsigned)blocks, kThreads, 0, s>>>(a);
-  else
-    df_pathwise_tiled_bwd_kernel<0><<<(unsigned)blocks, kThreads, 0, s>>>(a);
+  if (D == 6) {
+    df_pathwise_tiled_bwd_kernel<6, 16><<<(unsigned)blocks, kThreads, 0, s>>>(
+        a);
+  } else if (D == 12) {
+    df_pathwise_tiled_bwd_kernel<12, 16><<<(unsigned)blocks, kThreads, 0,
+                                           s>>>(a);
+  } else if (D <= 16) {
+    df_pathwise_tiled_bwd_kernel<0, 16><<<(unsigned)blocks, kThreads, 0, s>>>(
+        a);
+  } else {
+    err = cudaFuncSetAttribute(df_pathwise_tiled_bwd_kernel<0, kMaxWideD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kWideSmem);
+    if (err != cudaSuccess) return (int)err;
+    df_pathwise_tiled_bwd_kernel<0, kMaxWideD><<<(unsigned)blocks, kThreads,
+                                                 kWideSmem, s>>>(a);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long MD = (long long)M * D;

@@ -1,5 +1,5 @@
 // Grid-tiled per-step pathwise evaluation of the divergence-free (DF) GP
-// sample for wide shapes (state dim D up to 16, many features), one launch
+// sample for wide shapes (state dim D up to 48, many features), one launch
 // for all L Monte-Carlo draws.
 //
 // Replaces the Pallas kernel `_fwd_kernel` of
@@ -37,8 +37,12 @@
 // sums the slots in order into the output (one thread per output entry;
 // in the launcher, so a call costs the host one library call, as the
 // single-block kernel does): no atomics, and two launches on the same
-// inputs give the same bits. Any N, S and M is taken; D above 16 is
-// refused (df_common.cuh kMaxD).
+// inputs give the same bits. Any N, S and M is taken. The widest state
+// dim is the kernel's template parameter DMAX: the instance for D <= 16,
+// and one for 16 < D <= 48 (kMaxWideD; every D that the JAX package's
+// `df_tiled_fits` admits at S = 256, M = 100), whose update blocks walk
+// their (row, output) pairs in a loop, as a tile holds more pairs than a
+// block has threads above D = 32. D above 48 is refused.
 //
 // The design it replaced: one block per output column i, so x . omf and
 // sincosf were recomputed D times per (row, column) and the update ran
@@ -54,7 +58,7 @@ constexpr int kThreads = df::kThreads;
 constexpr int kRows = 8;          // batch rows per block
 constexpr int kChunk = kThreads;  // ORFF feature columns per chunk block
 constexpr int kUpdM = 16;         // inducing points per update block
-constexpr int kMaxD = df::kMaxD;
+constexpr int kMaxWideD = 48;     // the wide instance's widest state dim
 
 struct FwdArgs {
   const float* x;    // (N, D)
@@ -71,14 +75,16 @@ struct FwdArgs {
   int L, N, D, SD, M, n_tiles, n_chunks, n_mc;
 };
 
+// DMAX: the widest state dim of the instance (16, or kMaxWideD).
+template <int DMAX>
 __global__ void __launch_bounds__(kThreads)
     df_pathwise_tiled_fwd_kernel(FwdArgs a) {
-  __shared__ float xs[kRows * kMaxD];
+  __shared__ float xs[kRows * DMAX];
   __shared__ __align__(16) float trig[2 * kChunk * kRows];  // [k][r]
   __shared__ float red[kThreads * kRows];
-  __shared__ float par[kMaxD * kMaxD + kMaxD];  // 1 / ls2 [j, i] | var
-  __shared__ float zs[kUpdM * kMaxD];
-  __shared__ float nus[kUpdM * kMaxD];
+  __shared__ float par[DMAX * DMAX + DMAX];  // 1 / ls2 [j, i] | var
+  __shared__ float zs[kUpdM * DMAX];
+  __shared__ float nus[kUpdM * DMAX];
   const int D = a.D, N = a.N, SD = a.SD, M = a.M;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
@@ -117,6 +123,38 @@ __global__ void __launch_bounds__(kThreads)
       nus[t] = nur[t];
     }
     __syncthreads();
+    if (DMAX > 16) {
+      // the wide instance: a tile holds up to 8 * 48 (row, output) pairs,
+      // more than the block's threads, so each thread walks every nt-th
+      // pair over all the block's points
+      for (int pair = tid; pair < rows * D; pair += nt) {
+        const int r = pair / D, i = pair % D;
+        const float* xr = xs + r * D;
+        const float vi = par[D * D + i];
+        float acc = 0.f;
+        for (int mm = 0; mm < cnt; ++mm) {
+          const float* zm = zs + mm * D;
+          const float* nu = nus + mm * D;
+          float sq = 0.f;
+          for (int k = 0; k < D; ++k) {
+            const float dk = xr[k] - zm[k];
+            sq = fmaf(dk, dk, sq);
+          }
+          const float di = xr[i] - zm[i];
+          float sm = 0.f;
+          for (int j = 0; j < D; ++j) {
+            const float iv = par[j * D + i];
+            const float E = expf(-0.5f * sq * iv);
+            float base = (xr[j] - zm[j]) * di * iv;
+            if (i == j) base += (float)(D - 1) - sq * iv;
+            sm = fmaf(E * base * (vi * iv), nu[j], sm);
+          }
+          acc += sm;
+        }
+        a.part[((l * n_slots + slot) * N + r0) * D + pair] = acc;
+      }
+      return;
+    }
     const int PU = nt / RD;           // subgroups of points (RD <= 128)
     const int pair = tid % RD, sub = tid / RD;
     const int r = pair / D, i = pair % D;
@@ -232,6 +270,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 static_assert(kRows == 8, "chunk blocks read a column's rows as two float4");
+static_assert(16 * kRows <= kThreads,
+              "the D <= 16 update blocks give each (row, output) a thread");
 
 }  // namespace
 
@@ -243,7 +283,7 @@ extern "C" int df_pathwise_tiled_fwd_slots(int SD, int M) {
 
 // Launches the tiled DF eval and its slot sum on `stream` and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for shapes it does not take
-// (D above 16, a part whose slots are not df_pathwise_tiled_fwd_slots, a
+// (D above 48, a part whose slots are not df_pathwise_tiled_fwd_slots, a
 // grid past its limit). Operands as in df_pathwise_fwd; part (L, n_slots,
 // N, D) is workspace; out (L, N, D) is the evaluation.
 extern "C" int df_pathwise_tiled_fwd(
@@ -253,7 +293,7 @@ extern "C" int df_pathwise_tiled_fwd(
     const float* ls2, long long ls2_ls, const float* var, long long var_ls,
     float* part, float* out, int n_slots, int L, int N, int D, int SD, int M,
     int device, void* stream) {
-  if (L < 1 || N < 1 || D < 1 || D > kMaxD || SD < 1 || M < 1 ||
+  if (L < 1 || N < 1 || D < 1 || D > kMaxWideD || SD < 1 || M < 1 ||
       n_slots != df_pathwise_tiled_fwd_slots(SD, M))
     return (int)cudaErrorInvalidValue;
   FwdArgs a;
@@ -273,7 +313,11 @@ extern "C" int df_pathwise_tiled_fwd(
   a.part = part;
   a.out = out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  df_pathwise_tiled_fwd_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(a);
+  if (D <= 16)
+    df_pathwise_tiled_fwd_kernel<16><<<(unsigned)blocks, kThreads, 0, s>>>(a);
+  else
+    df_pathwise_tiled_fwd_kernel<kMaxWideD><<<(unsigned)blocks, kThreads, 0,
+                                              s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long outs = (long long)L * N * D;

@@ -52,7 +52,7 @@ def use_fused_pair(gp: SVGPParams, sample: FnSample, z0, T, order):
     S = sample.rff.omega.shape[-2]
     if gp.kernel_name == 'DF':
         from vae_gp_ode_tpu_torch.ops.df_flow_fused import df_fused_pair_fits
-        return df_fused_pair_fits(D, S * D, gp.M, T, z0.device)
+        return df_fused_pair_fits(D, S * D, gp.M, z0.device)
     from vae_gp_ode_tpu_torch.ops.flow_fused import fused_pair_fits
     return fused_pair_fits(D, D // order, S, gp.M, T, z0.device)
 

@@ -42,7 +42,14 @@ def _properties(index):
     return p.multi_processor_count, p.shared_memory_per_block_optin
 
 
+def device_index(device):
+    """The index of `device`: for a CUDA device that names none, the
+    current device's."""
+    if device.index is None and device.type == 'cuda':
+        return torch.cuda.current_device()
+    return device.index
+
+
 def card_properties(device):
     """(SM count, shared-memory opt-in bytes per block) of CUDA `device`."""
-    return _properties(torch.cuda.current_device() if device.index is None
-                       else device.index)
+    return _properties(device_index(device))

@@ -15,14 +15,18 @@ draws: one launch integrates all L Monte-Carlo trajectories.
 
 `packed_df_euler_flow` launches `csrc/df_flow_fused.cu` for CUDA tensors
 inside a `torch.autograd.Function` whose backward launches
-`csrc/df_flow_fused_bwd.cu` (`df_flow_vjp`); CPU tensors take the plain
-versions, `df_euler_flow_reference` and autograd through it
-(`df_flow_vjp_reference`). The adjoint keeps a block's parameter
-cotangents in shared memory; `df_fused_pair_fits` decides from the shapes,
+`csrc/df_flow_fused_bwd.cu` (`df_flow_vjp`): a cluster of blocks per
+(draw, row tile), each block with its share of the feature columns and
+inducing points and their cotangents in shared memory, and a second
+kernel of the same library call that sums the slabs into the finished
+cotangents (no PyTorch reduction after the call). CPU tensors take the
+plain versions, `df_euler_flow_reference` and autograd through it
+(`df_flow_vjp_reference`). `df_fused_pair_fits` decides from the shapes,
 before any launch, whether the pair takes a flow.
 """
 
 import ctypes
+import math
 
 import torch
 
@@ -31,7 +35,7 @@ from vae_gp_ode_tpu_torch.ops import _build
 from vae_gp_ode_tpu_torch.ops.df_pathwise import (
     BASE_DIMS, MAX_D, NAMES, check_operands, df_pathwise_reference,
 )
-from vae_gp_ode_tpu_torch.ops.pathwise import _check_tensors, split_slabs
+from vae_gp_ode_tpu_torch.ops.pathwise import _check_tensors
 
 KERNEL = 'df_flow_fused_fwd'
 SOURCE = 'vae_gp_ode_tpu_torch/csrc/df_flow_fused.cu'
@@ -46,7 +50,7 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _ARGTYPES = [_P, _LL] * 8 + [_P, _P] + [_I] * 7 + [_P]
-_BWD_ARGTYPES = [_P, _P] + [_P, _LL] * 7 + [_P, _P, _P] + [_I] * 7 + [_P]
+_BWD_ARGTYPES = [_P, _P] + [_P, _LL] * 7 + [_P, _P, _P] + [_I] * 8 + [_P]
 
 
 def df_euler_flow_reference(z0, omf, phf, G, Z, nur, ls2, var, dts, T):
@@ -95,9 +99,9 @@ def _bwd_lib():
         lib.df_flow_fused_bwd.restype = ctypes.c_int
         lib.df_flow_fused_bwd_slab_floats.argtypes = [_I] * 4
         lib.df_flow_fused_bwd_slab_floats.restype = ctypes.c_longlong
-        lib.df_flow_fused_bwd_rows.argtypes = [_I]
-        lib.df_flow_fused_bwd_rows.restype = ctypes.c_int
-        lib.df_flow_fused_bwd_smem_bytes.argtypes = [_I] * 4
+        lib.df_flow_fused_bwd_plan.argtypes = [_I] * 7 + [_P]
+        lib.df_flow_fused_bwd_plan.restype = ctypes.c_int
+        lib.df_flow_fused_bwd_smem_bytes.argtypes = [_I] * 3
         lib.df_flow_fused_bwd_smem_bytes.restype = ctypes.c_longlong
         lib.df_flow_fused_bwd_smem_optin.argtypes = [_I]
         lib.df_flow_fused_bwd_smem_optin.restype = ctypes.c_int
@@ -106,23 +110,42 @@ def _bwd_lib():
 
 def df_pair_fits(D, smem_bytes, optin):
     """The dispatch rule of the DF pair: the trajectory kernel and its
-    adjoint take a flow when the state dim is at most MAX_D and one
-    adjoint block's shared memory (`smem_bytes`) fits the device's opt-in
-    limit per block (`optin`; negative when it could not be read)."""
+    adjoint take a flow when the state dim is at most MAX_D and one block
+    of an 8-block adjoint cluster (`smem_bytes`, csrc/df_flow_fused_bwd.cu
+    `df_flow_fused_bwd_smem_bytes`: 2 (3D + 1) floats per feature column
+    or (point, output) item of its share, S*D/8 columns and M/8 points)
+    fits the device's opt-in limit per block (`optin`; negative when it
+    could not be read). On an H100 (232,448 bytes) that is S up to 1920
+    at D = 6 (the default run's S = 256 takes 42,664 bytes) and D up to
+    14 at S = 256; not D = 12 at S = 1024. (The adjoint's single-block
+    design took S up to 384 at D = 6 and nothing at D > 8, S = 256.)"""
     return D <= MAX_D and 0 <= smem_bytes <= optin
 
 
-def df_fused_pair_fits(D, SD, M, T, device):
+def df_fused_pair_fits(D, SD, M, device):
     """`df_pair_fits` on `device` (a CUDA device), from the adjoint
     kernel's own `df_flow_fused_bwd_smem_bytes` and the device's opt-in
     limit: decided from the shapes alone, before any launch."""
     if D > MAX_D:
         return False
     lib = _bwd_lib()
-    index = torch.cuda.current_device() if device.index is None \
-        else device.index
-    return df_pair_fits(D, lib.df_flow_fused_bwd_smem_bytes(D, SD, M, T),
-                        lib.df_flow_fused_bwd_smem_optin(index))
+    return df_pair_fits(D, lib.df_flow_fused_bwd_smem_bytes(D, SD, M),
+                        lib.df_flow_fused_bwd_smem_optin(
+                            ops.device_index(device)))
+
+
+def bwd_plan(L, N, D, SD, M, T, device):
+    """(rows per cluster, blocks per cluster, row tiles per draw) of the
+    adjoint kernel at these shapes on `device` (csrc/df_cluster.cuh
+    `plan_for`, with more blocks per cluster where a block would not fit
+    the opt-in shared memory). Raises for shapes the kernel refuses."""
+    out = (ctypes.c_int * 3)()
+    rc = _bwd_lib().df_flow_fused_bwd_plan(L, N, D, SD, M, T,
+                                           ops.device_index(device), out)
+    if rc != 0:
+        raise RuntimeError(f'{BWD_KERNEL} takes no plan at L={L} N={N} '
+                           f'D={D} SD={SD} M={M} T={T}: CUDA error {rc}')
+    return tuple(out)
 
 
 def _num_draws(z0, operands):
@@ -163,10 +186,11 @@ def _launch(z0, operands, dts, T):
     return zs
 
 
-def _launch_bwd(zs, zsbar, operands, dts, T):
+def _launch_bwd(zs, zsbar, operands, dts, T, z0_shared=False):
     """Launch the adjoint kernel on zs, zsbar (L, T, N, D). Returns z0bar
-    (L, N, D) and the cotangents of `operands` and dts, each in its
-    operand's shape."""
+    ((N, D) summed over the draws if `z0_shared`, else (L, N, D)) and the
+    cotangents of `operands` and dts, each in its operand's shape, all
+    finished by the library's second kernel."""
     device = zs.device
     _check_tensors(device, zip(('zs', 'zsbar') + NAMES + ('dts',),
                                (zs, zsbar) + tuple(operands) + (dts,)))
@@ -179,23 +203,27 @@ def _launch_bwd(zs, zsbar, operands, dts, T):
         raise ValueError(f'dts has shape {tuple(dts.shape)}, expected '
                          f'({T - 1},)')
     lib = _bwd_lib()
+    n_tiles = bwd_plan(L, N, D, SD, M, T, device)[2]  # raises if refused
     P = lib.df_flow_fused_bwd_slab_floats(D, SD, M, T)
-    n_tiles = -(-N // lib.df_flow_fused_bwd_rows(D))
-    z0bar = torch.empty((L, N, D), dtype=torch.float32, device=device)
-    slab = torch.empty((L, n_tiles, P), dtype=torch.float32, device=device)
+    work = torch.empty(L * N * D + L * n_tiles * P, dtype=torch.float32,
+                       device=device)
+    shapes = [(N, D) if z0_shared else (L, N, D)] + [
+        tuple(t.shape) for t in operands] + [(T - 1,)]
+    sizes = [math.prod(shape) for shape in shapes]
+    out = torch.empty(sum(sizes), dtype=torch.float32, device=device)
     flat = [zs.data_ptr(), zsbar.data_ptr()]
     for t, ls in zip(operands, strides):
         flat += [t.data_ptr(), ls]
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.df_flow_fused_bwd(*flat, dts.data_ptr(), z0bar.data_ptr(),
-                               slab.data_ptr(), L, N, D, SD, M, T,
-                               device.index, stream)
+    rc = lib.df_flow_fused_bwd(*flat, dts.data_ptr(), work.data_ptr(),
+                               out.data_ptr(), L, N, D, SD, M, T,
+                               int(z0_shared), device.index, stream)
     if rc != 0:
         raise RuntimeError(f'{BWD_KERNEL} launch failed: CUDA error {rc} '
                            f'(L={L} N={N} D={D} SD={SD} M={M} T={T})')
     ops.count(BWD_KERNEL, (L, N, D, SD, M, T))
-    return (z0bar,) + split_slabs(slab.sum(dim=1), tuple(operands) + (dts,),
-                                  BASE_DIMS + (1,))
+    return tuple(part.view(shape)
+                 for part, shape in zip(out.split(sizes), shapes))
 
 
 class _PackedDfEulerFlow(torch.autograd.Function):
@@ -215,9 +243,9 @@ class _PackedDfEulerFlow(torch.autograd.Function):
     def backward(ctx, zsbar):
         zs, *operands, dts = ctx.saved_tensors
         zsbar = zsbar.reshape(zs.shape).contiguous()
-        z0bar, *bars = _launch_bwd(zs, zsbar, operands, dts, ctx.T)
-        if z0bar.shape != ctx.z0_shape:          # z0 shared by the draws
-            z0bar = z0bar.sum(dim=0).reshape(ctx.z0_shape)
+        # z0 (N, D) is shared by the draws: the library sums its cotangent
+        z0bar, *bars = _launch_bwd(zs, zsbar, operands, dts, ctx.T,
+                                   z0_shared=len(ctx.z0_shape) == 2)
         grads = [z0bar] + bars
         grads = [g if need else None
                  for g, need in zip(grads, ctx.needs_input_grad)]

@@ -11,8 +11,9 @@ but the fused euler trajectory with `--kernel DF` (`dynamics.solvers`,
 through `gp.svgp.fn_eval`), and of the continuous adjoint's
 vector-Jacobian products (`dynamics.adjoint`).
 
-`fused_df_pathwise_eval` launches `csrc/df_pathwise_fwd.cu` for CUDA
-tensors inside a `torch.autograd.Function` whose backward launches
+`fused_df_pathwise_eval` launches `csrc/df_pathwise_fwd.cu` (a cluster
+of blocks per (draw, row tile), `csrc/df_cluster.cuh`) for CUDA tensors
+inside a `torch.autograd.Function` whose backward launches
 `csrc/df_pathwise_bwd.cu`; CPU tensors take the plain version,
 `df_pathwise_reference`, and autograd through it. Every operand may carry
 a leading dim of L draws or be shared by all draws (one launch for all L);
@@ -40,7 +41,9 @@ BWD_KERNEL = 'df_pathwise_bwd'
 BWD_SOURCE = 'vae_gp_ode_tpu_torch/csrc/df_pathwise_bwd.cu'
 BWD_REPLACES = 'vae_gp_ode_tpu/ops/df_pathwise.py:273'
 
-#: the widest state dim the DF kernels take (csrc/df_common.cuh kMaxD)
+#: the widest state dim of the single-block pair and of the trajectory pair
+#: (csrc/df_common.cuh kMaxD); the grid-tiled pair takes up to
+#: `ops.df_pathwise_tiled.MAX_TILED_D`
 MAX_D = 16
 
 #: operand names after x, and the number of trailing (non-draw) dims of each
@@ -120,9 +123,10 @@ def df_fused_operands(gp, sample):
 
 # -- the kernels --------------------------------------------------------------
 
-def check_operands(L, D, operands):
+def check_operands(L, D, operands, max_d=MAX_D):
     """Validate the DF operands, each (base shape) or (L, base shape),
-    against L draws and state dim D. Returns (SD, M, draw strides)."""
+    against L draws and state dim D, at most `max_d` (the widest the
+    kernel takes). Returns (SD, M, draw strides)."""
     SD = operands[0].shape[-1]
     M = operands[3].shape[-2]
     base = ((D, SD), (1, SD), (2 * SD, D), (M, D), (M, D), (D, D), (D,))
@@ -133,9 +137,9 @@ def check_operands(L, D, operands):
             raise ValueError(f'{name} has shape {tuple(t.shape)}, expected '
                              f'([{L},] {", ".join(map(str, shape))})')
         strides.append(t[0].numel() if t.dim() == nd + 1 else 0)
-    if D > MAX_D:
+    if D > max_d:
         raise NotImplementedError(
-            f'the DF kernels take state dims up to {MAX_D}, got {D}')
+            f'this DF kernel takes state dims up to {max_d}, got {D}')
     return SD, M, strides
 
 

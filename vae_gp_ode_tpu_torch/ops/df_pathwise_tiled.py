@@ -23,7 +23,9 @@ df_pathwise_reference` (imported here as the plain version):
 `df_pathwise_eval` is the per-step eval that `gp.svgp.fn_eval` calls for
 the DF kernel: CPU tensors take the plain version; CUDA tensors take the
 kernels that `use_df_tiled` names for the shapes, decided before any
-launch. State dims above 16 raise NotImplementedError on the card.
+launch. The tiled pair takes state dims up to MAX_TILED_D = 48 (every D
+that the JAX package's `df_tiled_fits` admits at S = 256, M = 100), the
+single-block pair up to 16; above 48 the card raises NotImplementedError.
 """
 
 import ctypes
@@ -51,6 +53,10 @@ REPLACES = 'vae_gp_ode_tpu/ops/df_pathwise_tiled.py:58'
 BWD_KERNEL = 'df_pathwise_tiled_bwd'
 BWD_SOURCE = 'vae_gp_ode_tpu_torch/csrc/df_pathwise_tiled_bwd.cu'
 BWD_REPLACES = 'vae_gp_ode_tpu/ops/df_pathwise_tiled.py:154'
+
+#: the widest state dim of the tiled pair (csrc/df_pathwise_tiled_*.cu
+#: kMaxWideD); the single-block pair stops at `df_pathwise.MAX_D`
+MAX_TILED_D = 48
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -109,7 +115,7 @@ def _launch(x, operands):
     per-slot partials (summed by the library's second kernel)."""
     _check_tensors(x.device, zip(('x',) + NAMES, (x,) + tuple(operands)))
     L, N, D = _check_x(x)
-    SD, M, strides = check_operands(L, D, operands)
+    SD, M, strides = check_operands(L, D, operands, MAX_TILED_D)
     lib = _lib()
     n_slots = fwd_slots(SD, M)
     part = torch.empty((L, n_slots, N, D), dtype=torch.float32,
@@ -134,7 +140,7 @@ def _launch_bwd(x, operands, g):
     _check_tensors(x.device, zip(('x',) + NAMES + ('g',),
                                  (x,) + tuple(operands) + (g,)))
     L, N, D = _check_x(x)
-    SD, M, strides = check_operands(L, D, operands)
+    SD, M, strides = check_operands(L, D, operands, MAX_TILED_D)
     if tuple(g.shape) != (L, N, D):
         raise ValueError(f'g has shape {tuple(g.shape)}, expected '
                          f'({L}, {N}, {D})')
@@ -174,7 +180,7 @@ def tiled_df_pathwise_eval(x, omf, phf, G, Z, nur, ls2, var):
     mode); same arguments and result as :func:`df_pathwise_reference`
     with at most one leading dim of L draws. CPU tensors take the plain
     version; anything but CUDA or CPU tensors raises, and so does a state
-    dim above 16 on the card."""
+    dim above MAX_TILED_D on the card."""
     operands = (omf, phf, G, Z, nur, ls2, var)
     if all(t.device.type == 'cpu' for t in (x,) + operands):
         return df_pathwise_reference(x, *operands)
@@ -189,9 +195,9 @@ def pick_df(L, N, D, SD, M, sms):
     """Which pair takes the DF per-step eval on a card with `sms` SMs:
     (forward tiled, VJP tiled), each True for the tiled kernel (#11, #12)
     and False for the single-block one (#5, #6). Decided from the shapes
-    alone (D is at most 16: both pairs refuse more), from the device
-    times of both pairs and the sweep per call that `chip_smoke.py` phase
-    6d measures on an H100 (PERF.md section 6).
+    alone, from the device times of both pairs and the sweep per call
+    that `chip_smoke.py` phase 6d measures on an H100 (PERF.md section 6).
+    Above D = 16 (MAX_D) only the tiled pair takes the shape.
 
     #5 and #6 run one block per (draw, R rows), R = 4 up to D = 8, else 2;
     each block walks the SD*D column-output pairs and the M*D^2 pairs of
@@ -199,11 +205,14 @@ def pick_df(L, N, D, SD, M, sms):
     columns beside blocks of inducing points.
 
     The forward: #11 is taken for D > 8, where #5 runs its two-row
-    instance and takes 1.8-8x #11's device time at every measured shape
-    (49 against 14 us at L=5, N=20, D=12, S=256; 670 against 376 at
-    N=600, S=1024). At D <= 8 #5's four rows per block match #11 on the
-    device at large N (57 against 60 us at L=5, N=600, D=6, S=256), and
-    at small N both calls are host-bound, #5's by one allocation less.
+    instance and took 1.8-8x #11's device time at every measured shape
+    before its redesign (49 against 14 us at L=5, N=20, D=12, S=256; 670
+    against 376 at N=600, S=1024). At D <= 8 #5 is taken: checked
+    against the redesigned #5 (clusters of blocks; 8.5 us at L=5, N=20,
+    S=256 against #11's 7.1), it made the faster call at all 8 D <= 8
+    shapes of the sweep in two runs, 5-48% ahead (host issue included:
+    both calls are host-bound at small N, #5's by one kernel and one
+    allocation less).
 
     The VJP: #6 takes ~5 ns per pair step per block at one block per SM;
     #12's chunk blocks (L ceil(SD/256) of them) each walk all N rows,
@@ -212,6 +221,8 @@ def pick_df(L, N, D, SD, M, sms):
     rows and few feature columns (L=1, N=600, D=6, S=256: #6 128 us, #12
     185 us).
     """
+    if D > MAX_D:
+        return True, True
     blocks = L * -(-N // (4 if D <= 8 else 2))
     t6 = -(-blocks // sms) * (SD * D + M * D * D) * 5e-3
     t12 = N * (0.25 + 0.015 * D) * max(1.0, L * -(-SD // 256) / sms)
@@ -237,16 +248,18 @@ def df_pathwise_eval(x, omf, phf, G, Z, nur, ls2, var):
     draws. CPU tensors take the plain version (and autograd through it);
     CUDA tensors launch the forward kernel that `use_df_tiled` names for
     the shapes and, in reverse mode, the VJP kernel it names. A state dim
-    above 16 raises NotImplementedError on the card."""
+    above MAX_TILED_D raises NotImplementedError on the card, before any
+    library loads."""
     operands = (omf, phf, G, Z, nur, ls2, var)
     if all(t.device.type == 'cpu' for t in (x,) + operands):
         return df_pathwise_reference(x, *operands)
     if x.device.type != 'cuda':
         raise ValueError(f'unsupported device {x.device}')
     D = x.shape[-1]
-    if D > MAX_D:
+    if D > MAX_TILED_D:
         raise NotImplementedError(
-            f'the DF kernels take state dims up to {MAX_D}, got {D}')
+            f'the DF kernels take state dims up to {MAX_TILED_D} (the tiled '
+            f'pair), got {D}')
     L = _draws(x, operands, BASE_DIMS)
     fwd, bwd = use_df_tiled(L or 1, x.shape[-2], D, omf.shape[-1],
                             Z.shape[-2], x.device)

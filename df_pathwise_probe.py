@@ -8,7 +8,8 @@ time of whole DF train steps.
 Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 df_pathwise_probe.py [--repo DIR] [--reps 20] [--steps L,N,D,S ...]
-        [--flows L,N,D,S,T ...] [--no-train-steps]
+        [--flows L,N,D,S,T ...] [--kernels 5 6 7 8] [--tiled L,N,D,S ...]
+        [--no-train-steps] [--big-rk4]
 
 --repo takes the kernels and wrappers of another checkout (a parent commit
 unpacked with `git archive` into chip_archive/, say), so that two versions
@@ -17,18 +18,26 @@ script prints the card, then one JSON line per per-step shape (L, N, D, S;
 M = 100, a DF sample drawn from a seed; key "step") and per trajectory
 shape (L, N, D, S, T; key "flow"): the largest error of the forward and of
 every cotangent against `df_pathwise_reference` / `df_euler_flow_reference`
-and autograd through them in float64 (chip_smoke.py's tolerances: abs 1e-4
+and autograd through them in float64 (beside a trajectory's, the f32
+plain version's forward error; chip_smoke.py's tolerances: abs 1e-4
 + rel 1e-4; cotangents 1e-4 (1 + max |plain|); against the f32 plain
 version the parent's #8 misses them at N = 600, where both sum 600 rows
 and 15 steps in different orders), whether two launches gave the
 same bits, ms per call (CUDA events around --reps calls of the wrapper,
 the median of three rounds), device us per launch (torch.profiler over
---reps launches) of each kernel and of a library's second kernel (#8's
-summing kernel), and the plan (rows per cluster, blocks per cluster) #5
-and #8 take there, where the checkout's kernels report one. Unless
+--reps launches) of each kernel and of a library's second kernel (the
+summing kernels of #6 and #8), and the plan (rows per cluster, blocks
+per cluster) #5 and #8 take there, where the checkout's kernels report
+one. --kernels times only the kernels named (every shape is still
+checked): `--kernels 6 7` times #6 with its summing kernel and #7.
+--tiled times the grid-tiled pair #11/#12 (with their summing kernels)
+at the shapes given, checked the same way (key "tiled"; `--tiled
+5,20,64,256` is the latent_dim-64 step's shape). Unless
 --no-train-steps, it then prints the device busy ms and kernel count of
-one DF euler and one DF rk4 train step at the main widths (L=5;
-torch.profiler, the median of three steps). It exits non-zero if a kernel
+one DF euler train step at L=1 and one DF euler and one DF rk4 train
+step at L=5 at the main widths (torch.profiler, the median of three
+steps), and with --big-rk4 of one DF rk4 train step at L=1 with 600
+sequences (the step that takes #6). It exits non-zero if a kernel
 disagrees with its plain version.
 
     python3 df_pathwise_probe.py --plans R,C ... [--steps ...] [--flows ...]
@@ -142,8 +151,16 @@ def main():
     ap.add_argument('--flows', nargs='*', default=None,
                     help='L,N,D,S,T of each trajectory shape (default: '
                          'FLOW_SHAPES)')
+    ap.add_argument('--kernels', nargs='*', type=int, default=[5, 6, 7, 8],
+                    help='time only these of #5-#8 (all are checked)')
+    ap.add_argument('--tiled', nargs='*', default=[],
+                    help='L,N,D,S of each shape to check and time the '
+                         'tiled pair #11/#12 at')
     ap.add_argument('--no-train-steps', action='store_true',
                     help='skip the DF train steps')
+    ap.add_argument('--big-rk4', action='store_true',
+                    help='also the DF rk4 train step at L=1 with 600 '
+                         'sequences (#6)')
     ap.add_argument('--plans', nargs='*', default=[],
                     help='time copies whose plan_for takes these plans '
                          '(R,C; 0 keeps its choice), and exit')
@@ -164,11 +181,13 @@ def main():
     sys.path.insert(0, os.path.abspath(args.repo))
     from vae_gp_ode_tpu_torch.gp.svgp import draw_fn_sample, init_svgp_params
     from vae_gp_ode_tpu_torch.ops import _build, df_flow_fused, df_pathwise
+    from vae_gp_ode_tpu_torch.ops import df_pathwise_tiled
 
     card = cs.nvidia_smi()
     print(f'card: {card}; repo {os.path.abspath(args.repo)}', flush=True)
     _build.build(['df_pathwise_fwd', 'df_pathwise_bwd', 'df_flow_fused',
-                  'df_flow_fused_bwd'])
+                  'df_flow_fused_bwd', 'df_pathwise_tiled_fwd',
+                  'df_pathwise_tiled_bwd'])
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rng = np.random.default_rng(args.seed)
@@ -181,7 +200,7 @@ def main():
         if fn is None:
             return None
         fn.argtypes = [ctypes.c_int] * (len(shape) + 1) + [ctypes.c_void_p]
-        out = (ctypes.c_int * 3)()
+        out = (ctypes.c_int * 8)()
         return None if fn(*shape, 0, out) else [out[0], out[1]]
 
     def draw(L, D, S):
@@ -239,11 +258,39 @@ def main():
         if not row['ok']:
             failed.append(row['step'])
         reps = args.reps if N <= 160 else max(3, args.reps // 4)
-        row['fwd'] = timing(lambda: df_pathwise._launch(x, ops_),
-                            df_pathwise.KERNEL, reps)
-        row['bwd'] = timing(lambda: df_pathwise._launch_bwd(x, ops_, g),
-                            df_pathwise.BWD_KERNEL, reps)
+        if 5 in args.kernels:
+            row['fwd'] = timing(lambda: df_pathwise._launch(x, ops_),
+                                df_pathwise.KERNEL, reps)
+        if 6 in args.kernels:
+            row['bwd'] = timing(lambda: df_pathwise._launch_bwd(x, ops_, g),
+                                df_pathwise.BWD_KERNEL, reps)
         print(json.dumps(row), flush=True)
+
+    for L, N, D, S in (tuple(map(int, a.split(','))) for a in args.tiled):
+        ops_ = draw(L, D, S)
+        x = torch.randn((L, N, D), generator=gen, device=dev)
+        g = torch.randn((L, N, D), generator=gen, device=dev)
+        mod = df_pathwise_tiled
+        with torch.no_grad():
+            ref = df_pathwise.df_pathwise_reference(*f64((x,) + ops_))
+            o1 = mod._launch(x, ops_)
+            o2 = mod._launch(x, ops_)
+            b1 = mod._launch_bwd(x, ops_, g)
+            b2 = mod._launch_bwd(x, ops_, g)
+        refb = df_pathwise.df_pathwise_vjp_reference(*f64((x,) + ops_ + (g,)))
+        ferr, fok = close(o1, ref)
+        berr, bok = close_bwd(b1, refb)
+        row = {'tiled': [L, N, D, S], 'fwd_err': ferr, 'bwd_rel_err': berr,
+               'ok': fok and bok, 'bitwise_repeat': torch.equal(o1, o2) and
+               all(torch.equal(a, b) for a, b in zip(b1, b2))}
+        if not row['ok']:
+            failed.append(row['tiled'])
+        reps = args.reps if N <= 160 else max(3, args.reps // 4)
+        row['fwd'] = timing(lambda: mod._launch(x, ops_), mod.KERNEL, reps)
+        row['bwd'] = timing(lambda: mod._launch_bwd(x, ops_, g),
+                            mod.BWD_KERNEL, reps)
+        print(json.dumps(row), flush=True)
+        del ops_, ref, refb
 
     for L, N, D, S, T in flows:
         ops_ = draw(L, D, S)
@@ -265,7 +312,11 @@ def main():
             *f64((zs, zsbar) + ops_ + (dts,)), T)
         ferr, fok = close(zs, ref)
         berr, bok = close_bwd(b1, refb)
-        row = {'flow': [L, N, D, S, T], 'fwd_err': ferr, 'bwd_rel_err': berr,
+        with torch.no_grad():   # the f32 plain version's distance from f64
+            plain = df_flow_fused.df_euler_flow_reference(z0, *ops_, dts, T)
+        row = {'flow': [L, N, D, S, T], 'fwd_err': ferr,
+               'fwd_err_f32_plain': close(plain, ref)[0],
+               'bwd_rel_err': berr,
                'ok': fok and bok, 'bitwise_repeat': torch.equal(zs, zs2) and
                all(torch.equal(a, b) for a, b in zip(b1, b2)),
                'plan': plan_of(df_flow_fused._bwd_lib(),
@@ -274,10 +325,12 @@ def main():
         if not row['ok']:
             failed.append(row['flow'])
         reps = args.reps if N <= 160 else max(3, args.reps // 4)
-        row['fwd'] = timing(lambda: df_flow_fused.packed_df_euler_flow(
-            z0, *ops_, dts, T), df_flow_fused.KERNEL, reps)
-        row['bwd'] = timing(lambda: df_flow_fused.df_flow_vjp(
-            zs, zsbar, *ops_, dts, T), df_flow_fused.BWD_KERNEL, reps)
+        if 7 in args.kernels:
+            row['fwd'] = timing(lambda: df_flow_fused.packed_df_euler_flow(
+                z0, *ops_, dts, T), df_flow_fused.KERNEL, reps)
+        if 8 in args.kernels:
+            row['bwd'] = timing(lambda: df_flow_fused.df_flow_vjp(
+                zs, zsbar, *ops_, dts, T), df_flow_fused.BWD_KERNEL, reps)
         print(json.dumps(row), flush=True)
 
     if not args.no_train_steps:
@@ -287,34 +340,40 @@ def main():
 
 
 def train_steps(args, gen):
-    """Device busy ms and kernel count of one DF euler and one DF rk4
-    train step at the main widths (L=5), the median of three steps."""
+    """Device busy ms and kernel count of one DF euler train step at L=1,
+    one DF euler and one DF rk4 train step at L=5 and, with --big-rk4,
+    one DF rk4 train step at L=1 with 600 sequences, at the main widths,
+    the median of three steps."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from vae_gp_ode_tpu_torch.models.odegpvae import init_model
     from vae_gp_ode_tpu_torch.training import trainer
     dev = torch.device('cuda')
-    X = (torch.rand((cs.BATCH, cs.T, 1, 28, 28), generator=gen,
-                    device=dev) - 0.1307) / 0.3081
-    for solver in ('euler', 'rk4'):
+    steps = [('euler', 1, cs.BATCH), ('euler', cs.L, cs.BATCH),
+             ('rk4', cs.L, cs.BATCH)]
+    if args.big_rk4:
+        steps.append(('rk4', 1, cs.DF_BIG_BATCH))
+    for solver, L, n in steps:
+        X = (torch.rand((n, cs.T, 1, 28, 28), generator=gen,
+                        device=dev) - 0.1307) / 0.3081
         model, gp = init_model(args.seed + 1, device='cuda', **dict(
             cs.CONFIG, kernel='DF', solver=solver))
         state = trainer.create_train_state(model, gp)
         step = trainer.make_train_step(360.0, eps_guard=True)
-        step(state, X, cs.L)
+        step(state, X, L)
         busy, count = [], 0
         for _ in range(3):
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                step(state, X, cs.L)
+                step(state, X, L)
                 torch.cuda.synchronize()
             ev = [e for e in prof.events()
                   if e.device_type == DeviceType.CUDA]
             busy.append(sum(e.time_range.elapsed_us() for e in ev) / 1e3)
             count = len(ev)
-        print(json.dumps({'train_step': f'DF {solver} L={cs.L}',
+        print(json.dumps({'train_step': f'DF {solver} L={L} N={n}',
                           'busy_ms': statistics.median(busy),
                           'busy_ms_all': busy, 'kernels': count}),
               flush=True)

@@ -59,14 +59,18 @@ typedef void* cudaStream_t;
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
-// An H100's SM count and opt-in limit of shared memory per block.
+// An H100's SM count and opt-in limit of shared memory per block; a test
+// may lower the limit (emu_set_optin) to reach a kernel's path for blocks
+// that do not fit it at a small shape.
 enum {
   cudaDevAttrMultiProcessorCount = 16,
   cudaDevAttrMaxSharedMemoryPerBlockOptin = 97
 };
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+inline int emu_optin = 232448;
+extern "C" void emu_set_optin(int bytes) { emu_optin = bytes; }
 inline cudaError_t cudaDeviceGetAttribute(int* value, int attr, int) {
-  *value = attr == cudaDevAttrMultiProcessorCount ? 132 : 232448;
+  *value = attr == cudaDevAttrMultiProcessorCount ? 132 : emu_optin;
   return cudaSuccess;
 }
 template <class K>

@@ -471,11 +471,15 @@ def _df_bwd_smem_bytes(D, S, M):
                                       (6, 2048, False), (12, 256, True),
                                       (16, 256, False), (3, 1024, True)])
 def test_df_pair_rule_on_the_card(cuda, D, S, fits):
-    """The DF adjoint's exported shared-memory need is the formula the CPU
-    tests hold the rule to, and the rule decides as they do on an H100."""
+    """The DF pair's exported shared-memory needs (the trajectory kernel's
+    and the adjoint's) are the formulas the CPU tests hold the rule to,
+    and the rule decides as they do on an H100."""
     lib = df_flow_fused._bwd_lib()
     assert lib.df_flow_fused_bwd_smem_bytes(D, S * D, 100) == \
         _df_bwd_smem_bytes(D, S, 100)
+    RD = (4 if D <= 8 else 2) * D
+    assert df_flow_fused._lib().df_flow_fused_fwd_smem_bytes(D) == 4 * (
+        11 * RD + D * D + D)
     assert df_flow_fused.df_fused_pair_fits(D, S * D, 100, cuda) == fits
 
 
@@ -621,9 +625,11 @@ def test_tiled_df_kernels_per_draw_gp_operands_and_layouts(cuda):
     fwd, bwd = df_pathwise_tiled._lib(), df_pathwise_tiled._bwd_lib()
     lay = (ctypes.c_int * 3)()
     for N, D, SD, M in ((20, 12, 12288, 100), (20, 6, 1536, 100),
-                        (1, 1, 1, 1), (600, 16, 272, 17), (7, 7, 280, 37)):
-        assert fwd.df_pathwise_tiled_fwd_slots(SD, M) == \
-            df_pathwise_tiled.fwd_slots(SD, M)
+                        (1, 1, 1, 1), (600, 16, 272, 17), (7, 7, 280, 37),
+                        (20, 20, 5120, 100), (20, 64, 16384, 100),
+                        (3, 260, 1040, 10)):
+        assert fwd.df_pathwise_tiled_fwd_slots(SD, M, D) == \
+            df_pathwise_tiled.fwd_slots(SD, M, D)
         bwd.df_pathwise_tiled_bwd_layout(N, D, SD, M, lay)
         assert tuple(lay) == df_pathwise_tiled.bwd_layout(N, D, SD, M)
 

@@ -7,10 +7,13 @@ and the port's wrappers launch it through ctypes as they do on the card
 Held against `df_pathwise_reference` and autograd
 through it with chip_smoke.py's tolerances (abs 1e-4 + rel 1e-4;
 cotangents 1e-4 (1 + max |plain|)), at D = 1, 4, 6, 7, 12 and 16 (the
-VJP's D = 6 and D = 12 instances and its generic one) and at D = 20 and
-48 (the wide instances of both kernels, up to 48), with ragged
-feature, inducing-point and row chunks, GP operands per draw, and two
-launches for the same bits. The module skips without a C++20 g++. It
+VJP's D = 6 and D = 12 instances and its generic one) and at D = 20, 48,
+49 and 64 (the wide kernels of both, which take any D above 16), with
+ragged feature, inducing-point and row chunks, GP operands per draw, and
+two launches for the same bits; and with the emulated device's opt-in
+limit lowered, the wide kernels' paths that read 1/ls2 through L2 where
+it would not fit (above D = 256, which the g++ emulation is too slow for,
+chip_smoke.py checks the kernels on the card). The module skips without a C++20 g++. It
 shows the kernels' block logic, not what nvcc makes of it: registers,
 times and the card's memory model are for tests/test_torch_cuda.py and
 chip_smoke.py.
@@ -140,7 +143,8 @@ def _operands(seed, L, N, S, M, D, per_draw):
     (2, 5, 8, 7, 4, False), (1, 1, 300, 17, 1, False),
     (2, 9, 45, 50, 6, False), (3, 20, 24, 23, 12, True),
     (1, 13, 40, 37, 7, False), (2, 6, 17, 20, 16, False),
-    (2, 9, 14, 30, 20, True), (1, 10, 6, 11, 48, False)])
+    (2, 9, 14, 30, 20, True), (1, 10, 6, 11, 48, False),
+    (2, 9, 5, 20, 49, True), (1, 11, 6, 18, 64, False)])
 def test_kernels_match_plain(emulated, L, N, S, M, D, per_draw):
     x, *ops_ = _operands(70 + D, L, N, S, M, D, per_draw)
     g = torch.as_tensor(np.random.default_rng(80 + D).standard_normal(
@@ -157,6 +161,41 @@ def test_kernels_match_plain(emulated, L, N, S, M, D, per_draw):
                for a, b in zip(tdpt._launch_bwd(x, ops_, g), bars))
 
 
+def test_wide_tables_through_l2(libs, emulated):
+    """The wide kernels keep 1/ls2 | var in shared memory where they fit
+    the opt-in limit, else read ls2 and var through L2: with the limit
+    lowered, the forward at D = 80 (27,500 bytes: its 6,480 floats of
+    1/ls2 | var do not fit beside the rows and a chunk's trig table) and
+    the VJP at D = 33 (42,000 bytes: 1,122 floats beside the update
+    block's 10,004) take that path and still match the plain version;
+    below what their rows need the launchers refuse."""
+    fwd, bwd = libs['df_pathwise_tiled_fwd'], libs['df_pathwise_tiled_bwd']
+    for lib in (fwd, bwd):
+        lib.emu_set_optin.argtypes = [ctypes.c_int]
+        lib.emu_set_optin.restype = None
+    try:
+        fwd.emu_set_optin(27500)
+        x, *ops_ = _operands(90, 1, 3, 1, 3, 80, False)
+        out = tdpt._launch(x, ops_)
+        ref = df_pathwise.df_pathwise_reference(x, *ops_)
+        assert bool(((out - ref).abs() <= TOL + TOL * ref.abs()).all())
+        bwd.emu_set_optin(42000)
+        x, *ops_ = _operands(91, 2, 5, 3, 5, 33, True)
+        g = torch.as_tensor(np.random.default_rng(92).standard_normal(
+            x.shape).astype(np.float32))
+        bars = tdpt._launch_bwd(x, ops_, g)
+        for a, b in zip(bars, df_pathwise.df_pathwise_vjp_reference(
+                x, *ops_, g)):
+            assert float((a - b).abs().max()) <= TOL * (
+                1 + float(b.abs().max()))
+        bwd.emu_set_optin(20000)
+        with pytest.raises(RuntimeError, match="exceed the card's limits"):
+            tdpt._launch_bwd(x, ops_, g)
+    finally:
+        for lib in (fwd, bwd):
+            lib.emu_set_optin(232448)
+
+
 def test_launchers_refuse_a_wrong_layout(emulated):
     """The C launchers check the slab layout the wrapper sized; a layout
     that is off by one is refused before any block runs."""
@@ -171,8 +210,9 @@ def test_launchers_refuse_a_wrong_layout(emulated):
                                      12, 12288, 100, 0, None) != 0
     fwd = _build.load('df_pathwise_tiled_fwd')
     tdpt._lib()
-    assert fwd.df_pathwise_tiled_fwd_slots(12288, 100) == tdpt.fwd_slots(
-        12288, 100)
+    for D in (12, 20, 64, 300):
+        assert fwd.df_pathwise_tiled_fwd_slots(12288, 100, D) == \
+            tdpt.fwd_slots(12288, 100, D)
     assert fwd.df_pathwise_tiled_fwd(*([None, 0] * 8 + [None, None]),
-                                     tdpt.fwd_slots(12288, 100) - 1, 1, 20,
-                                     12, 12288, 100, 0, None) != 0
+                                     tdpt.fwd_slots(12288, 100, 12) - 1, 1,
+                                     20, 12, 12288, 100, 0, None) != 0

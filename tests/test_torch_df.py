@@ -211,6 +211,33 @@ def test_plain_versions_match_jax_at_state_dim_20(what):
                        names, rel=1e-4)
 
 
+def test_plain_eval_matches_jax_at_state_dim_64():
+    """At D = 64 the card runs the per-step eval through the tiled pair's
+    wide kernels (#11/#12), held on the card to the plain version that the
+    CPU runs; here the plain version's forward and every cotangent
+    against JAX's `df_pathwise_reference` and autograd through it (plain
+    jnp, as the JAX package's tests run it) on the same numpy inputs, S =
+    16, M = 8, N = 4: forward 1e-5 of its largest entry (an entry sums
+    1,024 prior terms of up to ~15 that cancel, so f32 rounding in two
+    summation orders reaches 1.7e-5 on an entry of 0.5), each cotangent
+    1e-4 of its largest entry. The lengthscales are scaled up 40 times, so
+    that the squared distances of 64-dimensional points (~95) do not put
+    the update's envelopes at 0."""
+    rng = np.random.default_rng(64)
+    args = list(_operands(rng, N=4, D=64, S=16, M=8))
+    args[6] = args[6] * np.float32(40.0)
+    inputs = [t.requires_grad_() for t in _t(args)]
+    out = tdpw.df_pathwise_reference(*inputs)
+    ref, vjp = jax.vjp(jdpw.df_pathwise_reference, *map(jnp.asarray, args))
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(out.detach().numpy(), ref, rtol=1e-5,
+                               atol=1e-5 * np.abs(ref).max())
+    g = rng.standard_normal(out.shape).astype(np.float32)
+    mine = torch.autograd.grad(out, inputs, torch.as_tensor(g))
+    _assert_cotangents([m.numpy() for m in mine], vjp(jnp.asarray(g)), NAMES,
+                       rel=1e-4)
+
+
 # -- the DF sample, fn_eval and the flow ---------------------------------------
 
 Q, S, M, N, L = 3, 16, 8, 5, 2
@@ -328,6 +355,15 @@ def _df_bwd_smem_bytes(D, S, M):
                 + 2 * V)
 
 
+def _df_fwd_smem_bytes(D):
+    """csrc/df_flow_fused.cu's df_flow_fused_fwd_smem_bytes, transcribed:
+    one block of the trajectory kernel at the most rows per cluster (4 up
+    to D = 8, else 2) holds the tile's state, 1/ls2 | var, the warps'
+    partial sums of R D values and the block's, double-buffered."""
+    RD = (4 if D <= 8 else 2) * D
+    return 4 * (RD + D * D + D + 8 * RD + 2 * RD)
+
+
 H100_SMEM_OPTIN = 232448      # bytes per block, cudaDevAttrMaxSharedMemoryPerBlockOptin
 
 
@@ -342,13 +378,18 @@ H100_SMEM_OPTIN = 232448      # bytes per block, cudaDevAttrMaxSharedMemoryPerBl
     (3, 1024, True),
     (17, 16, False)])          # D > 16: only the tiled pair takes it
 def test_df_pair_rule_on_the_refused_shapes(D, S, fits):
-    """The rule sends the shapes the DF adjoint kernel refuses to the
-    euler scan over the per-step kernels, before any launch: the adjoint
-    block's shared memory grows with its share of the columns and points
-    of an 8-block cluster, so since the clusters the pair takes S up to
-    ~1900 at D = 6 and D up to 14 at S = 256."""
-    assert tdff.df_pair_fits(D, _df_bwd_smem_bytes(D, S, 100),
-                             H100_SMEM_OPTIN) == fits
+    """The rule sends the shapes the DF pair refuses to the euler scan over
+    the per-step kernels, before any launch: it takes a flow where the
+    larger of its two kernels' blocks fits the opt-in limit. The
+    trajectory kernel's block (the tile's state and sums: 1,224 bytes at
+    D = 6) is the smaller at every shape, so the boundary is the
+    adjoint's: its block grows with its share of the columns and points
+    of an 8-block cluster, so the pair takes S up to ~1900 at D = 6 and D
+    up to 14 at S = 256."""
+    need = max(_df_fwd_smem_bytes(D), _df_bwd_smem_bytes(D, S, 100))
+    assert _df_fwd_smem_bytes(D) < _df_bwd_smem_bytes(D, S, 100)
+    assert _df_fwd_smem_bytes(6) == 1224
+    assert tdff.df_pair_fits(D, need, H100_SMEM_OPTIN) == fits
     assert not tdff.df_pair_fits(6, 1024, -1)   # an unreadable limit refuses
 
 

@@ -84,8 +84,8 @@ def emulate_fwd(x, operands):
     L, N, D = x.shape
     SD, M = omf.shape[-1], Z.shape[-2]
     n_mc = -(-M // tdpt.FWD_UPD_M)
-    assert tdpt.fwd_slots(SD, M) == n_mc + -(-SD // tdpt.FWD_CHUNK)
-    part = torch.full((L, tdpt.fwd_slots(SD, M), N, D), float('nan'))
+    assert tdpt.fwd_slots(SD, M, D) == n_mc + -(-SD // tdpt.FWD_CHUNK)
+    part = torch.full((L, tdpt.fwd_slots(SD, M, D), N, D), float('nan'))
     for l in range(L):
         om, ph, g = omf[l], phf[l], G[l]
         z, nu = _draw(Z, 2, l), nur[l]
@@ -244,9 +244,16 @@ def test_vjp_decomposition(L, N, S, M, D, per_draw):
 
 def test_layouts():
     """The slabs' sizes at the shapes the paths launch the pair at (the
-    C launchers refuse any other layout)."""
-    assert tdpt.fwd_slots(12288, 100) == 7 + 48
-    assert tdpt.fwd_slots(1536, 100) == 7 + 6
+    C launchers refuse any other layout); above D = 16 the forward's
+    update blocks take 256 // D points (D = 20: 12, D = 64: 4), above D =
+    256 one; the VJP's chunk blocks give a feature column ceil(D / 8)
+    threads, so take 256 // ceil(D / 8) columns (D = 64: 32)."""
+    assert tdpt.fwd_slots(12288, 100, 12) == 7 + 48
+    assert tdpt.fwd_slots(1536, 100, 6) == 7 + 6
+    assert tdpt.fwd_slots(5120, 100, 20) == 9 + 20
+    assert tdpt.fwd_slots(16384, 100, 64) == 25 + 64
+    assert tdpt.fwd_slots(1040, 10, 260) == 10 + 5
+    assert tdpt.bwd_layout(20, 64, 16384, 100) == (512, 25, 5)
     assert tdpt.bwd_layout(20, 12, 12288, 100) == (48, 5, 5)
     assert tdpt.bwd_layout(20, 6, 1536, 100) == (6, 3, 5)
     assert tdpt.bwd_layout(1, 16, 1, 1) == (1, 1, 1)

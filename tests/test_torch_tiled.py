@@ -24,6 +24,8 @@ terms 1e-4 relative, gradients 1e-4 of each leaf's largest, as in
 tests/test_torch_train.py.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -51,6 +53,7 @@ from vae_gp_ode_tpu_torch.training import trainer
 from vae_gp_ode_tpu_torch.utils.jax_import import train_state_from_jax
 
 import test_torch_train as ttr
+from test_torch_cuda_emulated_df import VJP_PLANS
 
 FWD_TOL = dict(rtol=2e-4, atol=2e-5)
 RBF_VJP_TOL = dict(rtol=1e-3, atol=1e-5)
@@ -184,12 +187,14 @@ RBF_RULE = {
                      (1, 600): (True, True), (5, 600): (True, True)}}
 # (D, S) -> {(L, N): (forward tiled, VJP tiled)}: refit to the redesigned
 # #11/#12 (PERF.md section 6); the forward at D <= 8 checked again against
-# the redesigned #5 (the sweep kept it at every D <= 8 shape)
+# the redesigned #5 (the sweep kept it at every D <= 8 shape); the VJP
+# refit to the redesigned #6, which also takes (6, 512) at L=1, N=600
+# (0.12 against #12's 0.23 ms per call in the sweep)
 DF_RULE = {
     (6, 256): {(1, 20): (False, True), (5, 20): (False, True),
                (1, 600): (False, False), (5, 600): (False, True)},
     (6, 512): {(1, 20): (False, True), (5, 20): (False, True),
-               (1, 600): (False, True), (5, 600): (False, True)},
+               (1, 600): (False, False), (5, 600): (False, True)},
     (12, 256): {(1, 20): (True, True), (5, 20): (True, True),
                 (1, 600): (True, True), (5, 600): (True, True)},
     (12, 1024): {(1, 20): (True, True), (5, 20): (True, True),
@@ -203,10 +208,15 @@ def test_rbf_rule_at_the_sweep_shapes(D, K, S):
     assert got == RBF_RULE[D, K, S]
 
 
+def _pick_df(L, N, D, SD, M):
+    """`pick_df` on an H100 (132 SMs) with #6's plan there (None above
+    D = 16, where only the tiled pair takes the shape)."""
+    return tdpt.pick_df(L, N, D, SD, M, SMS, VJP_PLANS.get((L, N, D, SD, M)))
+
+
 @pytest.mark.parametrize('D,S', sorted(DF_RULE))
 def test_df_rule_at_the_sweep_shapes(D, S):
-    got = {LN: tdpt.pick_df(*LN, D, S * D, 100, SMS)
-           for LN in DF_RULE[D, S]}
+    got = {LN: _pick_df(*LN, D, S * D, 100) for LN in DF_RULE[D, S]}
     assert got == DF_RULE[D, S]
 
 
@@ -215,27 +225,33 @@ def test_rule_at_the_rows_of_the_smoke_paths():
     (q = 12, S = 1024) at batch 20 takes #3 and #10 (RBF), #11 and #12
     (DF); a wide request of 400 sequences takes #9 (RBF) and #11 (DF);
     rk4 steps of 160 sequences at the main widths (q = 6, S = 256) take
-    #3/#10 (RBF) and #5/#12 (DF), and at batch 20 #3/#10 and #5/#12; RBF
-    rk4 steps at q = 72, wider than #10's block holds, take #3/#4; DF rk4
-    steps at L = 1 with 600 sequences take #5/#6."""
+    #3/#10 (RBF) and, at L = 5, #5/#12 (DF; at L = 1 the redesigned #6
+    takes the VJP: ~26 us modelled against #12's ~54), and at batch 20
+    #3/#10 and #5/#12; RBF rk4 steps at q = 72, wider than #10's block
+    holds, take #3/#4; DF rk4 steps at L = 1 with 600 sequences take
+    #5/#6."""
     for L in (1, 5):
         assert tpt.pick(L, 20, 12, 12, 1024, 100, OPTIN) == (False, True)
-        assert tdpt.pick_df(L, 20, 12, 12288, 100, SMS) == (True, True)
+        assert _pick_df(L, 20, 12, 12288, 100) == (True, True)
         assert tpt.pick(L, 160, 6, 6, 256, 100, OPTIN) == (False, True)
-        assert tdpt.pick_df(L, 160, 6, 1536, 100, SMS) == (False, True)
+        assert _pick_df(L, 160, 6, 1536, 100) == (False, L == 5)
         assert tpt.pick(L, 20, 6, 6, 256, 100, OPTIN) == (False, True)
-        assert tdpt.pick_df(L, 20, 6, 1536, 100, SMS) == (False, True)
+        assert _pick_df(L, 20, 6, 1536, 100) == (False, True)
         assert tpt.pick(L, 20, 72, 72, 256, 100, OPTIN) == (False, False)
     assert tpt.pick(5, 400, 12, 12, 1024, 100, OPTIN)[0]
-    assert tdpt.pick_df(5, 400, 12, 12288, 100, SMS)[0]
-    assert tdpt.pick_df(1, 600, 6, 1536, 100, SMS) == (False, False)
+    assert _pick_df(5, 400, 12, 12288, 100)[0]
+    assert _pick_df(1, 600, 6, 1536, 100) == (False, False)
 
 
 def test_rule_kernels_name_the_picked_pair(monkeypatch):
     """`rule_kernels` turns each rule's choice into the kernels' names,
-    from the card properties `ops.card_properties` reads (stubbed)."""
+    from the card properties `ops.card_properties` reads and #6's plans
+    (both stubbed)."""
     from vae_gp_ode_tpu_torch import ops
     monkeypatch.setattr(ops, '_properties', lambda index: (SMS, OPTIN))
+    monkeypatch.setattr(df_pathwise, 'bwd_plan',
+                        lambda L, N, D, SD, M, device: VJP_PLANS[
+                            L, N, D, SD, M])
     dev = torch.device('cuda', 0)
     assert tpt.rule_kernels(5, 20, 12, 12, 1024, 100, dev) == (
         'pathwise_fwd', 'pathwise_tiled_bwd')
@@ -296,19 +312,54 @@ def test_cpu_path_never_touches_a_library(monkeypatch):
     assert ops.LAUNCHES == before
 
 
-def test_df_wrappers_refuse_state_dims_above_48(monkeypatch):
-    """The tiled DF kernels take D <= 48 (`MAX_TILED_D`, their wide
-    instance) and the single-block pair D <= 16: past its limit each
-    wrapper raises, naming the limit, before it loads a library or
-    launches; the plain version takes any D."""
+def test_df_wrappers_take_state_dims_above_48(monkeypatch):
+    """The tiled DF kernels (#11/#12) take any state dim: at D = 49 and 64
+    each wrapper passes its checks and calls its library's launcher with
+    that D (a stub library here, recording the call; the kernels
+    themselves run under tests/test_torch_cuda_emulated.py and on the
+    card) and counts one launch, raising no NotImplementedError. The VJP
+    refuses D = 2049 (a feature column's threads), naming the limit. The
+    single-block pair still refuses D = 17, naming its limit, before it
+    loads a library; the plain version takes any D."""
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            def fn(*args):
+                calls.append((name, args))
+                return 0
+            fn.argtypes = fn.restype = None
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(_build, 'load', lambda name: Lib())
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda device=None: type('S', (), {'cuda_stream': 0}))
+    for D in (49, 64):
+        args = _t(_df_operands(np.random.default_rng(D), 3, 2, 4, D, (1,)))
+        x, operands = args[0], tuple(args[1:])
+        before = dict(ops.LAUNCHES)
+        del calls[:]
+        out = tdpt._launch(x, operands)
+        bars = tdpt._launch_bwd(x, operands, torch.zeros_like(x))
+        assert out.shape == x.shape and len(bars) == 8
+        launched = [(name, args) for name, args in calls
+                    if name in (tdpt.KERNEL, tdpt.BWD_KERNEL)]
+        assert [name for name, _ in launched] == [tdpt.KERNEL,
+                                                  tdpt.BWD_KERNEL]
+        # L, N, D, SD, M after the pointers, the layout or the slots
+        assert launched[0][1][-7:-2] == (1, 3, D, 2 * D, 4)
+        assert launched[1][1][-7:-2] == (1, 3, D, 2 * D, 4)
+        assert {k: ops.LAUNCHES[k] - before[k] for k in before
+                if ops.LAUNCHES[k] != before[k]} == {
+            tdpt.KERNEL: 1, tdpt.BWD_KERNEL: 1}
+        assert tdpt.df_pathwise_eval(x, *operands).shape == x.shape  # plain
+    # a feature column of the VJP takes at most a block's 256 threads of
+    # 8 dims: above D = 2048 it refuses, naming the limit
+    args = _t(_df_operands(np.random.default_rng(5), 1, 1, 1, 2049, (1,)))
+    with pytest.raises(RuntimeError, match='up to 2048'):
+        tdpt._launch_bwd(args[0], tuple(args[1:]), torch.zeros_like(args[0]))
     _no_library(monkeypatch)
-    args = _t(_df_operands(np.random.default_rng(4), 3, 2, 4, 49, (1,)))
-    x, operands = args[0], tuple(args[1:])
-    with pytest.raises(NotImplementedError, match='up to 48'):
-        tdpt._launch(x, operands)
-    with pytest.raises(NotImplementedError, match='up to 48'):
-        tdpt._launch_bwd(x, operands, torch.zeros_like(x))
-    assert tdpt.df_pathwise_eval(x, *operands).shape == x.shape  # plain
     args = _t(_df_operands(np.random.default_rng(4), 3, 2, 4, 17, (1,)))
     x, operands = args[0], tuple(args[1:])
     with pytest.raises(NotImplementedError, match='up to 16'):
@@ -320,16 +371,18 @@ def test_df_wrappers_refuse_state_dims_above_48(monkeypatch):
 def test_df_rule_takes_the_tiled_pair_above_16(monkeypatch):
     """Above D = 16 the single-block pair refuses, so the rule names #11
     and #12 for the forward and the VJP at every L and N (the latent
-    width 20 of chip_smoke.py's DF steps among them), up to D = 48."""
+    widths 20 and 64 of chip_smoke.py's DF steps among them), at any D."""
     from vae_gp_ode_tpu_torch import ops
     monkeypatch.setattr(ops, '_properties', lambda index: (SMS, OPTIN))
     dev = torch.device('cuda', 0)
-    for D in (17, 20, 48):
+    for D in (17, 20, 48, 49, 64, 300):
         for L, N in ((1, 20), (5, 20), (1, 600), (5, 600)):
-            assert tdpt.pick_df(L, N, D, 256 * D, 100, SMS) == (True, True)
+            assert _pick_df(L, N, D, 256 * D, 100) == (True, True)
     assert tdpt.rule_kernels(5, 20, 20, 20 * 256, 100, dev) == (
         'df_pathwise_tiled_fwd', 'df_pathwise_tiled_bwd')
     assert tdpt.rule_kernels(1, 20, 20, 20 * 256, 100, dev) == (
+        'df_pathwise_tiled_fwd', 'df_pathwise_tiled_bwd')
+    assert tdpt.rule_kernels(5, 20, 64, 64 * 256, 100, dev) == (
         'df_pathwise_tiled_fwd', 'df_pathwise_tiled_bwd')
 
 
@@ -346,7 +399,7 @@ def test_wrappers_refuse_other_devices():
 Q, NF, S, M, N, T = 12, 4, 64, 16, 4, 8
 
 
-def _jax_wide_state(seed, kernel):
+def _jax_wide_state(seed, kernel, q=Q, s=S, m=M):
     """A JAX TrainState at q = 12 with random BatchNorm statistics, a
     random q(u) and well-conditioned grams: RBF lengthscales 0.7..1.3; DF
     lengthscales (1.5..2.5; main.py's default is 2) and variances
@@ -354,10 +407,11 @@ def _jax_wide_state(seed, kernel):
     lengthscales that differ much by pair). At DF lengthscales below 1 the
     12-dimensional field's ((D - 1) - r^2 / ls2) diagonal term makes the
     gradients reach 1e6 and f32 rounding moved them by 1e-3..3e-2 of a
-    leaf's largest in both packages on two seeds of three."""
+    leaf's largest in both packages on two seeds of three. q, s, m: the
+    latent width, features and inducing points (q = 12, S = 64, M = 16)."""
     model, variables, gp = jinit_model(
-        jax.random.PRNGKey(seed), latent_dim=Q, n_filt=NF, num_features=S,
-        num_inducing=M, kernel=kernel, batch=2, T=T)
+        jax.random.PRNGKey(seed), latent_dim=q, n_filt=NF, num_features=s,
+        num_inducing=m, kernel=kernel, batch=2, T=T)
     rng = np.random.default_rng(seed)
     stats = jax.tree.map(np.asarray, variables['batch_stats'])
     stats = {name: {bn: {'mean': 0.2 * rng.standard_normal(
@@ -365,8 +419,8 @@ def _jax_wide_state(seed, kernel):
         'var': rng.uniform(0.5, 1.5, s['var'].shape).astype(np.float32)}
         for bn, s in sub.items()} for name, sub in stats.items()}
     if kernel == 'DF':
-        ls = rng.uniform(1.5, 2.5) * (1 + 0.02 * rng.uniform(-1, 1, (Q, Q)))
-        var = rng.uniform(0.1, 0.3) * (1 + 0.02 * rng.uniform(-1, 1, Q))
+        ls = rng.uniform(1.5, 2.5) * (1 + 0.02 * rng.uniform(-1, 1, (q, q)))
+        var = rng.uniform(0.1, 0.3) * (1 + 0.02 * rng.uniform(-1, 1, q))
         kern = RBFParams(jnp.asarray(np.log(np.expm1(ls)), jnp.float32),
                          jnp.asarray(np.log(np.expm1(var)), jnp.float32))
     else:
@@ -375,33 +429,140 @@ def _jax_wide_state(seed, kernel):
             jnp.asarray(rng.uniform(-1.0, 0.0, (Q,)), jnp.float32))
     gp = gp.replace(
         kernel=kern,
-        Um=jnp.asarray(rng.standard_normal((M, Q)) * 0.3, jnp.float32),
+        Um=jnp.asarray(rng.standard_normal((m, q)) * 0.3, jnp.float32),
         Us_sqrt=gp.Us_sqrt * 50.0)
     variables = {'params': variables['params'], 'batch_stats': stats}
     state, _ = jtrainer.create_train_state(model, variables, gp, lr=1e-3)
     return model, state
 
 
-def _jax_wide_noise(key, L_, kernel):
+def _jax_wide_noise(key, L_, kernel, q=Q, s=S, m=M):
     """The raw draws the JAX forward takes from `key` (the key splits of
     ODEGPVAE.__call__, encode, sample_trajectories, draw_fn_sample and the
-    RFF draws), at q = 12 (the DF kernel draws 2S weights)."""
+    RFF draws), at latent width q (the DF kernel draws 2S weights)."""
     k_enc, k_traj = jax.random.split(key)
     k_s, _ = jax.random.split(k_enc)
-    noise = {'z0': jax.random.normal(k_s, (N, Q))}
+    noise = {'z0': jax.random.normal(k_s, (N, q))}
     draws = []
     for k in jax.random.split(k_traj, L_):
         k_rff, k_u = jax.random.split(k)
         k_om, k_ph, k_w = jax.random.split(k_rff, 3)
         draws.append({
-            'omega': jax.random.normal(k_om, (Q, S, Q)),
-            'phase_u': jax.random.uniform(k_ph, (1, S, Q)),
+            'omega': jax.random.normal(k_om, (q, s, q)),
+            'phase_u': jax.random.uniform(k_ph, (1, s, q)),
             'weights': jax.random.normal(
-                k_w, ((2 * S if kernel == 'DF' else S), Q)),
-            'epsilon': jax.random.normal(k_u, (M, Q), jnp.float32)})
+                k_w, ((2 * s if kernel == 'DF' else s), q)),
+            'epsilon': jax.random.normal(k_u, (m, q), jnp.float32)})
     for name in draws[0]:
         noise[name] = jnp.stack([d[name] for d in draws])
     return {k: torch.as_tensor(np.array(v)) for k, v in noise.items()}
+
+
+def _jax_step(model, jstate, X, key, L_):
+    """JAX's train step from `jstate` on X (L_ draws from `key`): loss,
+    (nll, kl_reg, kl_u), nfe and the gradients by the port's names."""
+    def jloss(params):
+        vae_params, gp = params
+        (Xrec, s_, v, nfe), _ = model.apply(
+            {'params': vae_params, 'batch_stats': jstate.batch_stats},
+            jnp.asarray(X), gp, key, L=L_, train=True,
+            mutable=['batch_stats'])
+        loss, nll, kl_reg, kl_u = jcompute_loss(
+            jnp.asarray(X), Xrec, s_, v, gp, ttr.NDATA, eps_guard=True)
+        return loss, (nll, kl_reg, kl_u, nfe)
+
+    (jl, jterms), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        (jstate.vae_params, jstate.gp))
+    return (float(jl), [float(t) for t in jterms[:3]], int(jterms[3]),
+            ttr._named(*jg))
+
+
+def _f32_draw(draw):
+    """`draw` (jax.random.normal or uniform) in f32, cast to float64: under
+    x64 the JAX step takes the same noise as its f32 run."""
+    def f32(key, shape=(), dtype=None, *args, **kwargs):
+        return draw(key, shape, jnp.float32, *args, **kwargs).astype(
+            jnp.float64)
+    return f32
+
+
+def _jax_step_x64(model, jstate, X, key, L_, monkeypatch):
+    """`_jax_step` in float64 (jax.enable_x64, as tests/test_x64_kernels.py
+    runs the JAX package), from the same state and noise."""
+    def cast(tree):
+        return jax.tree.map(lambda a: jnp.asarray(a, jnp.float64) if (
+            jnp.issubdtype(a.dtype, jnp.floating)) else a, tree)
+
+    with jax.enable_x64(), monkeypatch.context() as mp:
+        for name in ('normal', 'uniform'):
+            mp.setattr(jax.random, name, _f32_draw(getattr(jax.random, name)))
+        state = jstate.replace(vae_params=cast(jstate.vae_params),
+                               gp=cast(jstate.gp),
+                               batch_stats=cast(jstate.batch_stats))
+        return _jax_step(model, state, X.astype(np.float64), key, L_)
+
+
+def _port_step(jstate, X, noise, L_, q, s, kernel, dtype=torch.float32,
+               relu_in=None, relu_pin=None):
+    """The port's train step (plain path, CPU) from `jstate` in `dtype`:
+    loss, (nll, kl_reg, kl_u), nfe and the gradients by name, and the
+    state. `relu_in` (a dict) receives each ReLU's input; `relu_pin` (such
+    a dict from another run) makes each ReLU take that run's branch."""
+    st = train_state_from_jax(ttr._np_state(jstate), latent_dim=q,
+                              n_filt=NF, num_features=s, kernel=kernel,
+                              device='cpu')
+    gp = st.gp.detach()
+    st = trainer.TrainState(
+        model=st.model.to(dtype).train(), optimizer=None, step=None,
+        gp=dataclasses.replace(gp, kernel=dataclasses.replace(gp.kernel, **{
+            k: getattr(gp.kernel, k).to(dtype) for k in (
+                'unconstrained_lengthscales', 'unconstrained_variance')}),
+            **{k: getattr(gp, k).to(dtype) for k in (
+                'inducing_loc', 'Um', 'Us_sqrt')}).requires_grad_())
+
+    def relu_hook(name, inp):
+        if relu_in is not None:
+            assert name not in relu_in, f'{name} ran twice in one step'
+            relu_in[name] = inp[0].detach().double()
+        if relu_pin is not None:
+            return inp[0] * (relu_pin[name] > 0).to(inp[0].dtype)
+        return None
+
+    for name, mod in st.model.named_modules():
+        if isinstance(mod, torch.nn.ReLU):
+            mod.register_forward_hook(
+                lambda mod, inp, out, name=name: relu_hook(name, inp))
+    before = dict(ops.LAUNCHES)
+    loss, terms = trainer.loss_fn(
+        st, torch.as_tensor(X, dtype=dtype), L_, ttr.NDATA, True,
+        noise={k: v.to(dtype) for k, v in noise.items()})
+    loss.backward()
+    assert ops.LAUNCHES == before
+    grads = {n: p.grad.double().numpy()
+             for n, p in zip(st.param_names(), st.params())}
+    return (float(loss.detach()), [float(t.detach()) for t in terms[:3]],
+            int(terms[3]), grads, st)
+
+
+def _wide_step_matches(kernel, seed, q=Q, s=S, m=M):
+    """Loss, ELBO terms, nfe and every gradient of one train step (L=2)
+    with the euler flow through fn_eval against JAX's, from one state and
+    the same noise, at latent width q, s features and m inducing points."""
+    L_ = 2
+    model, jstate = _jax_wide_state(seed, kernel, q, s, m)
+    X = ttr._X(seed, n=N)[:, :T]
+    key = jax.random.PRNGKey(seed + 1)
+    jl, jterms, jnfe, ref = _jax_step(model, jstate, X, key, L_)
+    loss, terms, nfe, grads, st = _port_step(
+        jstate, X, _jax_wide_noise(key, L_, kernel, q, s, m), L_, q, s,
+        kernel)
+    np.testing.assert_allclose([loss] + terms, [jl] + jterms, rtol=1e-4)
+    assert nfe == jnfe == L_ * (T - 1)
+    assert sorted(grads) == sorted(ref)
+    scale = ttr._grad_scales(list(grads), ref, st.model)
+    for name, g in grads.items():
+        err = np.abs(g - ref[name]).max()
+        assert err <= ttr.GRAD_REL * scale[name], (name, err, scale[name])
 
 
 @pytest.mark.parametrize('kernel', ['RBF', 'DF'])
@@ -410,40 +571,74 @@ def test_wide_train_step_matches_jax(kernel, monkeypatch):
     q = 12 with the euler flow through fn_eval, the per-step eval that the
     dispatch rule routes on the card."""
     monkeypatch.setattr(tflow, 'use_fused_pair', lambda *a: False)
-    L_, seed = 2, 60 + (kernel == 'DF')
-    model, jstate = _jax_wide_state(seed, kernel)
+    _wide_step_matches(kernel, 60 + (kernel == 'DF'))
+
+
+# a ReLU unit whose branch the f32 and the float64 step disagree on must
+# have a float64 input within this share of its layer's largest |input|
+# (chip_smoke.py RELU_FLIP)
+RELU_FLIP = 1e-4
+# where the two packages' f32 gradients disagree, the port's may be at
+# most this many times as far from JAX's float64 gradient as JAX's own f32
+# one (chip_smoke.py F64_NOISE)
+F64_NOISE = 2.0
+
+
+@pytest.mark.parametrize('seed', range(64, 72))
+def test_df_train_step_matches_jax_at_latent_dim_64(seed, monkeypatch):
+    """A DF train step at latent_dim 64 (S = 16, M = 8, N = 4, L = 2),
+    which the card runs through the tiled pair's wide kernels (#11/#12)
+    and the JAX package through its plain scan: the port's plain path
+    against JAX's, same state and noise, on eight random states.
+
+    In float64 the two packages compute the same step: loss and ELBO terms
+    within 1e-9 relative, every gradient within 1e-9 of its leaf's
+    largest (two float64 runs that sum in other orders). In f32 the loss
+    and ELBO terms are within 1e-4 relative of JAX's, and every gradient
+    within 1e-4 of its leaf's largest of JAX's f32 gradient or, where the
+    two f32 steps disagree by more, no farther from JAX's float64 gradient
+    than 1e-4 or F64_NOISE times JAX's own f32 gradient: at this width
+    (gradients up to 2e5) f32 rounding in either package moves a leaf by
+    1e-4..3e-3 of its largest (JAX's f32 step on seed 64, the decoder
+    weights, 2.9e-3 from float64 where the port's is 1.2e-6; on seed 69
+    both packages' f32 steps 1.2e-4 from float64 at the inducing points).
+    The port's f32 step takes its float64 run's branch of every ReLU
+    unit, each unit on which the two runs' own inputs disagree being
+    within RELU_FLIP of 0 (on seed 69 one unit of the decoder, 7.9e-8 of
+    its layer's largest, whose other branch moved a decoder weight's
+    gradient by 4e-3)."""
+    monkeypatch.setattr(tflow, 'use_fused_pair', lambda *a: False)
+    q, s, m, L_ = 64, 16, 8, 2
+    model, jstate = _jax_wide_state(seed, 'DF', q, s, m)
     X = ttr._X(seed, n=N)[:, :T]
     key = jax.random.PRNGKey(seed + 1)
-
-    def jloss(params):
-        vae_params, gp = params
-        (Xrec, s, v, nfe), _ = model.apply(
-            {'params': vae_params, 'batch_stats': jstate.batch_stats},
-            jnp.asarray(X), gp, key, L=L_, train=True,
-            mutable=['batch_stats'])
-        loss, nll, kl_reg, kl_u = jcompute_loss(
-            jnp.asarray(X), Xrec, s, v, gp, ttr.NDATA, eps_guard=True)
-        return loss, (nll, kl_reg, kl_u, nfe)
-
-    (jl, jterms), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
-        (jstate.vae_params, jstate.gp))
-    tstate = train_state_from_jax(ttr._np_state(jstate), latent_dim=Q,
-                                  n_filt=NF, num_features=S, kernel=kernel,
-                                  device='cpu')
-    tstate.model.train()
-    before = dict(ops.LAUNCHES)
-    loss, terms = trainer.loss_fn(tstate, torch.as_tensor(X), L_,
-                                  ttr.NDATA, True,
-                                  noise=_jax_wide_noise(key, L_, kernel))
-    loss.backward()
-    assert ops.LAUNCHES == before
-    for a, b in zip((loss,) + terms[:3], (jl,) + jterms[:3]):
-        np.testing.assert_allclose(float(a.detach()), float(b), rtol=1e-4)
-    assert int(terms[3]) == int(jterms[3]) == L_ * (T - 1)
-    ref = ttr._named(*jg)
-    names = tstate.param_names()
-    assert sorted(names) == sorted(ref)
-    scale = ttr._grad_scales(names, ref, tstate.model)
-    for name, p in zip(names, tstate.params()):
-        err = np.abs(p.grad.numpy() - ref[name]).max()
-        assert err <= ttr.GRAD_REL * scale[name], (name, err, scale[name])
+    noise = _jax_wide_noise(key, L_, 'DF', q, s, m)
+    jl, jterms, jnfe, ref = _jax_step(model, jstate, X, key, L_)
+    jl64, jterms64, _, ref64 = _jax_step_x64(model, jstate, X, key, L_,
+                                             monkeypatch)
+    relu64, relu32 = {}, {}
+    loss64, terms64, _, grads64, st = _port_step(
+        jstate, X, noise, L_, q, s, 'DF', torch.float64, relu_in=relu64)
+    loss, terms, nfe, grads, _ = _port_step(
+        jstate, X, noise, L_, q, s, 'DF', relu_in=relu32, relu_pin=relu64)
+    assert sorted(grads) == sorted(ref) == sorted(ref64)
+    scale = ttr._grad_scales(list(grads), ref64, st.model)
+    np.testing.assert_allclose([loss64] + terms64, [jl64] + jterms64,
+                               rtol=1e-9)
+    for name, g in grads64.items():
+        err = np.abs(g - ref64[name]).max()
+        assert err <= 1e-9 * scale[name], ('float64', name, err)
+    np.testing.assert_allclose([loss] + terms, [jl] + jterms, rtol=1e-4)
+    assert nfe == jnfe == L_ * (T - 1)
+    for name, a in relu32.items():
+        b = relu64[name]
+        flip = (a > 0) != (b > 0)
+        assert not flip.any() or float(
+            b[flip].abs().max()) <= RELU_FLIP * float(b.abs().max()), name
+    for name, g in grads.items():
+        err = np.abs(g - ref[name]).max()
+        if err > ttr.GRAD_REL * scale[name]:
+            err = np.abs(g - ref64[name]).max()
+            noise = np.abs(ref[name] - ref64[name]).max()
+            assert err <= max(ttr.GRAD_REL * scale[name], F64_NOISE * noise), (
+                name, err, noise, scale[name])

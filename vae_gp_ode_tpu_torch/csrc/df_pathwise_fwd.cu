@@ -68,123 +68,6 @@ int smem_floats(int R, int D) {
          dfc::kMaxCluster * R * D;
 }
 
-// This thread's share of f at the R rows xs over the block's items, each
-// inducing point as D (point, output) items, or for whole_points as one.
-template <int R, int DMAX>
-__device__ void eval_items(const df::Draw& p, const float* xs,
-                           const float* par, int D, int SD,
-                           const dfc::Share& sh, bool whole_points,
-                           float (&acc)[R][DMAX]) {
-  const float* inv = par;
-  const float* var = par + D * D;
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int i = 0; i < DMAX; ++i) acc[r][i] = 0.f;
-  const int items = sh.items(whole_points ? 1 : D);
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    if (it < sh.cn) {
-      // ORFF prior: feature column c for all D outputs
-      const int c = sh.c0 + it;
-      float u[R];
-      const float ph = __ldg(p.phf + c);
-#pragma unroll
-      for (int r = 0; r < R; ++r) u[r] = ph;
-      for (int d = 0; d < D; ++d) {
-        const float o = __ldg(p.omf + (long long)d * SD + c);
-#pragma unroll
-        for (int r = 0; r < R; ++r) u[r] = fmaf(xs[r * D + d], o, u[r]);
-      }
-      float gc[DMAX], gs[DMAX];
-#pragma unroll
-      for (int i = 0; i < DMAX; ++i) {
-        gc[i] = i < D ? __ldg(p.G + (long long)c * D + i) : 0.f;
-        gs[i] = i < D ? __ldg(p.G + ((long long)SD + c) * D + i) : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        float sn, cs;
-        sincosf(u[r], &sn, &cs);
-#pragma unroll
-        for (int i = 0; i < DMAX; ++i)
-          acc[r][i] = fmaf(cs, gc[i], fmaf(sn, gs[i], acc[r][i]));
-      }
-    } else if (whole_points) {
-      // matrix-valued update: all D^2 pairs (j, i) of point m (in a
-      // cluster of one block the (point, output) items below took 5.0%
-      // and 8.4% longer at the two shapes above)
-      const int m = sh.m0 + it - sh.cn;
-      float zm[DMAX], nu[DMAX];
-#pragma unroll
-      for (int k = 0; k < DMAX; ++k) {
-        zm[k] = k < D ? __ldg(p.z + (long long)m * D + k) : 0.f;
-        nu[k] = k < D ? __ldg(p.nur + (long long)m * D + k) : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        float dk[DMAX];
-        float sq = 0.f;
-#pragma unroll
-        for (int k = 0; k < DMAX; ++k) {
-          dk[k] = k < D ? xs[r * D + k] - zm[k] : 0.f;
-          sq = fmaf(dk[k], dk[k], sq);
-        }
-#pragma unroll (DMAX <= 8 ? DMAX : 1)
-        for (int i = 0; i < DMAX; ++i) {
-          if (i >= D) continue;
-          float s = 0.f;
-#pragma unroll (DMAX <= 8 ? DMAX : 1)
-          for (int j = 0; j < DMAX; ++j) {
-            if (j >= D) continue;
-            const float iv = inv[j * D + i];
-            const float E = expf(-0.5f * sq * iv);
-            float base = dk[j] * dk[i] * iv;
-            if (i == j) base += (float)(D - 1) - sq * iv;
-            s = fmaf(E * base * (var[i] * iv), nu[j], s);
-          }
-          acc[r][i] += s;
-        }
-      }
-    } else {
-      // matrix-valued update: point m's pairs (j, i) for output i
-      const int q = it - sh.cn;
-      const int m = sh.m0 + q / D, i = q % D;
-      float zm[DMAX], nu[DMAX];
-#pragma unroll
-      for (int k = 0; k < DMAX; ++k) {
-        zm[k] = k < D ? __ldg(p.z + (long long)m * D + k) : 0.f;
-        nu[k] = k < D ? __ldg(p.nur + (long long)m * D + k) : 0.f;
-      }
-      const float zi = __ldg(p.z + (long long)m * D + i);
-      const float vi = var[i];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        float dk[DMAX];
-        float sq = 0.f;
-#pragma unroll
-        for (int k = 0; k < DMAX; ++k) {
-          dk[k] = k < D ? xs[r * D + k] - zm[k] : 0.f;
-          sq = fmaf(dk[k], dk[k], sq);
-        }
-        const float di = xs[r * D + i] - zi;
-        float s = 0.f;
-#pragma unroll
-        for (int j = 0; j < DMAX; ++j) {
-          if (j >= D) continue;
-          const float iv = inv[j * D + i];
-          const float E = expf(-0.5f * sq * iv);
-          float base = dk[j] * di * iv;
-          if (i == j) base += (float)(D - 1) - sq * iv;
-          s = fmaf(E * base * (vi * iv), nu[j], s);
-        }
-#pragma unroll
-        for (int ii = 0; ii < DMAX; ++ii)
-          if (ii == i) acc[r][ii] += s;
-      }
-    }
-  }
-}
-
 template <int R, int DMAX>
 __global__ void __launch_bounds__(dfc::kThreads, 2)
     df_pathwise_fwd_kernel(FwdArgs a) {
@@ -215,7 +98,7 @@ __global__ void __launch_bounds__(dfc::kThreads, 2)
   __syncthreads();
 
   float acc[R][DMAX];
-  eval_items<R, DMAX>(p, xs, par, D, a.SD, sh, C == 1, acc);
+  dfc::eval_items<R, DMAX>(p, xs, par, D, a.SD, sh, C == 1, acc);
   dfc::block_sums<R, DMAX>(acc, 0.f, D, RD, red, part);
   float* out = a.out + (l * N + r0) * D;
   if (C == 1) {

@@ -4,8 +4,8 @@
 // Replaces the Pallas kernel `_bwd_kernel` of
 // vae_gp_ode_tpu/ops/df_pathwise_tiled.py. It computes what autograd
 // through `df_pathwise_reference` computes for a cotangent g (L, N, D), the
-// same function as df_pathwise_bwd.cu (df_common.cuh `vjp_accumulate`
-// states the terms), recomputing the forward intermediates, with the DF
+// same function as df_pathwise_bwd.cu (whose item loop states the terms),
+// recomputing the forward intermediates, with the DF
 // quirks kept (unscaled distances, the (D, D) ls2 envelope, the
 // ((D - 1) - r2 / ls2) diagonal, nu points-major).
 //
@@ -43,15 +43,17 @@
 // over the draws where its operand is shared by all draws (stride 0); so a
 // call costs the host one library call and no PyTorch reductions. No
 // atomics: two launches on the same inputs give the same bits. Any N, S and
-// M is taken. The widest state dim is a template parameter DMAX of the
-// blocks: instances for D <= 16 (D = 6 and 12 unrolled, and a generic
-// one), and a generic one for 16 < D <= 48 (kMaxWideD; every D that the
-// JAX package's `df_tiled_fits` admits at S = 256, M = 100), whose shared
-// memory is dynamic (~68 KB) and whose per-column and per-point arrays
-// of 48 floats spill to local memory: right, not tuned. D above 48 is
-// refused.
+// M is taken, and any D. The widest state dim is a template parameter
+// DMAX of the blocks: instances for D <= 16 (D = 6 and 12 unrolled, and a
+// generic one), and DT = DMAX = 0, the wide kernel for every D above 16,
+// whose per-thread arrays run over output-dim tiles of a fixed width kW
+// and whose shared memory is dynamic, sized at launch, with 1/ls2 and a
+// chunk's omf read through L2 where they would not fit. A shape is
+// refused only where the grid or a block's rows exceed the card's limits.
 //
-// The design it replaced: D update blocks per draw of one thread per
+// The designs it replaced: up to D = 48 an instance with per-thread arrays
+// of 48 floats (spilled: 145 us at L=5, N=20, D=20, S=256 on an H100), D
+// above refused; before, D update blocks per draw of one thread per
 // inducing point, each walking all N rows and D pairs with its pair loop
 // not unrolled at D > 8, and chunk blocks with six register arrays of 16
 // floats (161 registers, one block per SM) and a block reduction per 2
@@ -68,7 +70,6 @@ constexpr int kRows = 8;           // rows per tile of a chunk block
 constexpr int kChunk = kThreads;   // feature columns per chunk block
 constexpr int kPad = kChunk + 8;   // row stride of du and omf in shared memory
 constexpr int kUpdRows = 4;        // rows per update block
-constexpr int kMaxWideD = 48;      // the wide instance's widest state dim
 
 struct BwdArgs {
   const float* x;    // (N, D) per draw at x_ls
@@ -94,6 +95,7 @@ struct BwdArgs {
   float* dls2;       // ([L,] D, D)
   float* dvar;       // ([L,] D)
   int L, N, D, SD, M, n_chunks, n_mc, n_rt;
+  int wide_par;       // the wide kernel: 1/ls2 | var in shared memory
 };
 
 template <int DMAX>
@@ -118,8 +120,6 @@ union Smem {
   UpdSmem<DMAX> u;
 };
 
-// Bytes of the wide instance's dynamic shared memory.
-constexpr size_t kWideSmem = sizeof(Smem<kMaxWideD>);
 
 // The update term of kUpdRows rows (tile rt) and the block's inducing
 // points (chunk mc).
@@ -399,20 +399,470 @@ __device__ __forceinline__ void run_block(const BwdArgs& a, Smem<DMAX>& sm,
 }
 
 // DT: the state dim the block loops are unrolled for (0: any D <= DMAX);
-// DMAX: the widest state dim of the instance, 16 or kMaxWideD, whose Smem
-// (kWideSmem bytes) is dynamic shared memory.
+// DMAX: the widest state dim of the instance, 16 (DT = DMAX = 0: the wide
+// kernel below, for any D above 16).
 template <int DT, int DMAX>
 __global__ void __launch_bounds__(kThreads, DT ? 2 : 1)
     df_pathwise_tiled_bwd_kernel(BwdArgs a) {
   __shared__ float xs[kRows * DMAX];
   __shared__ float gsm[kRows * DMAX];
-  if constexpr (DMAX > 16) {
-    extern __shared__ float smem[];
-    run_block<DT, DMAX>(a, *reinterpret_cast<Smem<DMAX>*>(smem), xs, gsm);
-  } else {
-    __shared__ __align__(16) Smem<DMAX> sm;
-    run_block<DT, DMAX>(a, sm, xs, gsm);
+  __shared__ __align__(16) Smem<DMAX> sm;
+  run_block<DT, DMAX>(a, sm, xs, gsm);
+}
+
+// -- the blocks for any state dim above 16 ------------------------------------
+//
+// Per-thread arrays have the fixed width kW (a tile of output dims), so
+// none grows with D; the shared memory is dynamic, sized at launch
+// (wide_smem_floats), with 1/ls2 | var in it where they fit the opt-in
+// limit (a.wide_par), else read through L2. A feature column takes at
+// most a block's threads, kW dims each: D up to kThreads kW = 2,048 (at
+// M = 100 inducing points the reference's (M D)^2 gram is then 168 GB,
+// past the card's memory); above, the layout refuses.
+
+constexpr int kW = 8;   // output dims per tile of the wide blocks
+
+__device__ __forceinline__ float wide_inv(const float* par, const float* ls2,
+                                          int D, int j, int i) {
+  return par ? par[j * D + i] : 1.f / __ldg(ls2 + j * D + i);
+}
+
+// Inducing points per wide update block: every (point, output) item a
+// thread, one point above D = kThreads (its items in rounds of kThreads).
+__host__ __device__ __forceinline__ int wide_points(int D) {
+  return D <= kThreads ? kThreads / D : 1;
+}
+
+// The per-tile sums of the wide update block: the items' dx terms ddr[r]
+// over the block (warp shuffles, then the warps) added into dxacc [r][j];
+// dnu and dz over a point's items in this round added into nuacc and zacc
+// [point][j]; the ls2 cotangent of (j, i) over the round's points written
+// to dpar[j * D + i] (each i lies in one round). Items it = round * nt +
+// tid are (point it / D, output it % D); buf rows are nt + 1 floats apart,
+// so a warp's reads of kW rows hit distinct banks.
+__device__ __forceinline__ void wide_tile_sums(
+    float (&ddr)[kUpdRows][kW], const float (&dnu)[kW], const float (&dl)[kW],
+    const float (&dz)[kW], int j0, int D, int cnt, int round, float* buf,
+    float* redx, float* dxacc, float* nuacc, float* zacc, float* dpar) {
+  const int tid = threadIdx.x, nt = blockDim.x, bs = nt + 1;
+  const int lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int r = 0; r < kUpdRows; ++r)
+#pragma unroll
+    for (int jj = 0; jj < kW; ++jj) {
+      const float v = df::warp_sum(ddr[r][jj]);
+      if (lane == 0) redx[(warp * kUpdRows + r) * kW + jj] = v;
+    }
+#pragma unroll
+  for (int jj = 0; jj < kW; ++jj) {
+    buf[jj * bs + tid] = dnu[jj];
+    buf[(kW + jj) * bs + tid] = dl[jj];
+    buf[(2 * kW + jj) * bs + tid] = dz[jj];
   }
+  __syncthreads();
+  const int base = round * nt;   // the round's first item
+  for (int t = tid; t < kUpdRows * kW; t += nt) {
+    const int r = t / kW, jj = t % kW;
+    if (j0 + jj >= D) continue;
+    float v = 0.f;
+    for (int w = 0; w < df::kWarps; ++w)
+      v += redx[(w * kUpdRows + r) * kW + jj];
+    dxacc[r * D + j0 + jj] += v;
+  }
+  for (int t = tid; t < cnt * kW; t += nt) {
+    const int ml = t / kW, jj = t % kW;
+    if (j0 + jj >= D) continue;
+    // this round's items of point ml
+    const int lo = max(0, ml * D - base);
+    const int hi = min(nt, min((ml + 1) * D, cnt * D) - base);
+    float snu = 0.f, sz = 0.f;
+    for (int q = lo; q < hi; ++q) {
+      snu += buf[jj * bs + q];
+      sz += buf[(2 * kW + jj) * bs + q];
+    }
+    nuacc[ml * D + j0 + jj] += snu;
+    zacc[ml * D + j0 + jj] += sz;
+  }
+  // the round's outputs i and, for each, its items over the points
+  const int i_lo = D <= nt ? 0 : base;
+  const int i_n = D <= nt ? D : min(nt, D - base);
+  for (int t = tid; t < kW * i_n; t += nt) {
+    const int jj = t / i_n, i = i_lo + t % i_n;
+    if (j0 + jj >= D) continue;
+    float sl = 0.f;
+    for (int ml = 0; ml < cnt; ++ml) {
+      const int q = ml * D + i - base;
+      if (q >= 0 && q < nt) sl += buf[(kW + jj) * bs + q];
+    }
+    dpar[(j0 + jj) * D + i] = sl;
+  }
+  __syncthreads();
+}
+
+// The update term of kUpdRows rows (tile rt) and the block's inducing
+// points (chunk mc) at any D above 16: thread (point, output i) walks the
+// columns j in tiles of kW with the rows inside; its dx / dZ terms
+// 2 (x - z)_k sqb + [k == i] ddi of every dim k are added afterwards,
+// sqb summed over each point's items first.
+__device__ void update_block_wide(const BwdArgs& a, long long l, int rt,
+                                  int mc, float* sm) {
+  const int D = a.D, N = a.N, M = a.M;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int MU = wide_points(D);
+  const int m0 = mc * MU;
+  const int cnt = min(MU, M - m0);
+  const int r0 = rt * kUpdRows;
+  const int rows = min(kUpdRows, N - r0);
+  const int RD = kUpdRows * D;
+  const float* ls2 = a.ls2 + l * a.ls2_ls;
+  const float* varp = a.var + l * a.var_ls;
+  float* xs = sm;                              // RD
+  float* gsm = xs + RD;                        // RD
+  float* zsm = gsm + RD;                       // MU * D
+  float* nsm = zsm + MU * D;                   // MU * D
+  float* nuacc = nsm + MU * D;                 // MU * D
+  float* zacc = nuacc + MU * D;                // MU * D
+  float* ddis = zacc + MU * D;                 // kUpdRows * MU * D
+  float* dxacc = ddis + kUpdRows * MU * D;     // RD
+  float* sqs = dxacc + RD;                     // kUpdRows * MU
+  float* sacc = sqs + kUpdRows * MU;           // kUpdRows * MU
+  float* sqbs = sacc + kUpdRows * MU;          // kUpdRows * nt
+  float* buf = sqbs + kUpdRows * nt;           // 3 kW (nt + 1)
+  float* redx = buf + 3 * kW * (nt + 1);       // kWarps kUpdRows kW
+  float* dvb = redx + df::kWarps * kUpdRows * kW;   // nt
+  float* par = a.wide_par ? dvb + nt : nullptr;     // D * D + D
+  if (par) df::load_par(par, ls2, varp, D);
+  const float* x = a.x + l * a.x_ls + (long long)r0 * D;
+  const float* g = a.g + (l * N + r0) * D;
+  const float* z = a.z + l * a.z_ls + (long long)m0 * D;
+  const float* nur = a.nur + l * a.nur_ls + (long long)m0 * D;
+  for (int t = tid; t < RD; t += nt) {
+    xs[t] = t < rows * D ? x[t] : 0.f;
+    gsm[t] = t < rows * D ? g[t] : 0.f;
+    dxacc[t] = 0.f;
+  }
+  for (int t = tid; t < MU * D; t += nt) {
+    zsm[t] = t < cnt * D ? z[t] : 0.f;
+    nsm[t] = t < cnt * D ? nur[t] : 0.f;
+    nuacc[t] = zacc[t] = 0.f;
+  }
+  __syncthreads();
+  for (int t = tid; t < kUpdRows * MU; t += nt) {
+    const int r = t / MU, ml = t % MU;
+    float sq = 0.f;
+    for (int k = 0; k < D; ++k) {
+      const float dk = xs[r * D + k] - zsm[ml * D + k];
+      sq = fmaf(dk, dk, sq);
+    }
+    sqs[t] = sq;
+    sacc[t] = 0.f;
+  }
+  __syncthreads();
+
+  float* out = a.upd + (l * a.n_rt + rt) *
+                           (2LL * M * D + (long long)a.n_mc * (D * D + D));
+  float* dpar = out + 2LL * M * D + (long long)mc * (D * D + D);
+  const int rounds = (MU * D + nt - 1) / nt;
+  for (int round = 0; round < rounds; ++round) {
+    const int it = round * nt + tid;
+    const bool own = it < cnt * D;
+    const int ml = own ? it / D : 0, i = own ? it % D : 0;
+    const float vi = !own ? 0.f : par ? par[D * D + i] : __ldg(varp + i);
+    const float* zm = zsm + ml * D;
+    const float* nu = nsm + ml * D;
+    float di[kUpdRows], gi[kUpdRows], sqv[kUpdRows], sqb[kUpdRows],
+        ddi[kUpdRows];
+#pragma unroll
+    for (int r = 0; r < kUpdRows; ++r) {
+      di[r] = xs[r * D + i] - zm[i];
+      gi[r] = own ? gsm[r * D + i] : 0.f;
+      sqv[r] = sqs[r * MU + ml];
+      sqb[r] = ddi[r] = 0.f;
+    }
+    float dv = 0.f;
+    for (int j0 = 0; j0 < D; j0 += kW) {
+      float dnu[kW], dl[kW], dz[kW], ddr[kUpdRows][kW];
+#pragma unroll
+      for (int jj = 0; jj < kW; ++jj) {
+        dnu[jj] = dl[jj] = dz[jj] = 0.f;
+#pragma unroll
+        for (int r = 0; r < kUpdRows; ++r) ddr[r][jj] = 0.f;
+      }
+#pragma unroll
+      for (int jj = 0; jj < kW; ++jj) {
+        const int j = j0 + jj;
+        if (!own || j >= D) continue;
+        const float iv = wide_inv(par, ls2, D, j, i);
+        const float nj = nu[j];
+#pragma unroll
+        for (int r = 0; r < kUpdRows; ++r) {
+          const float dkj = xs[r * D + j] - zm[j];
+          const float sq = sqv[r];
+          const float E = expf(-0.5f * sq * iv);
+          const float dji = dkj * di[r];
+          float base = dji * iv;
+          if (i == j) base += (float)(D - 1) - sq * iv;
+          const float c1 = vi * iv;
+          const float contrib = E * base * c1;
+          dnu[jj] = fmaf(contrib, gi[r], dnu[jj]);
+          const float dcon = gi[r] * nj;
+          const float Eb = dcon * base * c1;
+          const float bb = dcon * E * c1;
+          const float cb = dcon * E * base;
+          sqb[r] = fmaf(Eb * E, -0.5f * iv, sqb[r]);
+          float ivb = -0.5f * Eb * E * sq + bb * dji + cb * vi;
+          const float ddj = bb * di[r] * iv;
+          ddi[r] = fmaf(bb * dkj, iv, ddi[r]);
+          if (i == j) {
+            sqb[r] -= bb * iv;
+            ivb -= bb * sq;
+          }
+          dv = fmaf(cb, iv, dv);
+          dl[jj] -= ivb * iv * iv;
+          ddr[r][jj] = ddj;
+          dz[jj] -= ddj;
+        }
+      }
+      wide_tile_sums(ddr, dnu, dl, dz, j0, D, cnt, round, buf, redx, dxacc,
+                     nuacc, zacc, dpar);
+    }
+    // the item's terms 2 (x - z)_k sqb + [k == i] ddi of every dim k: sqb
+    // summed over the point's items here, ddi kept per item, both added
+    // below for every (row, k) and (point, k) at once
+#pragma unroll
+    for (int r = 0; r < kUpdRows; ++r) {
+      sqbs[r * nt + tid] = own ? sqb[r] : 0.f;
+      if (own) ddis[r * MU * D + it] = ddi[r];
+    }
+    dvb[tid] = dv;
+    __syncthreads();
+    const int base = round * nt;
+    for (int t = tid; t < kUpdRows * cnt; t += nt) {
+      const int r = t / cnt, ml = t % cnt;
+      const int lo = max(0, ml * D - base);
+      const int hi = min(nt, (ml + 1) * D - base);
+      float sb = 0.f;
+      for (int q = lo; q < hi; ++q) sb += sqbs[r * nt + q];
+      sacc[r * MU + ml] += sb;
+    }
+    // var_i over the round's points
+    const int i_lo = D <= nt ? 0 : base;
+    const int i_n = D <= nt ? D : min(nt, D - base);
+    for (int t = tid; t < i_n; t += nt) {
+      float sv = 0.f;
+      for (int m2 = 0; m2 < cnt; ++m2) {
+        const int q = m2 * D + i_lo + t - base;
+        if (q >= 0 && q < nt) sv += dvb[q];
+      }
+      dpar[D * D + i_lo + t] = sv;
+    }
+    __syncthreads();
+  }
+  // dx[r, k] += sum over the points of 2 (x_r - z_m)_k S_m[r] + ddi of
+  // item (m, k); dZ[m, k] -= the same summed over the rows
+  for (int t = tid; t < RD; t += nt) {
+    const int r = t / D, k = t % D;
+    float v = 0.f;
+    for (int ml = 0; ml < cnt; ++ml)
+      v += fmaf(2.f * (xs[t] - zsm[ml * D + k]), sacc[r * MU + ml],
+                ddis[r * MU * D + ml * D + k]);
+    dxacc[t] += v;
+  }
+  for (int t = tid; t < cnt * D; t += nt) {
+    const int ml = t / D, k = t % D;
+    float v = 0.f;
+#pragma unroll
+    for (int r = 0; r < kUpdRows; ++r)
+      v += fmaf(2.f * (xs[r * D + k] - zsm[t]), sacc[r * MU + ml],
+                ddis[r * MU * D + t]);
+    zacc[t] -= v;
+  }
+  __syncthreads();
+
+  const int n_slots = a.n_mc + a.n_chunks;
+  float* dx = a.dx_slab + ((l * n_slots + mc) * N + r0) * (long long)D;
+  for (int t = tid; t < rows * D; t += nt) dx[t] = dxacc[t];
+  for (int t = tid; t < cnt * D; t += nt) {
+    out[(long long)m0 * D + t] = zacc[t];
+    out[(long long)M * D + (long long)m0 * D + t] = nuacc[t];
+  }
+}
+
+// The wide chunk blocks give a feature column wide_tpc(D) threads, each
+// with kW of the D output dims, and take wide_cpb(D) columns (a chunk).
+__host__ __device__ __forceinline__ int wide_tpc(int D) {
+  return (D + kW - 1) / kW;
+}
+__host__ __device__ __forceinline__ int wide_cpb(int D) {
+  return kThreads / wide_tpc(D);
+}
+
+// The ORFF prior's VJP over the feature columns of chunk ch, for all N
+// rows in tiles of kRows, at any D above 16 (up to kThreads kW): thread
+// (column, t) holds omf, the G rows and the cotangent sums of the
+// column's dims k in [t kW, (t + 1) kW) in registers for the whole walk;
+// per tile its partial dot products x . omf and g . G over those dims meet
+// the column's other threads' in shared memory (every thread adds them in
+// the same order, so all hold the same u and du), one sincosf per (row,
+// column) and thread, and the tile's dx = du . omf^T is a product over
+// the chunk's columns from omf and du in shared memory.
+__device__ void chunk_block_wide(const BwdArgs& a, long long l, int ch,
+                                 float* sm) {
+  const int D = a.D, N = a.N, SD = a.SD;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int TPC = wide_tpc(D), CPB = wide_cpb(D);
+  const int col = tid / TPC, t = tid % TPC, k0 = t * kW;
+  const int cq = (col < CPB ? col : 0) * TPC;   // the column's first thread
+  const int c0 = ch * CPB;
+  const int cnt = min(CPB, SD - c0);
+  const bool own = col < cnt;
+  const int c = c0 + col;
+  const float* omf = a.omf + l * a.omf_ls;
+  const float* G = a.G + l * a.G_ls;
+  const float* x = a.x + l * a.x_ls;
+  const float* g = a.g + l * N * D;
+  float* xs = sm;                       // kRows * D
+  float* gsm = xs + kRows * D;          // kRows * D
+  float* om = gsm + kRows * D;          // [d][column], D * CPB
+  float* du = om + D * CPB;             // [r][column], kRows * CPB
+  float* trig = du + kRows * CPB;       // [cos | sin][r][column]
+  float* ex = trig + 2 * kRows * CPB;   // [3][r][thread] partial sums
+  for (int e = tid; e < D * CPB; e += nt) {
+    const int d = e / CPB, cc = e % CPB;
+    om[e] = cc < cnt ? __ldg(omf + (long long)d * SD + c0 + cc) : 0.f;
+  }
+  float om_r[kW], gc[kW], gs[kW], ob[kW], gcb[kW], gsb[kW];
+#pragma unroll
+  for (int kk = 0; kk < kW; ++kk) {
+    const int k = k0 + kk;
+    const bool use = own && k < D;
+    om_r[kk] = use ? __ldg(omf + (long long)k * SD + c) : 0.f;
+    gc[kk] = use ? __ldg(G + (long long)c * D + k) : 0.f;
+    gs[kk] = use ? __ldg(G + ((long long)SD + c) * D + k) : 0.f;
+    ob[kk] = gcb[kk] = gsb[kk] = 0.f;
+  }
+  const float ph = own ? __ldg(a.phf + l * a.phf_ls + c) : 0.f;
+  float pb = 0.f;
+  const int n_slots = a.n_mc + a.n_chunks;
+  float* dx = a.dx_slab + (l * n_slots + a.n_mc + ch) * (long long)N * D;
+
+  for (int t0 = 0; t0 < N; t0 += kRows) {
+    const int rows = min(kRows, N - t0);
+    __syncthreads();  // the previous tile's product has read xs and du
+    for (int e = tid; e < kRows * D; e += nt) {
+      xs[e] = e < rows * D ? x[(long long)t0 * D + e] : 0.f;
+      gsm[e] = e < rows * D ? g[(long long)t0 * D + e] : 0.f;
+    }
+    __syncthreads();
+    // u = x . omf[:, c] + phf[c] from the column's threads' partials;
+    // columns past SD carry u = 0 and G = 0, rows past N g = 0, so their
+    // du is 0
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      float p = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kW; ++kk)
+        if (k0 + kk < D) p = fmaf(xs[r * D + k0 + kk], om_r[kk], p);
+      ex[r * nt + tid] = p;
+    }
+    __syncthreads();
+    // one sincosf per (row, column): row r by the column's thread r % TPC
+    if (col < CPB)
+      for (int r = t; r < kRows; r += TPC) {
+        float u = ph;
+        for (int q = 0; q < TPC; ++q) u += ex[r * nt + cq + q];
+        sincosf(u, &trig[(kRows + r) * CPB + col], &trig[r * CPB + col]);
+      }
+    __syncthreads();
+    const int cc0 = cq / TPC;   // this thread's column (0 for an idle one)
+    float cs[kRows], sn[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      cs[r] = trig[r * CPB + cc0];
+      sn[r] = trig[(kRows + r) * CPB + cc0];
+      float dcp = 0.f, dsp = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kW; ++kk)
+        if (k0 + kk < D) {
+          const float gg = gsm[r * D + k0 + kk];
+          gcb[kk] = fmaf(cs[r], gg, gcb[kk]);
+          gsb[kk] = fmaf(sn[r], gg, gsb[kk]);
+          dcp = fmaf(gg, gc[kk], dcp);
+          dsp = fmaf(gg, gs[kk], dsp);
+        }
+      ex[(kRows + r) * nt + tid] = dcp;
+      ex[(2 * kRows + r) * nt + tid] = dsp;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      float dc = 0.f, ds = 0.f;
+      for (int q = 0; q < TPC; ++q) {
+        dc += ex[(kRows + r) * nt + cq + q];
+        ds += ex[(2 * kRows + r) * nt + cq + q];
+      }
+      const float v = cs[r] * ds - sn[r] * dc;   // du of row r
+#pragma unroll
+      for (int kk = 0; kk < kW; ++kk)
+        if (k0 + kk < D) ob[kk] = fmaf(xs[r * D + k0 + kk], v, ob[kk]);
+      if (t == 0) {
+        pb += v;
+        if (col < CPB) du[r * CPB + col] = v;
+      }
+    }
+    __syncthreads();
+    // dx[t0 + r, d] = sum over the chunk's columns of du[r, c] omf[d, c]
+    for (int e = tid; e < rows * D; e += nt) {
+      const float* dur = du + (e / D) * CPB;
+      const float* omr = om + (e % D) * CPB;
+      float v = 0.f;
+      for (int cc = 0; cc < cnt; ++cc) v = fmaf(dur[cc], omr[cc], v);
+      dx[(long long)t0 * D + e] = v;
+    }
+  }
+  if (own) {
+#pragma unroll
+    for (int kk = 0; kk < kW; ++kk)
+      if (k0 + kk < D) {
+        float* dG = a.dG + l * 2LL * SD * D;
+        dG[(long long)c * D + k0 + kk] = gcb[kk];
+        dG[((long long)SD + c) * D + k0 + kk] = gsb[kk];
+        a.domf[(l * D + k0 + kk) * SD + c] = ob[kk];
+      }
+    if (t == 0) a.dphf[l * SD + c] = pb;
+  }
+}
+
+// DT = DMAX = 0, the wide kernel: the blocks for any state dim above 16.
+template <>
+__global__ void __launch_bounds__(kThreads)
+    df_pathwise_tiled_bwd_kernel<0, 0>(BwdArgs a) {
+  extern __shared__ float smem[];
+  long long b = blockIdx.x;
+  const long long n_upd = (long long)a.L * a.n_rt * a.n_mc;
+  if (b < n_upd) {
+    const int mc = (int)(b % a.n_mc);
+    b /= a.n_mc;
+    update_block_wide(a, b / a.n_rt, (int)(b % a.n_rt), mc, smem);
+  } else {
+    b -= n_upd;
+    chunk_block_wide(a, b / a.n_chunks, (int)(b % a.n_chunks), smem);
+  }
+}
+
+// Floats of the wide kernel's dynamic shared memory at state dim D, with
+// 1/ls2 | var (par) in it or not.
+long long wide_smem_floats(int D, bool par) {
+  const long long MU = wide_points(D), RD = (long long)kUpdRows * D;
+  const long long upd = 3 * RD + (4 + kUpdRows) * MU * D +
+                        2 * kUpdRows * MU + kUpdRows * kThreads +
+                        3LL * kW * (kThreads + 1) +
+                        df::kWarps * kUpdRows * kW + kThreads +
+                        (par ? (long long)D * D + D : 0);
+  const long long cpb = wide_cpb(D);
+  const long long chunk = 2LL * kRows * D + (D + 3 * kRows) * cpb +
+                          3LL * kRows * kThreads;
+  return upd > chunk ? upd : chunk;
 }
 
 // dx, dZ, dnur, dls2 and dvar from the slabs: the first blocks give each
@@ -479,17 +929,20 @@ static_assert(kChunk % 8 == 0 && kPad % 4 == 0,
 // inducing-point chunks, update row tiles); zeros for a D it refuses.
 extern "C" void df_pathwise_tiled_bwd_layout(int N, int D, int SD, int M,
                                              int* out) {
-  const bool ok = D >= 1 && D <= kMaxWideD && N >= 1 && SD >= 1 && M >= 1;
-  const int MU = ok ? kThreads / D : 1;
-  out[0] = ok ? (SD + kChunk - 1) / kChunk : 0;
+  const bool ok = D >= 1 && D <= kThreads * kW && N >= 1 && SD >= 1 &&
+                  M >= 1;
+  const int MU = ok ? wide_points(D) : 1;
+  const int chunk = D <= 16 ? kChunk : ok ? wide_cpb(D) : 1;
+  out[0] = ok ? (SD + chunk - 1) / chunk : 0;
   out[1] = ok ? (M + MU - 1) / MU : 0;
   out[2] = ok ? (N + kUpdRows - 1) / kUpdRows : 0;
 }
 
 // Launches the VJP kernel and its finishing sums on `stream` and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for shapes it does not take
-// (D above 48, a layout other than df_pathwise_tiled_bwd_layout's, a grid
-// past its limit). Operands as in df_pathwise_tiled_fwd; g is (L, N, D);
+// (a layout other than df_pathwise_tiled_bwd_layout's, a grid past its
+// limit, a state dim whose rows do not fit a block's opt-in shared
+// memory). Operands as in df_pathwise_tiled_fwd; g is (L, N, D);
 // dx_slab and upd are workspace; the outputs are laid out as BwdArgs states,
 // and every entry is written.
 extern "C" int df_pathwise_tiled_bwd(
@@ -508,6 +961,17 @@ extern "C" int df_pathwise_tiled_bwd(
     return (int)cudaErrorInvalidValue;
   const long long blocks = (long long)L * (n_chunks + (long long)n_rt * n_mc);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  int wide_par = 0;
+  if (D > 16) {
+    int optin = 0;
+    cudaError_t err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return (int)err;
+    wide_par = sizeof(float) * wide_smem_floats(D, true) <= (size_t)optin;
+    smem = sizeof(float) * wide_smem_floats(D, wide_par);
+    if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
 
@@ -521,6 +985,7 @@ extern "C" int df_pathwise_tiled_bwd(
   a.dvar = dvar;
   a.L = L; a.N = N; a.D = D; a.SD = SD; a.M = M;
   a.n_chunks = n_chunks; a.n_mc = n_mc; a.n_rt = n_rt;
+  a.wide_par = wide_par;
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 6) {
@@ -533,12 +998,14 @@ extern "C" int df_pathwise_tiled_bwd(
     df_pathwise_tiled_bwd_kernel<0, 16><<<(unsigned)blocks, kThreads, 0, s>>>(
         a);
   } else {
-    err = cudaFuncSetAttribute(df_pathwise_tiled_bwd_kernel<0, kMaxWideD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)kWideSmem);
-    if (err != cudaSuccess) return (int)err;
-    df_pathwise_tiled_bwd_kernel<0, kMaxWideD><<<(unsigned)blocks, kThreads,
-                                                 kWideSmem, s>>>(a);
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(df_pathwise_tiled_bwd_kernel<0, 0>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    df_pathwise_tiled_bwd_kernel<0, 0><<<(unsigned)blocks, kThreads, smem,
+                                         s>>>(a);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

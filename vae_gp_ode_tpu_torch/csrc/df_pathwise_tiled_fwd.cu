@@ -1,6 +1,6 @@
 // Grid-tiled per-step pathwise evaluation of the divergence-free (DF) GP
-// sample for wide shapes (state dim D up to 48, many features), one launch
-// for all L Monte-Carlo draws.
+// sample for wide shapes (any state dim D, many features), one launch for
+// all L Monte-Carlo draws.
 //
 // Replaces the Pallas kernel `_fwd_kernel` of
 // vae_gp_ode_tpu/ops/df_pathwise_tiled.py. It computes the same function as
@@ -37,12 +37,13 @@
 // sums the slots in order into the output (one thread per output entry;
 // in the launcher, so a call costs the host one library call, as the
 // single-block kernel does): no atomics, and two launches on the same
-// inputs give the same bits. Any N, S and M is taken. The widest state
-// dim is the kernel's template parameter DMAX: the instance for D <= 16,
-// and one for 16 < D <= 48 (kMaxWideD; every D that the JAX package's
-// `df_tiled_fits` admits at S = 256, M = 100), whose update blocks walk
-// their (row, output) pairs in a loop, as a tile holds more pairs than a
-// block has threads above D = 32. D above 48 is refused.
+// inputs give the same bits. Any N, S and M is taken, and any D: the
+// kernel's template parameter DMAX is the widest state dim of an instance,
+// 16 for D <= 16, and 0 for the wide kernel that takes every D above,
+// with no per-thread array that grows with D and its tables in dynamic
+// shared memory sized at launch (read through L2 where they would not
+// fit). A shape is refused only where the grid or a block's rows exceed
+// the card's limits.
 //
 // The design it replaced: one block per output column i, so x . omf and
 // sincosf were recomputed D times per (row, column) and the update ran
@@ -58,7 +59,14 @@ constexpr int kThreads = df::kThreads;
 constexpr int kRows = 8;          // batch rows per block
 constexpr int kChunk = kThreads;  // ORFF feature columns per chunk block
 constexpr int kUpdM = 16;         // inducing points per update block
-constexpr int kMaxWideD = 48;     // the wide instance's widest state dim
+
+// Inducing points per update block: kUpdM for the D <= 16 instance; for
+// the wide kernel as many as keep a block's (row, output, point) terms at
+// kRows kThreads (one point above D = kThreads), so that wide shapes
+// spread their update over more blocks.
+__host__ __device__ __forceinline__ int upd_points(int D) {
+  return D <= 16 ? kUpdM : D < kThreads ? kThreads / D : 1;
+}
 
 struct FwdArgs {
   const float* x;    // (N, D)
@@ -73,9 +81,11 @@ struct FwdArgs {
   float* part;       // (L, n_mc + n_chunks, N, D)
   float* out;        // (L, N, D)
   int L, N, D, SD, M, n_tiles, n_chunks, n_mc;
+  int wide_par;      // the wide kernel: 1/ls2 | var in shared memory
 };
 
-// DMAX: the widest state dim of the instance (16, or kMaxWideD).
+// DMAX: the widest state dim of the instance, 16 (0: the wide kernel
+// below, for any D above 16).
 template <int DMAX>
 __global__ void __launch_bounds__(kThreads)
     df_pathwise_tiled_fwd_kernel(FwdArgs a) {
@@ -123,38 +133,6 @@ __global__ void __launch_bounds__(kThreads)
       nus[t] = nur[t];
     }
     __syncthreads();
-    if (DMAX > 16) {
-      // the wide instance: a tile holds up to 8 * 48 (row, output) pairs,
-      // more than the block's threads, so each thread walks every nt-th
-      // pair over all the block's points
-      for (int pair = tid; pair < rows * D; pair += nt) {
-        const int r = pair / D, i = pair % D;
-        const float* xr = xs + r * D;
-        const float vi = par[D * D + i];
-        float acc = 0.f;
-        for (int mm = 0; mm < cnt; ++mm) {
-          const float* zm = zs + mm * D;
-          const float* nu = nus + mm * D;
-          float sq = 0.f;
-          for (int k = 0; k < D; ++k) {
-            const float dk = xr[k] - zm[k];
-            sq = fmaf(dk, dk, sq);
-          }
-          const float di = xr[i] - zm[i];
-          float sm = 0.f;
-          for (int j = 0; j < D; ++j) {
-            const float iv = par[j * D + i];
-            const float E = expf(-0.5f * sq * iv);
-            float base = (xr[j] - zm[j]) * di * iv;
-            if (i == j) base += (float)(D - 1) - sq * iv;
-            sm = fmaf(E * base * (vi * iv), nu[j], sm);
-          }
-          acc += sm;
-        }
-        a.part[((l * n_slots + slot) * N + r0) * D + pair] = acc;
-      }
-      return;
-    }
     const int PU = nt / RD;           // subgroups of points (RD <= 128)
     const int pair = tid % RD, sub = tid / RD;
     const int r = pair / D, i = pair % D;
@@ -256,6 +234,187 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// 1 / ls2[j, i] from the block's table, or from ls2 through L2 where the
+// table did not fit the shared memory.
+__device__ __forceinline__ float inv_ls2(const float* par, const float* ls2,
+                                         int D, int j, int i) {
+  return par ? par[j * D + i] : 1.f / __ldg(ls2 + j * D + i);
+}
+
+// DMAX = 0, the wide kernel: the blocks for any state dim above 16, on
+// dynamic shared memory sized at launch: [xs (kRows D) | the kind's
+// tables]. An update block takes upd_points(D) points (kThreads / D); its
+// thread walks (row, output) pairs, every point of the block and all D
+// columns j in loops (no per-thread array grows with D), with the points'
+// Z and nur rows and the rows' squared distances to them in shared
+// memory, and 1/ls2 | var there too where they fit (a.wide_par), else
+// ls2 and var through L2. A chunk
+// block computes one sincosf per (row, column) as the narrow instance
+// does; thread (i, p) then sums output i over every P-th column, P =
+// kThreads / D (one group, every output of a thread's stride, above D =
+// 256).
+template <>
+__global__ void __launch_bounds__(kThreads)
+    df_pathwise_tiled_fwd_kernel<0>(FwdArgs a) {
+  extern __shared__ float smem[];
+  const int D = a.D, N = a.N, SD = a.SD, M = a.M;
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+
+  // block -> (kind, draw, row tile, slot); update blocks first
+  long long b = blockIdx.x;
+  const long long n_upd = (long long)a.L * a.n_tiles * a.n_mc;
+  const bool upd = b < n_upd;
+  if (!upd) b -= n_upd;
+  const int per = upd ? a.n_mc : a.n_chunks;
+  const int s = (int)(b % per);
+  b /= per;
+  const int tile = (int)(b % a.n_tiles);
+  const long long l = b / a.n_tiles;
+  const int n_slots = a.n_mc + a.n_chunks;
+  const int slot = upd ? s : a.n_mc + s;
+  const int r0 = tile * kRows;
+  const int rows = min(kRows, N - r0);
+  const int RD = kRows * D;
+  float* xs = smem;                          // kRows * D
+  float* out = a.part + ((l * n_slots + slot) * N + r0) * D;
+
+  const float* x = a.x + l * a.x_ls;
+  for (int t = tid; t < RD; t += nt) {
+    const int n = r0 + t / D;
+    xs[t] = n < N ? x[(long long)n * D + t % D] : 0.f;
+  }
+
+  if (upd) {
+    // -- matrix-valued update of inducing points m0 .. m0 + cnt - 1
+    const int MU = upd_points(D);
+    const int m0 = s * MU;
+    const int cnt = min(MU, M - m0);
+    const float* ls2 = a.ls2 + l * a.ls2_ls;
+    const float* var = a.var + l * a.var_ls;
+    float* zs = xs + RD;                           // MU * D
+    float* nus = zs + MU * D;                      // MU * D
+    float* sqs = nus + MU * D;                     // kRows * MU
+    float* par = a.wide_par ? sqs + kRows * MU : nullptr;   // D * D + D
+    if (par) df::load_par(par, ls2, var, D);
+    const float* z = a.z + l * a.z_ls + (long long)m0 * D;
+    const float* nur = a.nur + l * a.nur_ls + (long long)m0 * D;
+    for (int t = tid; t < cnt * D; t += nt) {
+      zs[t] = z[t];
+      nus[t] = nur[t];
+    }
+    __syncthreads();
+    // |x_r - z_m|^2 of the tile's rows and the block's points
+    for (int t = tid; t < kRows * cnt; t += nt) {
+      const int r = t / cnt, mm = t % cnt;
+      float sq = 0.f;
+      for (int k = 0; k < D; ++k) {
+        const float dk = xs[r * D + k] - zs[mm * D + k];
+        sq = fmaf(dk, dk, sq);
+      }
+      sqs[r * MU + mm] = sq;
+    }
+    __syncthreads();
+    for (int pair = tid; pair < rows * D; pair += nt) {
+      const int r = pair / D, i = pair % D;
+      const float* xr = xs + r * D;
+      const float vi = par ? par[D * D + i] : __ldg(var + i);
+      float acc = 0.f;
+      for (int mm = 0; mm < cnt; ++mm) {
+        const float* zm = zs + mm * D;
+        const float* nu = nus + mm * D;
+        const float sq = sqs[r * MU + mm];
+        const float di = xr[i] - zm[i];
+        float sm = 0.f;
+        for (int j = 0; j < D; ++j) {
+          const float iv = inv_ls2(par, ls2, D, j, i);
+          const float E = expf(-0.5f * sq * iv);
+          float base = (xr[j] - zm[j]) * di * iv;
+          if (i == j) base += (float)(D - 1) - sq * iv;
+          sm = fmaf(E * base * (vi * iv), nu[j], sm);
+        }
+        acc += sm;
+      }
+      out[pair] = acc;
+    }
+    return;
+  }
+
+  // -- ORFF prior over feature columns c0 .. c0 + cnt - 1
+  float* trig = xs + RD;                     // [k][r], 2 kChunk kRows
+  float* red = trig + 2 * kChunk * kRows;    // kThreads * kRows
+  const int c0 = s * kChunk;
+  const int cnt = min(kChunk, SD - c0);
+  __syncthreads();
+  if (tid < cnt) {
+    // one sincosf per (row, column)
+    const float* omf = a.omf + l * a.omf_ls + c0 + tid;
+    float u[kRows];
+    const float ph = __ldg(a.phf + l * a.phf_ls + c0 + tid);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) u[r] = ph;
+    for (int d = 0; d < D; ++d) {
+      const float o = __ldg(omf + (long long)d * SD);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) u[r] = fmaf(xs[r * D + d], o, u[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      float sn, cs;
+      sincosf(u[r], &sn, &cs);
+      trig[tid * kRows + r] = cs;
+      trig[(kChunk + tid) * kRows + r] = sn;
+    }
+  }
+  __syncthreads();
+
+  // thread (i, p) = (q % D, q / D): all rows of output i over every P-th
+  // column; P = 1 above D = kThreads, where a thread takes every nt-th
+  // output
+  const int P = D <= nt ? nt / D : 1;
+  const float* G = a.G + l * a.G_ls + (long long)c0 * D;
+  const long long sin_off = (long long)SD * D - (long long)cnt * D;
+  for (int q = tid; q < P * D; q += nt) {
+    const int i = q % D, p = q / D;
+    float acc[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+    for (int k = p; k < 2 * cnt; k += P) {
+      // k < cnt: cos column k; else sin column k - cnt
+      const bool sn = k >= cnt;
+      const int row = sn ? kChunk + k - cnt : k;
+      const float gv =
+          __ldg(G + (long long)k * D + i + (sn ? sin_off : 0));
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        acc[r] = fmaf(trig[row * kRows + r], gv, acc[r]);
+    }
+    if (P == 1) {
+      for (int r = 0; r < rows; ++r) out[r * D + i] = acc[r];
+    } else {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) red[(p * kRows + r) * D + i] = acc[r];
+    }
+  }
+  if (P > 1) {
+    __syncthreads();
+    for (int t = tid; t < rows * D; t += nt) {
+      float f = 0.f;
+      for (int q = 0; q < P; ++q) f += red[q * RD + t];
+      out[t] = f;
+    }
+  }
+}
+
+// Floats of the wide kernel's dynamic shared memory at state dim D, with
+// 1/ls2 | var in it (par) or not.
+long long wide_smem_floats(int D, bool par) {
+  const long long MU = upd_points(D);
+  const long long upd = (2 * D + kRows) * MU + (par ? (long long)D * D + D : 0);
+  const long long chunk = 2LL * kChunk * kRows + (long long)kThreads * kRows;
+  return (long long)kRows * D + (upd > chunk ? upd : chunk);
+}
+
 // out[l, n, i] = sum over the slots of part[l, :, n, i], in slot order.
 __global__ void __launch_bounds__(kThreads)
     df_pathwise_tiled_fwd_sum_slots(FwdArgs a) {
@@ -275,17 +434,19 @@ static_assert(16 * kRows <= kThreads,
 
 }  // namespace
 
-// The slab part's slots, n_mc + n_chunks, for state dim D, S*D = SD
-// feature columns and M inducing points; the wrapper sizes part from it.
-extern "C" int df_pathwise_tiled_fwd_slots(int SD, int M) {
-  return (M + kUpdM - 1) / kUpdM + (SD + kChunk - 1) / kChunk;
+// The slab part's slots, n_mc + n_chunks, for S*D = SD feature columns,
+// M inducing points and state dim D; the wrapper sizes part from it.
+extern "C" int df_pathwise_tiled_fwd_slots(int SD, int M, int D) {
+  const int mu = upd_points(D < 1 ? 1 : D);
+  return (M + mu - 1) / mu + (SD + kChunk - 1) / kChunk;
 }
 
 // Launches the tiled DF eval and its slot sum on `stream` and returns
 // cudaGetLastError(), or cudaErrorInvalidValue for shapes it does not take
-// (D above 48, a part whose slots are not df_pathwise_tiled_fwd_slots, a
-// grid past its limit). Operands as in df_pathwise_fwd; part (L, n_slots,
-// N, D) is workspace; out (L, N, D) is the evaluation.
+// (a part whose slots are not df_pathwise_tiled_fwd_slots, a grid past its
+// limit, a state dim whose rows do not fit a block's opt-in shared
+// memory). Operands as in df_pathwise_fwd; part (L, n_slots, N, D) is
+// workspace; out (L, N, D) is the evaluation.
 extern "C" int df_pathwise_tiled_fwd(
     const float* x, long long x_ls, const float* omf, long long omf_ls,
     const float* phf, long long phf_ls, const float* G, long long G_ls,
@@ -293,16 +454,27 @@ extern "C" int df_pathwise_tiled_fwd(
     const float* ls2, long long ls2_ls, const float* var, long long var_ls,
     float* part, float* out, int n_slots, int L, int N, int D, int SD, int M,
     int device, void* stream) {
-  if (L < 1 || N < 1 || D < 1 || D > kMaxWideD || SD < 1 || M < 1 ||
-      n_slots != df_pathwise_tiled_fwd_slots(SD, M))
+  if (L < 1 || N < 1 || D < 1 || SD < 1 || M < 1 ||
+      n_slots != df_pathwise_tiled_fwd_slots(SD, M, D))
     return (int)cudaErrorInvalidValue;
   FwdArgs a;
   a.L = L; a.N = N; a.D = D; a.SD = SD; a.M = M;
   a.n_tiles = (N + kRows - 1) / kRows;
   a.n_chunks = (SD + kChunk - 1) / kChunk;
-  a.n_mc = (M + kUpdM - 1) / kUpdM;
+  a.n_mc = (M + upd_points(D) - 1) / upd_points(D);
   const long long blocks = (long long)L * a.n_tiles * n_slots;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  a.wide_par = 0;
+  if (D > 16) {
+    int optin = 0;
+    cudaError_t err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return (int)err;
+    a.wide_par = sizeof(float) * wide_smem_floats(D, true) <= (size_t)optin;
+    smem = sizeof(float) * wide_smem_floats(D, a.wide_par);
+    if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
 
@@ -313,11 +485,18 @@ extern "C" int df_pathwise_tiled_fwd(
   a.part = part;
   a.out = out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 16)
+  if (D <= 16) {
     df_pathwise_tiled_fwd_kernel<16><<<(unsigned)blocks, kThreads, 0, s>>>(a);
-  else
-    df_pathwise_tiled_fwd_kernel<kMaxWideD><<<(unsigned)blocks, kThreads, 0,
-                                              s>>>(a);
+  } else {
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(df_pathwise_tiled_fwd_kernel<0>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    df_pathwise_tiled_fwd_kernel<0><<<(unsigned)blocks, kThreads, smem,
+                                     s>>>(a);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long outs = (long long)L * N * D;

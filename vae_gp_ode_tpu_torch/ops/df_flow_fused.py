@@ -8,17 +8,19 @@ one CUDA kernel, and its discrete adjoint in another (port of
                dtsbar[t] = <g_{t+1}, f(z_t)>
 
 with f the DF evaluation of `ops.df_pathwise` on its operands (omf, phf,
-G, Z, nur, ls2, var); both kernels share its device routines
-(`csrc/df_common.cuh`). DF flows are first order only (D_in == D_out).
+G, Z, nur, ls2, var); both kernels share its device routines and its
+split of the work (`csrc/df_common.cuh`, `csrc/df_cluster.cuh`). DF
+flows are first order only (D_in == D_out).
 Every operand may carry a leading dim of L draws or be shared by all
 draws: one launch integrates all L Monte-Carlo trajectories.
 
-`packed_df_euler_flow` launches `csrc/df_flow_fused.cu` for CUDA tensors
-inside a `torch.autograd.Function` whose backward launches
-`csrc/df_flow_fused_bwd.cu` (`df_flow_vjp`): a cluster of blocks per
-(draw, row tile), each block with its share of the feature columns and
-inducing points and their cotangents in shared memory, and a second
-kernel of the same library call that sums the slabs into the finished
+`packed_df_euler_flow` launches `csrc/df_flow_fused.cu` (a cluster of
+blocks per (draw, row tile) that walks the T-1 steps, one cluster sum of
+f a step) for CUDA tensors inside a `torch.autograd.Function` whose
+backward launches `csrc/df_flow_fused_bwd.cu` (`df_flow_vjp`): a cluster
+of blocks per (draw, row tile), each block with its share of the feature
+columns and inducing points and their cotangents in shared memory, and a
+second kernel of the same library call that sums the slabs into the finished
 cotangents (no PyTorch reduction after the call). CPU tensors take the
 plain versions, `df_euler_flow_reference` and autograd through it
 (`df_flow_vjp_reference`). `df_fused_pair_fits` decides from the shapes,
@@ -84,12 +86,14 @@ def df_flow_vjp_reference(zs, zsbar, omf, phf, G, Z, nur, ls2, var, dts,
         return torch.autograd.grad(out, inputs, zsbar)
 
 
-def _kernel():
-    fn = _build.load('df_flow_fused').df_flow_fused_fwd
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = _build.load('df_flow_fused')
+    if lib.df_flow_fused_fwd.argtypes is None:
+        lib.df_flow_fused_fwd.argtypes = _ARGTYPES
+        lib.df_flow_fused_fwd.restype = ctypes.c_int
+        lib.df_flow_fused_fwd_smem_bytes.argtypes = [_I]
+        lib.df_flow_fused_fwd_smem_bytes.restype = ctypes.c_longlong
+    return lib
 
 
 def _bwd_lib():
@@ -110,28 +114,31 @@ def _bwd_lib():
 
 def df_pair_fits(D, smem_bytes, optin):
     """The dispatch rule of the DF pair: the trajectory kernel and its
-    adjoint take a flow when the state dim is at most MAX_D and one block
-    of an 8-block adjoint cluster (`smem_bytes`, csrc/df_flow_fused_bwd.cu
-    `df_flow_fused_bwd_smem_bytes`: 2 (3D + 1) floats per feature column
-    or (point, output) item of its share, S*D/8 columns and M/8 points)
-    fits the device's opt-in limit per block (`optin`; negative when it
-    could not be read). On an H100 (232,448 bytes) that is S up to 1920
-    at D = 6 (the default run's S = 256 takes 42,664 bytes) and D up to
-    14 at S = 256; not D = 12 at S = 1024. (The adjoint's single-block
-    design took S up to 384 at D = 6 and nothing at D > 8, S = 256.)"""
+    adjoint take a flow when the state dim is at most MAX_D and the larger
+    of the two kernels' blocks (`smem_bytes`) fits the device's opt-in
+    limit per block (`optin`; negative when it could not be read). The
+    larger is the adjoint's block of an 8-block cluster
+    (csrc/df_flow_fused_bwd.cu `df_flow_fused_bwd_smem_bytes`: 2 (3D + 1)
+    floats per feature column or (point, output) item of its share, S*D/8
+    columns and M/8 points); the trajectory kernel's block holds only the
+    tile's state, 1/ls2, var and its sums (`df_flow_fused_fwd_smem_bytes`:
+    1,224 bytes at D = 6, 2,496 at D = 16). On an H100 (232,448 bytes)
+    that is S up to 1920 at D = 6 (the default run's S = 256 takes 42,664
+    bytes) and D up to 14 at S = 256; not D = 12 at S = 1024."""
     return D <= MAX_D and 0 <= smem_bytes <= optin
 
 
 def df_fused_pair_fits(D, SD, M, device):
-    """`df_pair_fits` on `device` (a CUDA device), from the adjoint
-    kernel's own `df_flow_fused_bwd_smem_bytes` and the device's opt-in
-    limit: decided from the shapes alone, before any launch."""
+    """`df_pair_fits` on `device` (a CUDA device), from both kernels' own
+    shared-memory exports and the device's opt-in limit: decided from the
+    shapes alone, before any launch."""
     if D > MAX_D:
         return False
     lib = _bwd_lib()
-    return df_pair_fits(D, lib.df_flow_fused_bwd_smem_bytes(D, SD, M),
-                        lib.df_flow_fused_bwd_smem_optin(
-                            ops.device_index(device)))
+    need = max(_lib().df_flow_fused_fwd_smem_bytes(D),
+               lib.df_flow_fused_bwd_smem_bytes(D, SD, M))
+    return df_pair_fits(D, need, lib.df_flow_fused_bwd_smem_optin(
+        ops.device_index(device)))
 
 
 def bwd_plan(L, N, D, SD, M, T, device):
@@ -177,8 +184,8 @@ def _launch(z0, operands, dts, T):
     for t, ls in zip(operands, strides):
         flat += [t.data_ptr(), ls]
     stream = torch.cuda.current_stream(z0.device).cuda_stream
-    rc = _kernel()(*flat, dts.data_ptr(), zs.data_ptr(), L, N, D, SD, M, T,
-                   z0.device.index, stream)
+    rc = _lib().df_flow_fused_fwd(*flat, dts.data_ptr(), zs.data_ptr(), L, N,
+                                  D, SD, M, T, z0.device.index, stream)
     if rc != 0:
         raise RuntimeError(f'{KERNEL} launch failed: CUDA error {rc} '
                            f'(L={L} N={N} D={D} SD={SD} M={M} T={T})')

@@ -14,21 +14,24 @@ vector-Jacobian products (`dynamics.adjoint`).
 `fused_df_pathwise_eval` launches `csrc/df_pathwise_fwd.cu` (a cluster
 of blocks per (draw, row tile), `csrc/df_cluster.cuh`) for CUDA tensors
 inside a `torch.autograd.Function` whose backward launches
-`csrc/df_pathwise_bwd.cu`; CPU tensors take the plain version,
+`csrc/df_pathwise_bwd.cu` (a cluster per (draw, tile of rows) that walks
+its rows, and a second kernel of the same library call that sums the
+per-tile slabs); CPU tensors take the plain version,
 `df_pathwise_reference`, and autograd through it. Every operand may carry
 a leading dim of L draws or be shared by all draws (one launch for all L);
-cotangents of shared operands are summed over the draws from per-block
-slabs, without atomics.
+cotangents of shared operands are summed over the draws by the library,
+without atomics and without a PyTorch reduction after the call.
 """
 
 import ctypes
+import math
 
 import torch
 
 from vae_gp_ode_tpu_torch import ops
 from vae_gp_ode_tpu_torch.ops import _build
 from vae_gp_ode_tpu_torch.ops.pathwise import (
-    _check_tensors, _flat, apply_routed, split_slabs,
+    _check_tensors, _flat, apply_routed,
 )
 from vae_gp_ode_tpu_torch.kernels.rbf import rbf_lengthscales, rbf_variance
 
@@ -42,8 +45,8 @@ BWD_SOURCE = 'vae_gp_ode_tpu_torch/csrc/df_pathwise_bwd.cu'
 BWD_REPLACES = 'vae_gp_ode_tpu/ops/df_pathwise.py:273'
 
 #: the widest state dim of the single-block pair and of the trajectory pair
-#: (csrc/df_common.cuh kMaxD); the grid-tiled pair takes up to
-#: `ops.df_pathwise_tiled.MAX_TILED_D`
+#: (csrc/df_common.cuh kMaxD); the grid-tiled pair of
+#: `ops.df_pathwise_tiled` takes any
 MAX_D = 16
 
 #: operand names after x, and the number of trailing (non-draw) dims of each
@@ -54,7 +57,7 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _ARGTYPES = [_P, _LL] * 8 + [_P] + [_I] * 6 + [_P]
-_BWD_ARGTYPES = [_P, _LL] * 8 + [_P, _P, _P] + [_I] * 6 + [_P]
+_BWD_ARGTYPES = [_P, _LL] * 8 + [_P] * 4 + [_I] * 6 + [_P]
 
 
 def df_pathwise_reference(x, omf, phf, G, Z, nur, ls2, var):
@@ -126,7 +129,7 @@ def df_fused_operands(gp, sample):
 def check_operands(L, D, operands, max_d=MAX_D):
     """Validate the DF operands, each (base shape) or (L, base shape),
     against L draws and state dim D, at most `max_d` (the widest the
-    kernel takes). Returns (SD, M, draw strides)."""
+    kernel takes; None for any). Returns (SD, M, draw strides)."""
     SD = operands[0].shape[-1]
     M = operands[3].shape[-2]
     base = ((D, SD), (1, SD), (2 * SD, D), (M, D), (M, D), (D, D), (D,))
@@ -137,7 +140,7 @@ def check_operands(L, D, operands, max_d=MAX_D):
             raise ValueError(f'{name} has shape {tuple(t.shape)}, expected '
                              f'([{L},] {", ".join(map(str, shape))})')
         strides.append(t[0].numel() if t.dim() == nd + 1 else 0)
-    if D > max_d:
+    if max_d is not None and D > max_d:
         raise NotImplementedError(
             f'this DF kernel takes state dims up to {max_d}, got {D}')
     return SD, M, strides
@@ -158,9 +161,23 @@ def _bwd_lib():
         lib.df_pathwise_bwd.restype = ctypes.c_int
         lib.df_pathwise_bwd_slab_floats.argtypes = [_I] * 3
         lib.df_pathwise_bwd_slab_floats.restype = ctypes.c_longlong
-        lib.df_pathwise_bwd_rows.argtypes = [_I]
-        lib.df_pathwise_bwd_rows.restype = ctypes.c_int
+        lib.df_pathwise_bwd_plan.argtypes = [_I] * 6 + [_P]
+        lib.df_pathwise_bwd_plan.restype = ctypes.c_int
     return lib
+
+
+def bwd_plan(L, N, D, SD, M, device):
+    """(rows per pass, blocks per cluster, rows per tile, row tiles per
+    draw, items per chunk) of the VJP kernel at these shapes on `device`
+    (csrc/df_cluster.cuh `walk_plan_for`, and the items of a block that
+    its shared memory holds at once). Raises for shapes it refuses."""
+    out = (ctypes.c_int * 5)()
+    rc = _bwd_lib().df_pathwise_bwd_plan(L, N, D, SD, M,
+                                         ops.device_index(device), out)
+    if rc != 0:
+        raise RuntimeError(f'{BWD_KERNEL} takes no plan at L={L} N={N} '
+                           f'D={D} SD={SD} M={M}: CUDA error {rc}')
+    return tuple(out)
 
 
 def _check_x(x):
@@ -188,8 +205,8 @@ def _launch(x, operands):
 
 def _launch_bwd(x, operands, g):
     """Launch the VJP kernel for the cotangent g (L, N, D). Returns dx
-    (L, N, D) and the operands' cotangents, each in its operand's
-    shape."""
+    (L, N, D) and the operands' cotangents, each in its operand's shape,
+    all finished by the library's second kernel."""
     _check_tensors(x.device, zip(('x',) + NAMES + ('g',),
                                  (x,) + tuple(operands) + (g,)))
     L, N, D = _check_x(x)
@@ -198,19 +215,24 @@ def _launch_bwd(x, operands, g):
         raise ValueError(f'g has shape {tuple(g.shape)}, expected '
                          f'({L}, {N}, {D})')
     lib = _bwd_lib()
+    n_tiles = bwd_plan(L, N, D, SD, M, x.device)[3]   # raises if refused
     P = lib.df_pathwise_bwd_slab_floats(D, SD, M)
-    n_tiles = -(-N // lib.df_pathwise_bwd_rows(D))
     dx = torch.empty((L, N, D), dtype=torch.float32, device=x.device)
-    slab = torch.empty((L, n_tiles, P), dtype=torch.float32, device=x.device)
+    work = torch.empty(L * n_tiles * P, dtype=torch.float32,
+                       device=x.device)
+    shapes = [tuple(t.shape) for t in operands]
+    sizes = [math.prod(shape) for shape in shapes]
+    out = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.df_pathwise_bwd(*_flat(x, operands, strides), g.data_ptr(),
-                             dx.data_ptr(), slab.data_ptr(), L, N, D, SD, M,
-                             x.device.index, stream)
+                             dx.data_ptr(), work.data_ptr(), out.data_ptr(),
+                             L, N, D, SD, M, x.device.index, stream)
     if rc != 0:
         raise RuntimeError(f'{BWD_KERNEL} launch failed: CUDA error {rc} '
                            f'(L={L} N={N} D={D} SD={SD} M={M})')
     ops.count(BWD_KERNEL, (L, N, D, SD, M))
-    return (dx,) + split_slabs(slab.sum(dim=1), operands, BASE_DIMS)
+    return (dx,) + tuple(part.view(shape)
+                         for part, shape in zip(out.split(sizes), shapes))
 
 
 def fused_df_pathwise_eval(x, omf, phf, G, Z, nur, ls2, var):

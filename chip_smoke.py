@@ -16,7 +16,9 @@ Run from the repository root on a machine with an NVIDIA H100:
 3. holds each kernel against its plain PyTorch version on the card, at
    the main paths' shapes and beside them (order 2, more than one row
    tile, a non-uniform grid; for the adjoint also L=1 and L=5, and z0
-   per draw or shared by all draws), within the stated tolerances;
+   per draw or shared by all draws), within the stated tolerances; the
+   trajectory kernel and its adjoint (with its summing kernel) launched
+   twice for the same bits, each with the plan it takes;
 4. drives the forecaster path - three forecast requests of 20 sequences
    at T=16, one rollout at T=32 and one eval step with the ELBO - with
    every launch count set to 0 just before, and checks shapes,
@@ -225,6 +227,21 @@ def compare(out, ref, what):
     return max_abs
 
 
+def busy_ms(fn):
+    """(device busy ms, device kernels) of one call of fn(), from
+    torch.profiler: the sum of its kernels' device times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in ev) / 1e3, len(ev)
+
+
 def profile(fn, what):
     """Trace one call of fn() with torch.profiler: the device's kernels by
     self time, and the device's busy share of the span from its first
@@ -272,11 +289,13 @@ def flow_bound(L_, N, D, K, S, M, T_):
 
 
 def flow_bwd_bound(L_, N, D, K, S, M, T_, tensors):
-    """Least time (ms) on an H100 for one adjoint launch: the larger of
-    its f32 operations (recompute + VJP, per row and step
+    """Least time (ms) on an H100 for one call of the adjoint's library
+    (the adjoint kernel and the kernel that sums its slabs): the larger
+    of its f32 operations (recompute + VJP, per row and step
     K*S*(6D+12) + K*M*(12D+16)) over the f32 peak and the bytes of
-    `tensors` (its inputs, each read once, and its outputs, each written
-    once) over the memory rate."""
+    `tensors` (the call's inputs, each read once, and its finished
+    cotangents, each written once; the slabs between its two kernels are
+    its own) over the memory rate."""
     per_row_step = K * S * (6 * D + 12) + K * M * (12 * D + 16)
     flops = L_ * N * (T_ - 1) * per_row_step
     nbytes = sum(4 * x.numel() for x in tensors)
@@ -581,14 +600,15 @@ def solver_paths(args, card, batch, targs, slice_launches):
     for (order, q_, S_), fits in (((1, 6, 256), True), ((1, 6, 1024), True),
                                   ((1, 6, 2048), False),
                                   ((1, 12, 256), False),
-                                  ((2, 8, 256), False)):
+                                  ((2, 8, 256), False),
+                                  ((1, 12, 1024), False)):
         D_ = q_ * order
         nbytes = lib.flow_fused_bwd_smem_bytes(D_, q_, S_, M, T)
         got = flow_fused.fused_pair_fits(D_, q_, S_, M, T, dev)
         require(got == fits, f'rule at order {order} q={q_} S={S_}: {got}')
-        log(f'  rule: order {order}, q={q_}, S={S_}: adjoint block '
-            f'{nbytes} B of {optin} B opt-in -> '
-            f'{"fused pair" if got else "per-step kernels"}')
+        log(f'  rule: order {order}, q={q_}, S={S_}: the rule\'s bound (the '
+            f'parent adjoint block\'s shared memory) {nbytes} B of {optin} B '
+            f'opt-in -> {"fused pair" if got else "per-step kernels"}')
     # one train step at order 1, q=6, S=2048: the per-step kernels
     wide, wide_gp = init_model(args.seed + 5, device='cuda',
                                **dict(CONFIG, num_features=2048))
@@ -2422,7 +2442,7 @@ def main():
                'pathwise_tiled_bwd', 'df_pathwise_tiled_fwd',
                'df_pathwise_tiled_bwd']
     _build.build(sources)
-    flow_fused._kernel()
+    flow_fused._lib()
     flow_fused._bwd_lib()
     pathwise._lib()
     pathwise._bwd_lib()
@@ -2463,8 +2483,9 @@ def main():
     # -- 3. kernel vs plain version --------------------------------------
     log('kernel flow_fused_fwd vs packed_flow_reference on the card:')
     S, q = CONFIG['num_features'], CONFIG['latent_dim']
+    M_fl = CONFIG['num_inducing']
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    gp2 = init_svgp_params(rng, 2 * q, q, CONFIG['num_inducing'],
+    gp2 = init_svgp_params(rng, 2 * q, q, M_fl,
                            lengthscale=2.0, variance=0.7, device='cuda')
     cases = []
     with torch.no_grad():
@@ -2486,11 +2507,18 @@ def main():
                     + 0.05
             order = D_ // q
             out = flow_fused.packed_euler_flow(z0, *packed, dts, T_, order)
+            again = flow_fused.packed_euler_flow(z0, *packed, dts, T_,
+                                                 order)
             ref = flow_fused.packed_flow_reference(z0, *packed, dts, T_,
                                                    order)
             torch.cuda.synchronize()
             require(out.shape == (L, T_, N_, D_), f'shape {out.shape}')
             cases.append(compare(out, ref, name))
+            require(torch.equal(out, again), f'{name}: two launches of '
+                    f'flow_fused_fwd gave different bits')
+            plan = flow_fused.fwd_plan(L, N_, D_, q, S, M_fl, order, dev)
+            log(f'  same bits twice; plan (rows, blocks per cluster, row '
+                f'tiles) {plan}')
             if name.startswith('order 1, main'):
                 main_operands = (z0, *packed, dts, T_, order)
     max_abs_err = max(cases)
@@ -2523,6 +2551,11 @@ def main():
         zs = flow_fused.packed_euler_flow(*inputs, T, order)
         zsbar = torch.randn(zs.shape, generator=gen, device=dev)
         out = torch.autograd.grad(zs, inputs, zsbar)
+        again = torch.autograd.grad(flow_fused.packed_euler_flow(
+            *inputs, T, order), inputs, zsbar)
+        require(all(torch.equal(a, b) for a, b in zip(out, again)),
+                f'{name}: two launches of flow_fused_bwd and its summing '
+                f'kernel gave different bits')
         zs4 = zs.detach().reshape((-1, T, N_, D_))
         ref = list(flow_fused.packed_flow_vjp_reference(
             zs4, zsbar.reshape(zs4.shape), *packed, dts, T, order))
@@ -2530,6 +2563,8 @@ def main():
             ref[0] = ref[0].sum(0)
         torch.cuda.synchronize()
         bwd_cases.append(compare_bwd(out, ref, name))
+        log(f'  same bits twice; plan (rows, blocks per cluster, row tiles) '
+            f'{flow_fused.bwd_plan(L_, N_, D_, q, S, M_fl, order, dev)}')
         if name.startswith('order 1, main path'):
             bwd_operands[L_] = (zs4, zsbar.reshape(zs4.shape), *packed, dts,
                                 T, order)
@@ -2754,7 +2789,8 @@ def main():
             list(operands[:-2]) + list(outs))
         bwd_ms[L_] = (ms_b, ms_bp, bound_b, by_b)
         log(f'flow_fused_bwd at the train step shapes L={L_}: kernel '
-            f'{ms_b:.4f} ms (launch + slab sums), plain version '
+            f'{ms_b:.4f} ms (the adjoint and its summing kernel), plain '
+            f'version '
             f'{ms_bp:.4f} ms, bound {bound_b:.5f} ms ({by_b}); card {card}')
     log(f'requests (CUDA events): T={T}: '
         + ', '.join(f'{m:.3f}' for m in request_ms[:3])

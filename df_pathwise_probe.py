@@ -43,7 +43,7 @@ disagrees with its plain version.
     python3 df_pathwise_probe.py --plans R,C ... [--steps ...] [--flows ...]
 
 copies the kernels' package into build/df_pathwise_probe/ once per plan,
-with csrc/df_cluster.cuh `plan_for` (the plan #5 and #8 share) edited to
+with csrc/cluster.cuh `plan_for` (the plan #5 and #8 share) edited to
 take R rows per cluster (1, 2, or 4 at D <= 8) and C blocks per cluster
 (1-8) in place of its own choice (plan_edits below; 0 keeps the choice,
 so 0,0 times the kernels' own plan beside the others), and times each
@@ -71,14 +71,17 @@ FLOW_SHAPES = ((5, 20, 6, 256, 16), (1, 20, 6, 256, 16),
 M = 100
 TOL = 1e-4
 
-# --plans: where plan_for (csrc/df_cluster.cuh) fixes the rows and where
-# it splits the tile over the cluster
+# --plans: where the plan of #5 and #8 (csrc/df_cluster.cuh plan_for, the
+# family-neutral plan_for of csrc/cluster.cuh) fixes the rows and where it
+# splits the tile over the cluster; a copy edited there also takes the
+# plan for the RBF euler pair, which this probe does not run
+PLAN_SOURCE = 'cluster.cuh'
 _ROWS_AT = '  p.n_tiles = (N + p.R - 1) / p.R;'
-_CLUSTER_AT = '  return split(p, (int)c, SD, M);'
+_CLUSTER_AT = '  return split(p, (int)c, n1, n2);'
 
 
 def plan_edits(plan):
-    """The edits of csrc/df_cluster.cuh for a copy whose `plan_for` takes
+    """The edits of csrc/cluster.cuh for a copy whose `plan_for` takes
     `plan`, 'R,C' (rows per cluster, blocks per cluster; 0 keeps its
     choice)."""
     rows, cluster = (int(v) for v in plan.split(','))
@@ -93,12 +96,12 @@ def plan_edits(plan):
 
 
 def edit(text, plan):
-    """`text` (csrc/df_cluster.cuh) with `plan_edits(plan)` made; raises
+    """`text` (csrc/cluster.cuh) with `plan_edits(plan)` made; raises
     where an edit's text is not in it once."""
     for old, new in plan_edits(plan):
         if text.count(old) != 1:
             raise RuntimeError(f'plan {plan}: {old!r} is not in '
-                               f'df_cluster.cuh once')
+                               f'{PLAN_SOURCE} once')
         text = text.replace(old, new)
     return text
 
@@ -118,7 +121,7 @@ def run_copies(args, plans):
                         os.path.join(root, 'vae_gp_ode_tpu_torch'),
                         ignore=shutil.ignore_patterns('__pycache__'))
         path = os.path.join(root, 'vae_gp_ode_tpu_torch', 'csrc',
-                            'df_cluster.cuh')
+                            PLAN_SOURCE)
         with open(path) as f:
             text = edit(f.read(), plan)
         with open(path, 'w') as f:
@@ -345,8 +348,6 @@ def train_steps(args, gen):
     one DF rk4 train step at L=1 with 600 sequences, at the main widths,
     the median of three steps."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from vae_gp_ode_tpu_torch.models.odegpvae import init_model
     from vae_gp_ode_tpu_torch.training import trainer
     dev = torch.device('cuda')
@@ -362,17 +363,8 @@ def train_steps(args, gen):
         state = trainer.create_train_state(model, gp)
         step = trainer.make_train_step(360.0, eps_guard=True)
         step(state, X, L)
-        busy, count = [], 0
-        for _ in range(3):
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                step(state, X, L)
-                torch.cuda.synchronize()
-            ev = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
-            busy.append(sum(e.time_range.elapsed_us() for e in ev) / 1e3)
-            count = len(ev)
+        runs = [cs.busy_ms(lambda: step(state, X, L)) for _ in range(3)]
+        busy, count = [b for b, _ in runs], runs[-1][1]
         print(json.dumps({'train_step': f'DF {solver} L={L} N={n}',
                           'busy_ms': statistics.median(busy),
                           'busy_ms_all': busy, 'kernels': count}),

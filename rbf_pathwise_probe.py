@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""The RBF per-step kernels alone on one GPU: the single-block pair #3/#4
-(`pathwise_fwd`, `pathwise_bwd`) and the grid-tiled pair #9/#10
-(`pathwise_tiled_fwd`, `pathwise_tiled_bwd`), built, checked and timed at
-the shapes the paths launch them at.
+"""The RBF kernels alone on one GPU: the single-block per-step pair #3/#4
+(`pathwise_fwd`, `pathwise_bwd`), the grid-tiled pair #9/#10
+(`pathwise_tiled_fwd`, `pathwise_tiled_bwd`) and, with --flows, the euler
+pair #1/#2 (`flow_fused_fwd`, `flow_fused_bwd`), built, checked and timed
+at the shapes the paths launch them at.
 
 Run from the repository root on a machine with an NVIDIA GPU:
 
@@ -25,6 +26,29 @@ device us per launch (torch.profiler over --reps launches) of each kernel,
 has none). It exits non-zero if a kernel disagrees with the plain
 version.
 
+    python3 rbf_pathwise_probe.py --flows [L,N,D,K,S,T ...] [--repo DIR]
+        [--no-train-steps]
+
+checks and times the RBF euler pair instead, the trajectory #1
+(`flow_fused_fwd`) and its discrete adjoint #2 (`flow_fused_bwd` and the
+kernel that sums its slabs, `flow_fused_bwd_finish`), at the shapes given
+(default FLOW_SHAPES: those of the default run's train steps and
+requests; D = K * order): per shape one JSON line (key "flow") with the
+largest error of the trajectory against `packed_flow_reference` in f32
+and in float64 and of every cotangent of `packed_flow_vjp` against
+autograd through it in f32 and in float64 (chip_smoke.py's tolerances,
+against f32), whether two launches gave the same bits, ms per call (CUDA
+events around --reps calls of `packed_euler_flow` / `packed_flow_vjp`,
+the median of three rounds; for a parent whose adjoint's slabs are summed
+in PyTorch those sums are in the call) and device us per launch
+(torch.profiler) of each kernel and of the summing kernel apart, and the
+plan (rows per cluster, blocks per cluster, row tiles) where the
+checkout's library exports one; then, unless --no-train-steps, the
+device busy ms and kernel count of one RBF euler train step at L=1 and
+one at L=5 at the main widths (torch.profiler, the median of three
+steps). With --repo it takes another checkout's kernels and wrappers, so
+that parent and change are timed in turns in one call.
+
     python3 rbf_pathwise_probe.py --calibrate
 
 builds a few kernels that do a fraction of #3's work each (CALIBRATION
@@ -33,11 +57,12 @@ below) and prints their device us per launch on a grid of 150 blocks of
 cluster: what a launch, a load, eight cosf, asynchronous copies and a
 cluster's two barriers cost on this card.
 
-    python3 rbf_pathwise_probe.py --ablate NAME ... [--shapes ...]
+    python3 rbf_pathwise_probe.py --ablate NAME ... [--shapes ...] [--flows ...]
 
 copies the kernels' package into build/rbf_pathwise_probe/NAME with one
-part of #3 or #10 removed (ABLATIONS below; the results are wrong on
-purpose) and times that copy as --repo does: what each part costs.
+part of #3, #10 or (the flow_fwd_* names, with --flows) #1 removed
+(ABLATIONS below; the results are wrong on purpose) and times that copy
+as --repo does: what each part costs.
 
     python3 rbf_pathwise_probe.py --fwd-plans R,KC,C ... [--shapes ...]
 
@@ -60,6 +85,12 @@ import chip_smoke as cs
 SHAPES = ((5, 20, 6, 6, 256), (1, 20, 6, 6, 256), (5, 20, 12, 12, 1024),
           (1, 20, 12, 12, 1024), (5, 160, 6, 6, 256), (1, 20, 6, 6, 2048),
           (5, 400, 12, 12, 1024), (5, 600, 6, 6, 256), (2, 33, 7, 5, 30))
+# (L, N, D, K, S, T): the RBF euler pair at the default run's train steps
+# (L = 1 and 5, T = 16) and its requests (L = 5, T = 16 and the T = 32
+# rollout), then chip_smoke.py's order-2 and 75-row-tile checks
+FLOW_SHAPES = ((5, 20, 6, 6, 256, 16), (1, 20, 6, 6, 256, 16),
+               (5, 20, 6, 6, 256, 32), (5, 20, 12, 6, 256, 16),
+               (5, 300, 6, 6, 256, 16))
 M = 100
 TOL = 1e-4
 
@@ -160,7 +191,26 @@ _FWD_REDUCTION = [
 _FWD_LOADS = [
     ('  if (Direct && kk < nk && i0 + sl < i1) {',
      '  if (Direct && kk < nk && i0 + sl < i1 && D < 0) {')]
+# #1 (flow_fused.cu, --flows): what a step of the trajectory is made of
+_FLOW_ITEMS = [('    for (int it = tid; it < items; it += blockDim.x) {\n'
+                '      float v[R];',
+                '    for (int it = tid; it < items && D < 0; it += blockDim.x) {\n'
+                '      float v[R];')]
+_FLOW_TRIG = [
+    ('v[r] = cosf(xo + ph) * wv;', 'v[r] = (xo + ph) * wv;'),
+    ('v[r] = expf(-0.5f * (xn + znc - 2.f * cr)) * nuc;',
+     'v[r] = -0.5f * (xn + znc - 2.f * cr) * nuc;')]
+_FLOW_DSMEM = [('const float f = cl::cluster_sum(mine, C, tid);',
+                'const float f = mine[tid];')]
+_FLOW_BARRIER = [('    if (C > 1)\n      cluster.sync();\n    else\n'
+                  '      __syncthreads();',
+                  '    __syncthreads();')]
 ABLATIONS = {
+    'flow_fwd_no_items': ('flow_fused.cu', _FLOW_ITEMS),
+    'flow_fwd_no_trig': ('flow_fused.cu', _FLOW_TRIG),
+    'flow_fwd_no_dsmem': ('flow_fused.cu', _FLOW_DSMEM),
+    'flow_fwd_no_cluster_barrier': ('flow_fused.cu', _FLOW_DSMEM +
+                                    _FLOW_BARRIER),
     'fwd_no_trig': ('pathwise_fwd.cu', _FWD_TRIG),
     'fwd_no_reduction': ('pathwise_fwd.cu', _FWD_REDUCTION),
     'fwd_no_item_loads': ('pathwise_fwd.cu', _FWD_LOADS),
@@ -227,9 +277,12 @@ def run_copies(args, copies):
                '--reps', str(args.reps)]
         if args.shapes:
             cmd += ['--shapes', *args.shapes]
+        if args.flows is not None:
+            cmd += ['--flows', *args.flows, '--no-train-steps']
         run = subprocess.run(cmd, capture_output=True, text=True)
         rows = [json.loads(line) for line in run.stdout.splitlines()
-                if line.startswith('{') and '"single"' in line]
+                if line.startswith('{') and ('"single"' in line or
+                                             line.startswith('{"flow"'))]
         for row in rows:
             print(json.dumps({**tag, **row}), flush=True)
         if not rows:   # the copy did not build or run
@@ -271,6 +324,113 @@ def calibrate(card):
     print(json.dumps(row), flush=True)
 
 
+def flows(args, card):
+    """--flows: #1 and #2 checked and timed per shape, then the train
+    steps; returns the shapes that failed."""
+    import numpy as np
+    import torch
+    from vae_gp_ode_tpu_torch.gp.svgp import draw_fn_sample, init_svgp_params
+    from vae_gp_ode_tpu_torch.ops import _build, flow_fused
+    from vae_gp_ode_tpu_torch.ops.pathwise import rbf_fused_operands
+    _build.build(['flow_fused', 'flow_fused_bwd'])
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    rng = np.random.default_rng(args.seed)
+    shapes = ([tuple(map(int, a.split(','))) for a in args.flows]
+              if args.flows else FLOW_SHAPES)
+
+    def timing(fn, name):
+        with torch.no_grad():
+            ms = sorted(cs.cuda_ms(fn, args.reps) for _ in range(3))[1]
+            us = cs.device_us(fn, [name], args.reps)
+        return {'ms': ms, 'us': {k: v[0] if v[1] else None
+                                 for k, v in us.items()}}
+
+    def worst(outs, refs):
+        """The largest |out - ref| / (1 + max |ref|) over the outputs."""
+        return max(float((a.double() - b.double()).abs().max())
+                   / (1 + float(b.double().abs().max()))
+                   for a, b in zip(outs, refs))
+
+    failed = []
+    for L, N, D, K, S, T in shapes:
+        order = D // K
+        gp = init_svgp_params(rng, D, K, M, lengthscale=2.0, variance=0.7,
+                              device='cuda')
+        with torch.no_grad():
+            packed = flow_fused._pack_operands(*rbf_fused_operands(
+                gp, draw_fn_sample(gp, gen, S, L=L)))
+        z0 = torch.randn((N, D), generator=gen, device=dev)
+        dts = torch.full((T - 1,), cs.CONFIG['dt'], device=dev)
+        with torch.no_grad():
+            zs = flow_fused.packed_euler_flow(z0, *packed, dts, T, order)
+            zs2 = flow_fused.packed_euler_flow(z0, *packed, dts, T, order)
+            ref = flow_fused.packed_flow_reference(z0, *packed, dts, T,
+                                                   order)
+            ref64 = flow_fused.packed_flow_reference(
+                *(t.double() for t in (z0,) + packed + (dts,)), T, order)
+        zsbar = torch.randn(zs.shape, generator=gen, device=dev)
+        b1 = flow_fused.packed_flow_vjp(zs, zsbar, *packed, dts, T, order)
+        b2 = flow_fused.packed_flow_vjp(zs, zsbar, *packed, dts, T, order)
+        refb = flow_fused.packed_flow_vjp_reference(zs, zsbar, *packed, dts,
+                                                    T, order)
+        refb64 = flow_fused.packed_flow_vjp_reference(
+            *(t.double() for t in (zs, zsbar) + packed + (dts,)), T, order)
+        fok = bool(torch.isfinite(zs).all()) and bool(
+            ((zs - ref).abs() <= TOL + TOL * ref.abs()).all())
+        bok = all(float((a - b).abs().max()) <= TOL * (
+            1 + float(b.abs().max())) and bool(torch.isfinite(a).all())
+            for a, b in zip(b1, refb))
+        plan = None
+        if hasattr(flow_fused, 'bwd_plan'):
+            plan = list(flow_fused.bwd_plan(L, N, D, K, S, M, order, dev))
+        row = {'flow': [L, N, D, K, S, T], 'ok': fok and bok,
+               'fwd_err': float((zs - ref).abs().max()),
+               'fwd_err_f64': float((zs.double() - ref64).abs().max()),
+               'fwd_err_f32_plain_f64': float(
+                   (ref.double() - ref64).abs().max()),
+               'bwd_rel_err': worst(b1, refb),
+               'bwd_rel_err_f64': worst(b1, refb64),
+               'bwd_rel_err_f32_plain_f64': worst(refb, refb64),
+               'bitwise_repeat': torch.equal(zs, zs2) and all(
+                   torch.equal(a, b) for a, b in zip(b1, b2)),
+               'plan': plan}
+        if not row['ok']:
+            failed.append(row['flow'])
+        row['fwd'] = timing(lambda: flow_fused.packed_euler_flow(
+            z0, *packed, dts, T, order), flow_fused.KERNEL)
+        row['bwd'] = timing(lambda: flow_fused.packed_flow_vjp(
+            zs, zsbar, *packed, dts, T, order), flow_fused.BWD_KERNEL)
+        print(json.dumps(row), flush=True)
+        del packed, zs, zs2, ref, ref64, b1, b2, refb, refb64
+    if not args.no_train_steps:
+        train_steps(args, gen)
+    return failed
+
+
+def train_steps(args, gen):
+    """Device busy ms and kernel count of one RBF euler train step at L=1
+    and one at L=5 at the main widths, the median of three steps."""
+    import statistics
+    import torch
+    from vae_gp_ode_tpu_torch.models.odegpvae import init_model
+    from vae_gp_ode_tpu_torch.training import trainer
+    dev = torch.device('cuda')
+    X = (torch.rand((cs.BATCH, cs.T, 1, 28, 28), generator=gen,
+                    device=dev) - 0.1307) / 0.3081
+    model, gp = init_model(args.seed + 1, device='cuda', **cs.CONFIG)
+    state = trainer.create_train_state(model, gp)
+    step = trainer.make_train_step(360.0, eps_guard=True)
+    for L in (1, cs.L):
+        step(state, X, L)
+        runs = [cs.busy_ms(lambda: step(state, X, L)) for _ in range(3)]
+        busy, count = [b for b, _ in runs], runs[-1][1]
+        print(json.dumps({'train_step': f'RBF euler L={L} N={cs.BATCH}',
+                          'busy_ms': statistics.median(busy),
+                          'busy_ms_all': busy, 'kernels': count}),
+              flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--repo', default=os.path.dirname(os.path.abspath(
@@ -279,6 +439,11 @@ def main():
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--shapes', nargs='*', default=None,
                     help='L,N,D,K,S of each shape (default: SHAPES)')
+    ap.add_argument('--flows', nargs='*', default=None,
+                    help='check and time the RBF euler pair at these '
+                         'L,N,D,K,S,T (none given: FLOW_SHAPES) and exit')
+    ap.add_argument('--no-train-steps', action='store_true',
+                    help='with --flows: skip the RBF euler train steps')
     ap.add_argument('--calibrate', action='store_true',
                     help='time the CALIBRATION kernels and exit')
     ap.add_argument('--ablate', nargs='*', default=[],
@@ -313,6 +478,10 @@ def main():
                       for plan in args.fwd_plans])
         return 0
     print(f'card: {card}; repo {os.path.abspath(args.repo)}', flush=True)
+    if args.flows is not None:
+        failed = flows(args, card)
+        print(json.dumps({'card': card, 'failed': failed}))
+        return 1 if failed else 0
     _build.build(['pathwise_fwd', 'pathwise_bwd', 'pathwise_tiled_fwd',
                   'pathwise_tiled_bwd'])
     # the empty kernel of this checkout's build (a --repo checkout's may

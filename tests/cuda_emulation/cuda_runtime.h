@@ -3,13 +3,18 @@
 // per-step kernels (pathwise_fwd.cu, pathwise_tiled_bwd.cu) and its DF
 // cluster kernels (df_pathwise_fwd.cu, df_flow_fused_bwd.cu) use, so that
 // their source runs on the CPU under g++ (tests/test_torch_cuda_emulated.py,
-// ..._rbf.py, ..._df.py): one std::thread per CUDA thread,
+// ..._rbf.py, ..._df*.py, ..._flow.py): one std::thread per CUDA thread,
 // __syncthreads a std::barrier of the block, warp shuffles an exchange
-// through memory between two barriers of the warp. __shared__ variables are
+// through memory and one barrier of the warp (two exchange buffers, taken
+// in turns, so a lane cannot overwrite a value another lane has yet to
+// read: writing a buffer again takes the next shuffle's barrier, which
+// every lane passes only after its read). __shared__ variables are
 // function statics, shared by the block's threads, so a launch written
 // `kernel<<<blocks, threads, smem, stream>>>(args)` (rewritten by the tests
 // to emu_launch_smem(kernel, blocks, threads, smem, args)) runs its blocks
-// one after another. The dynamic shared memory of a block (`extern
+// one after another, on one set of threads that the launch starts once
+// (emu_run; starting threads for every block took most of the tests'
+// time). The dynamic shared memory of a block (`extern
 // __shared__ float smem[]`, rewritten by the tests to a pointer to
 // emu_dyn_smem) is a fresh buffer filled with NaN, so a read of an entry no
 // thread wrote shows in the results. A launch through cudaLaunchKernelEx
@@ -86,7 +91,7 @@ inline T __ldg(const T* p) { return *p; }
 struct emu_block_state {
   std::barrier<> barrier;
   std::vector<std::unique_ptr<std::barrier<>>> warp_barriers;
-  float exchange[64][32];
+  float exchange[2][64][32];
   std::vector<float> dyn;
   emu_block_state(unsigned threads, size_t smem)
       : barrier(threads),
@@ -102,16 +107,18 @@ inline thread_local emu_block_state* emu_block;
 
 inline void __syncthreads() { emu_block->barrier.arrive_and_wait(); }
 
+// This thread's shuffles so far: the lanes of a warp make the same
+// number, so they agree on the exchange buffer of each.
+inline thread_local unsigned emu_shuffles;
+
 // The value of lane `src` of this thread's warp (its own for src out of
 // range); every lane of the warp must call it.
 inline float emu_shfl(float v, int src) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  emu_block->exchange[warp][lane] = v;
+  float* x = emu_block->exchange[emu_shuffles++ & 1][warp];
+  x[lane] = v;
   emu_block->warp_barriers[warp]->arrive_and_wait();
-  const float r =
-      src >= 0 && src < 32 ? emu_block->exchange[warp][src] : v;
-  emu_block->warp_barriers[warp]->arrive_and_wait();
-  return r;
+  return src >= 0 && src < 32 ? x[src] : v;
 }
 
 inline float __shfl_down_sync(unsigned, float v, int off) {
@@ -123,22 +130,39 @@ inline float __shfl_xor_sync(unsigned, float v, int off) {
   return emu_shfl(v, (int)(threadIdx.x & 31) ^ off);
 }
 
+// Runs body(t, g) on `threads` threads t for each group g in order, the
+// threads started once: setup(g) on thread 0 before group g, a barrier of
+// all the threads around each group.
+template <class Setup, class Body>
+void emu_run(unsigned threads, unsigned groups, Setup setup, Body body) {
+  std::barrier<> gate(threads);
+  std::vector<std::thread> pool;
+  for (unsigned t = 0; t < threads; ++t)
+    pool.emplace_back([&, t] {
+      for (unsigned g = 0; g < groups; ++g) {
+        if (t == 0) setup(g);
+        gate.arrive_and_wait();
+        body(t, g);
+        gate.arrive_and_wait();
+      }
+    });
+  for (auto& th : pool) th.join();
+}
+
 template <class K, class... A>
 void emu_launch_smem(K kernel, unsigned blocks, unsigned threads,
                      size_t smem, A... args) {
   blockDim = {threads, 1, 1};
-  for (unsigned b = 0; b < blocks; ++b) {
-    emu_block_state block(threads, smem);
-    std::vector<std::thread> pool;
-    for (unsigned t = 0; t < threads; ++t)
-      pool.emplace_back([=, &block] {
-        emu_block = &block;
+  std::unique_ptr<emu_block_state> block;
+  emu_run(
+      threads, blocks,
+      [&](unsigned) { block.reset(new emu_block_state(threads, smem)); },
+      [&](unsigned t, unsigned b) {
+        emu_block = block.get();
         threadIdx = {t, 0, 0};
         blockIdx = {b, 0, 0};
         kernel(args...);
       });
-    for (auto& th : pool) th.join();
-  }
 }
 
 // -- cluster launches -----------------------------------------------------
@@ -186,25 +210,27 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
   const unsigned threads = cfg->blockDim.x, blocks = cfg->gridDim.x;
   if (C < 1 || blocks % C) return cudaErrorInvalidValue;
   blockDim = {threads, 1, 1};
-  for (unsigned c0 = 0; c0 < blocks; c0 += C) {
-    std::vector<std::unique_ptr<emu_block_state>> owned;
-    emu_cluster_state cluster(C * threads);
-    for (unsigned r = 0; r < C; ++r) {
-      owned.emplace_back(new emu_block_state(threads, cfg->dynamicSmemBytes));
-      cluster.blocks.push_back(owned.back().get());
-    }
-    std::vector<std::thread> pool;
-    for (unsigned r = 0; r < C; ++r)
-      for (unsigned t = 0; t < threads; ++t)
-        pool.emplace_back([=, &cluster, &args...] {
-          emu_block = cluster.blocks[r];
-          emu_cluster = &cluster;
-          emu_cluster_rank = r;
-          threadIdx = {t, 0, 0};
-          blockIdx = {c0 + r, 0, 0};
-          kernel(args...);
-        });
-    for (auto& th : pool) th.join();
-  }
+  std::vector<std::unique_ptr<emu_block_state>> owned;
+  std::unique_ptr<emu_cluster_state> cluster;
+  emu_run(
+      C * threads, blocks / C,
+      [&](unsigned) {
+        owned.clear();
+        cluster.reset(new emu_cluster_state(C * threads));
+        for (unsigned r = 0; r < C; ++r) {
+          owned.emplace_back(
+              new emu_block_state(threads, cfg->dynamicSmemBytes));
+          cluster->blocks.push_back(owned.back().get());
+        }
+      },
+      [&](unsigned i, unsigned c) {
+        const unsigned r = i / threads;
+        emu_block = cluster->blocks[r];
+        emu_cluster = cluster.get();
+        emu_cluster_rank = r;
+        threadIdx = {i % threads, 0, 0};
+        blockIdx = {c * C + r, 0, 0};
+        kernel(args...);
+      });
   return cudaSuccess;
 }

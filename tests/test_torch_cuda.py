@@ -60,15 +60,26 @@ def _packed(dev, q, order, N, L, S=256, M=100, seed=0):
 @pytest.mark.parametrize('order,N,L', [(1, 20, 5), (2, 20, 5), (1, 300, 2),
                                        (1, 3, 1)])
 def test_kernel_matches_plain(cuda, order, N, L):
+    """The trajectory kernel against its plain version; two launches give
+    the same bits, and it takes the adjoint's plan (4-block clusters of 2
+    rows at N=20, L=5 on an H100's 132 SMs)."""
     T = 16
     z0, packed, gen = _packed(cuda, 6, order, N, L)
     dts = torch.rand(T - 1, generator=gen, device=cuda) * 0.15 + 0.05
     with torch.no_grad():
         out = flow_fused.packed_euler_flow(z0, *packed, dts, T, order)
+        again = flow_fused.packed_euler_flow(z0, *packed, dts, T, order)
         ref = flow_fused.packed_flow_reference(z0, *packed, dts, T, order)
     torch.cuda.synchronize()
     assert out.shape == (L, T, N, 6 * order)
     torch.testing.assert_close(out, ref, **TOL)
+    assert torch.equal(out, again)
+    shape = (L, N, 6 * order, 6, 256, 100, order)
+    plan = flow_fused.fwd_plan(*shape, cuda)
+    assert plan == flow_fused.bwd_plan(*shape, cuda)
+    if (N, L) == (20, 5) and torch.cuda.get_device_properties(
+            cuda).multi_processor_count == 132:
+        assert plan == (2, 4, 10)
 
 
 def test_kernel_single_draw_and_shared_operands(cuda):
@@ -149,6 +160,10 @@ def test_adjoint_kernel_matches_plain(cuda, order, N, L, uniform,
     if not z0_per_draw:
         ref[0] = ref[0].sum(0)
     _assert_cotangents(out, ref)
+    # two launches (the adjoint and its summing kernel) give the same bits
+    again = torch.autograd.grad(flow_fused.packed_euler_flow(
+        *inputs, T, order), inputs, zsbar)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
     # the kernel's own wrapper, same arguments as the plain version
     vjp = flow_fused.packed_flow_vjp(zs.detach(), zsbar, *packed, dts, T,
                                      order)
@@ -294,21 +309,28 @@ def test_pathwise_kernels_per_draw_gp_operands_and_no_draw_dim(cuda):
         pathwise.fused_pathwise_eval(x.double(), *operands)
 
 
-def _bwd_smem_bytes(D, K, S, M, T, rows=4, threads=512):
-    """csrc/flow_fused_bwd.cu's smem_bytes, transcribed (as in
-    tests/test_torch_flow.py)."""
+def _bwd_smem_bytes(D, K, S, M, T):
+    """The bound of the fused pair's rule, csrc/flow_fused_bwd.cu's
+    `rule_bytes`, transcribed (as in tests/test_torch_flow.py): the parent
+    adjoint block's shared memory, or a block of the new adjoint's 8-block
+    cluster where that were more."""
     KS, KM = K * S, K * M
     slab = D * KS + 2 * KS + 2 * D * KM + 2 * KM + (T - 1)
-    return 4 * (slab + 3 * rows * D + (threads // 32) * (rows * D + 1))
+    parent = 4 * (slab + 3 * 4 * D + 16 * (4 * D + 1))
+    R = 4 if D <= 8 else 2
+    items = -(-KS // 8) + -(-KM // 8)
+    V = R * D + 1
+    block8 = 4 * (2 * (2 * D + 2) * items + 3 * R * D + 8 * V + 2 * V)
+    return max(parent, block8)
 
 
 @pytest.mark.parametrize('order,q,S,fits', [
     (1, 6, 256, True), (1, 6, 1024, True), (1, 6, 2048, False),
-    (1, 12, 256, False), (2, 8, 256, False)])
+    (1, 12, 256, False), (2, 8, 256, False), (1, 12, 1024, False)])
 def test_fused_pair_rule_on_the_card(cuda, order, q, S, fits):
-    """The adjoint kernel's exported shared-memory need is the formula the
-    CPU tests hold the rule to, and the rule decides as they do on an
-    H100 (232,448 bytes of opt-in shared memory per block)."""
+    """The adjoint library's exported bound is the formula the CPU tests
+    hold the rule to, and the rule decides as they do on an H100 (232,448
+    bytes of opt-in shared memory per block)."""
     lib = flow_fused._bwd_lib()
     D = q * order
     assert lib.flow_fused_bwd_smem_bytes(D, q, S, 100, 16) == \

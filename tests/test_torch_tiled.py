@@ -53,7 +53,7 @@ from vae_gp_ode_tpu_torch.training import trainer
 from vae_gp_ode_tpu_torch.utils.jax_import import train_state_from_jax
 
 import test_torch_train as ttr
-from test_torch_cuda_emulated_df import VJP_PLANS
+from emulated_df_common import VJP_PLANS
 
 FWD_TOL = dict(rtol=2e-4, atol=2e-5)
 RBF_VJP_TOL = dict(rtol=1e-3, atol=1e-5)

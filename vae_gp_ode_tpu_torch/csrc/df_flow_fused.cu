@@ -109,12 +109,7 @@ __global__ void __launch_bounds__(dfc::kThreads, 2)
     else
       __syncthreads();
     if (tid < RD) {
-      float f = mine[tid];
-      if (C > 1) {
-        f = 0.f;
-        for (int q = 0; q < C; ++q)
-          f += cluster.map_shared_rank(mine, q)[tid];
-      }
+      const float f = cl::cluster_sum(mine, C, tid);
       const float v = fmaf(dt, f, zcur[tid]);
       zcur[tid] = v;
       if (rank == 0 && r0 + tid / D < N)

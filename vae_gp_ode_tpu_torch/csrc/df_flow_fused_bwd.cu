@@ -81,8 +81,8 @@ struct BwdArgs {
   // Output q has n[q] entries per draw, per[q] says whether it is per
   // draw (else summed over the draws), out[q] is where it starts in out,
   // off[q] where it lies in a slab (z0bar: in z0w)
-  long long n[9], off[9], o_out[9];
-  int per[9];
+  long long n[cl::kOut], off[cl::kOut], o_out[cl::kOut];
+  int per[cl::kOut];
 };
 
 // Floats per (draw, row tile) slab: [omf (D, SD) | phf (SD) | G (2SD, D) |
@@ -313,12 +313,7 @@ __global__ void __launch_bounds__(dfc::kThreads, DMAX <= 8 ? 2 : 1)
     dfc::block_sums<R, DMAX>(dx, fg, D, V, red, mine);
     if (C > 1) cg::this_cluster().sync();
     if (tid < V) {
-      float s = mine[tid];
-      if (C > 1) {
-        cg::cluster_group cluster = cg::this_cluster();
-        s = 0.f;
-        for (int q = 0; q < C; ++q) s += cluster.map_shared_rank(mine, q)[tid];
-      }
+      const float s = cl::cluster_sum(mine, C, tid);
       if (tid < RD) {
         g[tid] = zb[tid] + g[tid] + s;
         zt[tid] = nz;
@@ -386,60 +381,10 @@ __global__ void __launch_bounds__(dfc::kThreads, DMAX <= 8 ? 2 : 1)
   cluster.sync();   // no block leaves while rank 0 reads its sums
 }
 
-// The finished cotangents from the slabs. Entries of a per-draw output
-// (a sum over its draw's row tiles) get a thread each, in the first
-// blocks; entries of a shared one (a sum over every draw's row tiles, or
-// z0bar's over the draws) a warp each, whose lanes split the terms and
-// meet in a shuffle tree. Fixed order throughout.
+// The finished cotangents from the slabs (cluster.cuh finish_slabs).
 __global__ void __launch_bounds__(dfc::kThreads)
     df_flow_fused_bwd_finish(BwdArgs a) {
-  const int L = a.L, nt = a.n_tiles;
-  const long long ND = (long long)a.N * a.D, P = a.P;
-  long long n_thread = 0;
-  for (int q = 0; q < 9; ++q)
-    if (a.per[q]) n_thread += L * a.n[q];
-  const long long thread_blocks = (n_thread + blockDim.x - 1) / blockDim.x;
-  if (blockIdx.x < thread_blocks) {
-    long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (e >= n_thread) return;
-    for (int q = 0; q < 9; ++q) {
-      if (!a.per[q]) continue;
-      if (e >= L * a.n[q]) {
-        e -= L * a.n[q];
-        continue;
-      }
-      const long long l = e / a.n[q], j = e % a.n[q];
-      float s = 0.f;
-      if (q == 0) {
-        s = a.z0w[l * ND + j];
-      } else {
-        const float* p = a.slab + l * nt * P + a.off[q] + j;
-#pragma unroll 4
-        for (int t = 0; t < nt; ++t) s += p[t * P];
-      }
-      a.out[a.o_out[q] + e] = s;
-      return;
-    }
-    return;
-  }
-  const int lane = threadIdx.x & 31;
-  long long w = (blockIdx.x - thread_blocks) * (blockDim.x >> 5) +
-                (threadIdx.x >> 5);
-  for (int q = 0; q < 9; ++q) {
-    if (a.per[q]) continue;
-    if (w >= a.n[q]) {
-      w -= a.n[q];
-      continue;
-    }
-    // term k: draw k / nt's row tile k % nt (z0bar: draw k)
-    const long long terms = q == 0 ? L : (long long)L * nt;
-    float s = 0.f;
-    for (long long k = lane; k < terms; k += 32)
-      s += q == 0 ? a.z0w[k * ND + w] : a.slab[k * P + a.off[q] + w];
-    s = df::warp_sum(s);
-    if (lane == 0) a.out[a.o_out[q] + w] = s;
-    return;
-  }
+  cl::finish_slabs(a);
 }
 
 // The plan for these shapes on `device` (df_cluster.cuh), with more
@@ -555,24 +500,13 @@ extern "C" int df_flow_fused_bwd(
   a.C = p.C; a.CB = p.CB; a.MB = p.MB; a.n_tiles = p.n_tiles;
   a.IB = items_per_block(p, D);
   a.P = slab_floats(D, SD, M, T);
-  const long long sizes[9] = {(long long)N * D, (long long)D * SD, SD,
-                              2LL * SD * D, (long long)M * D,
-                              (long long)M * D, (long long)D * D, D, T - 1};
-  const int per[9] = {!z0_shared, omf_ls != 0, phf_ls != 0, G_ls != 0,
-                      z_ls != 0, nur_ls != 0, ls2_ls != 0, var_ls != 0, 0};
-  long long off = 0, at = 0, n_thread = 0, n_warp = 0;
-  for (int q = 0; q < 9; ++q) {
-    a.n[q] = sizes[q];
-    a.per[q] = per[q];
-    a.off[q] = off;
-    a.o_out[q] = at;
-    if (q > 0) off += sizes[q];
-    at += (per[q] ? L : 1) * sizes[q];
-    if (per[q])
-      n_thread += L * sizes[q];
-    else
-      n_warp += sizes[q];
-  }
+  const long long sizes[cl::kOut] = {
+      (long long)N * D, (long long)D * SD, SD, 2LL * SD * D,
+      (long long)M * D, (long long)M * D, (long long)D * D, D, T - 1};
+  const int per[cl::kOut] = {!z0_shared, omf_ls != 0, phf_ls != 0,
+                             G_ls != 0, z_ls != 0, nur_ls != 0,
+                             ls2_ls != 0, var_ls != 0, 0};
+  const long long blocks = cl::layout_slabs(a, sizes, per);
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc;
@@ -583,10 +517,6 @@ extern "C" int df_flow_fused_bwd(
   else
     rc = p.R == 2 ? launch<2, 16>(a, p, s) : launch<1, 16>(a, p, s);
   if (rc) return rc;
-  // a thread per entry of the per-draw outputs, a warp per entry of the
-  // shared ones
-  const long long blocks = (n_thread + dfc::kThreads - 1) / dfc::kThreads +
-                           (n_warp + dfc::kWarps - 1) / dfc::kWarps;
   df_flow_fused_bwd_finish<<<(unsigned)blocks, dfc::kThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }

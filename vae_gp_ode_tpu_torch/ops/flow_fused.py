@@ -17,14 +17,22 @@ L draws (or be shared by all draws): one launch integrates all L
 Monte-Carlo trajectories, as the JAX package's vmap over `pallas_call`
 does.
 
-`packed_euler_flow` launches `csrc/flow_fused.cu` for CUDA tensors inside
-a `torch.autograd.Function` whose backward launches
-`csrc/flow_fused_bwd.cu` (`packed_flow_vjp`); CPU tensors take the plain
-versions, `packed_flow_reference` and autograd through it
-(`packed_flow_vjp_reference`).
+`packed_euler_flow` launches `csrc/flow_fused.cu` (a cluster of blocks
+per (draw, row tile) that walks the T-1 steps, one cluster sum of f a
+step) for CUDA tensors inside a `torch.autograd.Function` whose backward
+launches `csrc/flow_fused_bwd.cu` (`packed_flow_vjp`): a cluster of
+blocks per (draw, row tile) on the same plan, each block with its share
+of the feature and inducing columns and their cotangents in shared
+memory, and a second kernel of the same library call that sums the slabs
+into the finished cotangents (no PyTorch reduction after the call). Both
+share `csrc/flow_cluster.cuh`. CPU tensors take the plain versions,
+`packed_flow_reference` and autograd through it
+(`packed_flow_vjp_reference`). `fused_pair_fits` decides from the shapes,
+before any launch, whether the pair takes a flow.
 """
 
 import ctypes
+import math
 
 import torch
 
@@ -40,14 +48,15 @@ REPLACES = 'vae_gp_ode_tpu/ops/flow_fused.py:116'
 BWD_KERNEL = 'flow_fused_bwd'
 BWD_SOURCE = 'vae_gp_ode_tpu_torch/csrc/flow_fused_bwd.cu'
 BWD_REPLACES = 'vae_gp_ode_tpu/ops/flow_fused.py:284'
-#: the backward kernel keeps per-row partials in registers up to this D
+#: both kernels keep per-row partials in registers up to this D
 BWD_MAX_D = 16
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _ARGTYPES = ([_P, _LL] * 8 + [_P, _P] + [_I] * 9 + [_P])
-_BWD_ARGTYPES = ([_P, _P] + [_P, _LL] * 7 + [_P, _P, _P] + [_I] * 9 + [_P])
+_BWD_ARGTYPES = ([_P, _P] + [_P, _LL] * 7 + [_P, _P, _P] + [_I] * 10
+                 + [_P])
 
 _NAMES = ('omf', 'phf', 'ws', 'Zb', 'zn', 'il2', 'nus')
 
@@ -199,12 +208,14 @@ def _check_tensors(device, named):
             raise ValueError(f'{name} must be contiguous')
 
 
-def _kernel():
-    fn = _build.load('flow_fused').flow_fused_fwd
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = _build.load('flow_fused')
+    if lib.flow_fused_fwd.argtypes is None:
+        lib.flow_fused_fwd.argtypes = _ARGTYPES
+        lib.flow_fused_fwd.restype = ctypes.c_int
+        lib.flow_fused_fwd_plan.argtypes = [_I] * 8 + [_P]
+        lib.flow_fused_fwd_plan.restype = ctypes.c_int
+    return lib
 
 
 def _bwd_lib():
@@ -214,8 +225,8 @@ def _bwd_lib():
         lib.flow_fused_bwd.restype = ctypes.c_int
         lib.flow_fused_bwd_slab_floats.argtypes = [_I] * 5
         lib.flow_fused_bwd_slab_floats.restype = ctypes.c_longlong
-        lib.flow_fused_bwd_rows.argtypes = []
-        lib.flow_fused_bwd_rows.restype = ctypes.c_int
+        lib.flow_fused_bwd_plan.argtypes = [_I] * 8 + [_P]
+        lib.flow_fused_bwd_plan.restype = ctypes.c_int
         lib.flow_fused_bwd_smem_bytes.argtypes = [_I] * 5
         lib.flow_fused_bwd_smem_bytes.restype = ctypes.c_longlong
         lib.flow_fused_bwd_smem_optin.argtypes = [_I]
@@ -223,23 +234,60 @@ def _bwd_lib():
     return lib
 
 
-def pair_fits(D, smem_bytes, optin):
+def pair_fits(D, need_bytes, optin):
     """The dispatch rule of the fused pair: the trajectory kernel and its
-    adjoint take a flow when the state dim is at most BWD_MAX_D and one
-    adjoint block's shared memory (`smem_bytes`) fits the device's opt-in
-    limit per block (`optin`; negative when it could not be read)."""
-    return D <= BWD_MAX_D and 0 <= smem_bytes <= optin
+    adjoint take a flow when the state dim is at most BWD_MAX_D and the
+    rule's bound (`need_bytes`, csrc/flow_fused_bwd.cu
+    `flow_fused_bwd_smem_bytes`) fits the device's opt-in shared memory
+    per block (`optin`; negative when it could not be read).
+
+    The bound is the shared memory one block of the adjoint's parent
+    design took (512 threads, 4 rows and the whole slab of cotangents:
+    4 (D K S + 2 K S + 2 D K M + 2 K M + T - 1 + 12 D + 16 (4 D + 1))
+    bytes), kept until a sweep of the pair against the per-step kernels
+    moves it (ROADMAP Queue B); it is never below the need of the new
+    adjoint's block of an 8-block cluster, so the kernels take every shape
+    it admits. On an H100 (232,448 bytes) it admits q = 6 up to S = 1024
+    (the default run's S = 256: 84,700 bytes) and order 2 at q = 6, S =
+    256; not S = 2048, q = 12 or D = 16 at S = 256."""
+    return D <= BWD_MAX_D and 0 <= need_bytes <= optin
 
 
 def fused_pair_fits(D, K, S, M, T, device):
-    """`pair_fits` on `device` (a CUDA device), from the adjoint kernel's
-    own `flow_fused_bwd_smem_bytes` and the device's opt-in limit: decided
-    from the shapes alone, before any launch."""
+    """`pair_fits` on `device` (a CUDA device), from the adjoint library's
+    exported bound and the device's opt-in limit: decided from the shapes
+    alone, before any launch."""
     lib = _bwd_lib()
-    index = torch.cuda.current_device() if device.index is None \
-        else device.index
     return pair_fits(D, lib.flow_fused_bwd_smem_bytes(D, K, S, M, T),
-                     lib.flow_fused_bwd_smem_optin(index))
+                     lib.flow_fused_bwd_smem_optin(ops.device_index(device)))
+
+
+def _plan(lib, export, L, N, D, K, S, M, order, device):
+    out = (ctypes.c_int * 3)()
+    rc = getattr(lib, export)(L, N, D, K, S, M, order,
+                              ops.device_index(device), out)
+    if rc != 0:
+        raise RuntimeError(f'{export} takes no plan at L={L} N={N} D={D} '
+                           f'K={K} S={S} M={M}: CUDA error {rc}')
+    return tuple(out)
+
+
+def fwd_plan(L, N, D, K, S, M, order, device):
+    """(rows per cluster, blocks per cluster, row tiles per draw) of the
+    trajectory kernel at these shapes on `device`: the adjoint's plan
+    (csrc/flow_cluster.cuh `plan_on`). Raises for shapes it refuses."""
+    return _plan(_lib(), 'flow_fused_fwd_plan', L, N, D, K, S, M, order,
+                 device)
+
+
+def bwd_plan(L, N, D, K, S, M, order, device):
+    """(rows per cluster, blocks per cluster, row tiles per draw) of the
+    adjoint kernel at these shapes on `device` (csrc/flow_cluster.cuh
+    `plan_on`: csrc/cluster.cuh `plan_for`, with more blocks per cluster
+    where a block would not fit the opt-in shared memory). Raises for
+    shapes the kernel refuses."""
+    return _plan(_bwd_lib(), 'flow_fused_bwd_plan', L, N, D, K, S, M,
+                 order, device)
 
 
 def _launch(z0, omf, phf, ws, Zb, zn, il2, nus, dts, T, order):
@@ -254,24 +302,26 @@ def _launch(z0, omf, phf, ws, Zb, zn, il2, nus, dts, T, order):
                          f'([L or 1,] {N}, {D})')
     z0_ls = N * D if z0.dim() == 3 and z0.shape[0] == L and L > 1 else 0
 
-    fn = _kernel()
     zs = torch.empty((L, T, N, D), dtype=torch.float32, device=z0.device)
     flat = [z0.data_ptr(), z0_ls]
     for x, ls in zip(operands, strides):
         flat += [x.data_ptr(), ls]
     stream = torch.cuda.current_stream(z0.device).cuda_stream
-    rc = fn(*flat, dts.data_ptr(), zs.data_ptr(), L, N, D, K, S, M, T,
-            order, z0.device.index, stream)
+    rc = _lib().flow_fused_fwd(*flat, dts.data_ptr(), zs.data_ptr(), L, N,
+                               D, K, S, M, T, order, z0.device.index,
+                               stream)
     if rc != 0:
-        raise RuntimeError(f'{KERNEL} launch failed: CUDA error {rc}')
+        raise RuntimeError(f'{KERNEL} launch failed: CUDA error {rc} '
+                           f'(L={L} N={N} D={D} K={K} S={S} M={M} T={T})')
     ops.count(KERNEL, (L, N, D, K, S, M, T))
     return zs
 
 
-def _launch_bwd(zs, zsbar, operands, dts, T, order):
+def _launch_bwd(zs, zsbar, operands, dts, T, order, z0_shared=False):
     """Launch the adjoint kernel on zs, zsbar (L, T, N, D). Returns z0bar
-    (L, N, D) and the cotangents of `operands` and dts, each in its
-    operand's shape."""
+    ((N, D) summed over the draws if `z0_shared`, else (L, N, D)) and the
+    cotangents of `operands` and dts, each in its operand's shape, all
+    finished by the library's second kernel."""
     device = zs.device
     _check_tensors(device, zip(('zs', 'zsbar') + _NAMES + ('dts',),
                                (zs, zsbar) + tuple(operands) + (dts,)))
@@ -287,45 +337,27 @@ def _launch_bwd(zs, zsbar, operands, dts, T, order):
             f'{D}')
 
     lib = _bwd_lib()
-    P = lib.flow_fused_bwd_slab_floats(D, K, S, M, T)
-    rows = lib.flow_fused_bwd_rows()
-    n_tiles = -(-N // rows)
-    z0bar = torch.empty((L, N, D), dtype=torch.float32, device=device)
-    slab = torch.empty((L, n_tiles, P), dtype=torch.float32, device=device)
+    n_tiles = bwd_plan(L, N, D, K, S, M, order, device)[2]  # raises if
+    P = lib.flow_fused_bwd_slab_floats(D, K, S, M, T)         # refused
+    work = torch.empty(L * N * D + L * n_tiles * P, dtype=torch.float32,
+                       device=device)
+    shapes = [(N, D) if z0_shared else (L, N, D)] + [
+        tuple(x.shape) for x in operands] + [(T - 1,)]
+    sizes = [math.prod(shape) for shape in shapes]
+    out = torch.empty(sum(sizes), dtype=torch.float32, device=device)
     flat = [zs.data_ptr(), zsbar.data_ptr()]
     for x, ls in zip(operands, strides):
         flat += [x.data_ptr(), ls]
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.flow_fused_bwd(*flat, dts.data_ptr(), z0bar.data_ptr(),
-                            slab.data_ptr(), L, N, D, K, S, M, T, order,
-                            device.index, stream)
+    rc = lib.flow_fused_bwd(*flat, dts.data_ptr(), work.data_ptr(),
+                            out.data_ptr(), L, N, D, K, S, M, T, order,
+                            int(z0_shared), device.index, stream)
     if rc != 0:
         raise RuntimeError(f'{BWD_KERNEL} launch failed: CUDA error {rc} '
                            f'(L={L} N={N} D={D} K={K} S={S} M={M} T={T})')
     ops.count(BWD_KERNEL, (L, N, D, K, S, M, T))
-    return (z0bar,) + _split_slabs(slab.sum(dim=1), operands, dts)
-
-
-def _split_slabs(per_draw, operands, dts):
-    """Cut the (L, P) tile-summed slabs into the operands' cotangents,
-    laid out [omf | phf | ws | Zb | zn | il2 | nus | dts] as in
-    csrc/flow_fused_bwd.cu, summing over the draws an operand is shared
-    by."""
-    L = per_draw.shape[0]
-    out, o = [], 0
-    for x in tuple(operands) + (dts,):
-        inner = x.shape[-2:] if x.dim() >= 2 else x.shape
-        n = inner.numel()
-        part = per_draw[:, o:o + n].reshape((L,) + tuple(inner))
-        o += n
-        if x.dim() == 3 and x.shape[0] == L:
-            out.append(part)
-        else:
-            out.append(part.sum(dim=0).reshape(x.shape))
-    if o != per_draw.shape[1]:
-        raise AssertionError(f'slab holds {per_draw.shape[1]} floats, '
-                             f'operands {o}')
-    return tuple(out)
+    return tuple(part.view(shape)
+                 for part, shape in zip(out.split(sizes), shapes))
 
 
 class _PackedEulerFlow(torch.autograd.Function):
@@ -345,11 +377,12 @@ class _PackedEulerFlow(torch.autograd.Function):
     def backward(ctx, zsbar):
         zs, *operands, dts = ctx.saved_tensors
         zsbar = zsbar.reshape(zs.shape).contiguous()
-        z0bar, *bars = _launch_bwd(zs, zsbar, operands, dts, ctx.T,
-                                   ctx.order)
-        if z0bar.shape != ctx.z0_shape:          # z0 shared by the draws
-            z0bar = z0bar.sum(dim=0).reshape(ctx.z0_shape)
-        grads = [z0bar] + bars
+        # z0 shared by the draws: the library sums its cotangent
+        z0bar, *bars = _launch_bwd(
+            zs, zsbar, operands, dts, ctx.T, ctx.order,
+            z0_shared=tuple(ctx.z0_shape) != tuple(zs.shape[:1] +
+                                                   zs.shape[2:]))
+        grads = [z0bar.reshape(ctx.z0_shape)] + bars
         grads = [g if need else None
                  for g, need in zip(grads, ctx.needs_input_grad)]
         return (*grads, None, None)

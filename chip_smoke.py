@@ -8,7 +8,8 @@ Run from the repository root on a machine with an NVIDIA H100:
 1. prints the card's name and power limit, builds every CUDA kernel of the
    paths with nvcc (all at once) and prints the build time and each kernel
    instance's registers and spills (`-Xptxas -v`; the tiled DF pair's
-   instances for D <= 16 and the RBF pair #3/#10 must not spill);
+   kernels and the RBF per-step kernels #3, #4, #9 and #10 must not
+   spill);
 2. builds the eval-mode forecaster at the main configuration's full width
    (rot-MNIST 28x28, q=6, n_filt=8, dimwise RBF with S=256 features and
    M=100 inducing points, euler dt=0.1, L=5 draws) with random weights
@@ -74,11 +75,17 @@ Run from the repository root on a machine with an NVIDIA H100:
    after: both per-step pairs of each family, the single-block #3-#6
    and the grid-tiled #9-#12, against their plain versions at every shape
    of the dispatch rule's sweep (RBF (D, K, S) and DF (D, S) at L=1 and 5,
-   N=20 and 600), a ragged last chunk, GP operands per draw, no draw dim
+   N=20 and 600; RBF widths past 12 at lengthscale `rbf_lengthscale`,
+   their cotangents each within TOL_BWD of its own largest entry; at the
+   RBF width 72 the tiled forward alone, #10 does not fit), a ragged
+   last chunk, GP operands per draw, no draw dim
    and the rows of the paths below (400 and 160; the RBF single-block pair
    also at the latent width 72 of the rk4 steps below), with both RBF
    pairs and both DF pairs launched twice on the same inputs for the
-   same bits; the sweep itself
+   same bits; #4 at that width and #9 at 400 rows held to the float64
+   plain version too (per output or cotangent, its error over its
+   largest float64 entry no more than F64_NOISE times the f32 plain
+   version's); the sweep itself
    (both pairs, forward and VJP, per call with CUDA events, the median of
    three rounds in turns, and device time per launch at the wide shapes)
    beside the pair the rule picks,
@@ -91,8 +98,10 @@ Run from the repository root on a machine with an NVIDIA H100:
    sequences per kernel with random weights; rk4 steps at the main widths
    by the rule and by the single-block pair in turns (six rounds each,
    medians), RBF rk4 steps of 160 sequences (L=5) and at latent_dim 72
-   (L=5), wider than the tiled VJP's block holds, and, for DF, at L=1
-   with 600 sequences;
+   (L=5), wider than the tiled VJP's block holds (one step's trace: each
+   #9/#4 call its main kernel, then its summing kernel; one train step at
+   `rbf_lengthscale(72)` against autograd through the plain version on
+   the card, TOL_GRAD), and, for DF, at L=1 with 600 sequences;
 6e. DF above state dim 16, where only the tiled pair's wide kernels run:
    #11/#12 against their plain versions at D = 20, 48, 49, 64 (the
    latent_dim-64 steps' shape, L=1 and 5, S=256) and 260 (above the
@@ -160,10 +169,10 @@ TRAIN_EPOCHS = 2
 # RELU_FLIP of its layer's largest |input|.
 RELU_FLIP = 1e-4
 
-# the chaotic DF trajectory check (D=3, lengthscale 0.5): #8's distance
-# from a float64 plain version may be at most this many times the f32
-# plain version's, per cotangent (on an H100 it sat at 0.09-0.31 times;
-# PERF.md)
+# a kernel's distance from a float64 plain version may be at most this
+# many times the f32 plain version's, per output or cotangent: #8 in the
+# chaotic DF trajectory check (D=3, lengthscale 0.5; on an H100 it sat at
+# 0.09-0.31 times; PERF.md), #4 at latent width 72 and #9 at 400 rows
 F64_NOISE = 2.0
 
 CONFIG = dict(latent_dim=6, n_filt=8, num_features=256, num_inducing=100,
@@ -227,9 +236,9 @@ def compare(out, ref, what):
     return max_abs
 
 
-def busy_ms(fn):
-    """(device busy ms, device kernels) of one call of fn(), from
-    torch.profiler: the sum of its kernels' device times."""
+def device_events(fn):
+    """The device kernels of one call of fn() (torch.profiler's CUDA
+    events), in the order they started."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -239,22 +248,27 @@ def busy_ms(fn):
         fn()
         torch.cuda.synchronize()
     ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sorted(ev, key=lambda e: e.time_range.start)
+
+
+def busy_ms(fn):
+    """(device busy ms, device kernels) of one call of fn(), from
+    torch.profiler: the sum of its kernels' device times."""
+    ev = device_events(fn)
     return sum(e.time_range.elapsed_us() for e in ev) / 1e3, len(ev)
+
+
+def kernel_sequence(fn):
+    """The names of the device kernels of one call of fn(), in the order
+    they started (torch.profiler)."""
+    return [e.name for e in device_events(fn)]
 
 
 def profile(fn, what):
     """Trace one call of fn() with torch.profiler: the device's kernels by
     self time, and the device's busy share of the span from its first
     kernel's start to its last kernel's end."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = device_events(fn)
     if not kernels:
         log(f'profile of {what}: the trace holds no device events')
         return
@@ -306,9 +320,12 @@ def flow_bwd_bound(L_, N, D, K, S, M, T_, tensors):
 
 
 def compare_bwd(out, ref, what, names=('z0', 'omf', 'phf', 'ws', 'Zb', 'zn',
-                                        'il2', 'nus', 'dts')):
+                                        'il2', 'nus', 'dts'),
+                own_scale=False):
     """Per-cotangent max |kernel - plain| against TOL_BWD (1 + max
-    |plain|); raises on a miss. Returns the largest error."""
+    |plain|), or with `own_scale` TOL_BWD max |plain| (each cotangent held
+    to its own size, the stricter where that is below 1); raises on a
+    miss. Returns the largest error."""
     import torch
     parts, worst, ok = [], 0.0, True
     for name, a, b in zip(names, out, ref):
@@ -317,7 +334,7 @@ def compare_bwd(out, ref, what, names=('z0', 'omf', 'phf', 'ws', 'Zb', 'zn',
                                  f'{tuple(a.shape)}, expected '
                                  f'{tuple(b.shape)}')
         err = float((a - b).abs().max())
-        lim = TOL_BWD * (1.0 + float(b.abs().max()))
+        lim = TOL_BWD * ((0.0 if own_scale else 1.0) + float(b.abs().max()))
         good = bool(torch.isfinite(a).all()) and err <= lim
         ok &= good
         worst = max(worst, err)
@@ -860,8 +877,8 @@ def solver_paths(args, card, batch, targs, slice_launches):
                                     inputs, gbar)}
         log(f'pathwise kernels at the main shapes L={L_} (N=20, D=K=6, '
             f'S=256, M=100): fwd {kf:.4f} ms (plain {pf:.4f}, bound '
-            f'{bf[0]:.5f} {bf[1]}), bwd {kb:.4f} ms through autograd, with '
-            f'slab sums (plain '
+            f'{bf[0]:.5f} {bf[1]}), bwd {kb:.4f} ms through autograd, its '
+            f'summing kernel included (plain '
             f'{pb:.4f}, bound {bb[0]:.5f} {bb[1]}); card {card}')
     out['rk4_profile'] = lambda: rstep(rstate, batch, L)
     return out
@@ -1664,17 +1681,31 @@ WIDE_FLAGS = ('--latent_dim', '12', '--D_in', '12', '--D_out', '12',
               '--num_features', '1024')
 WIDE = dict(CONFIG, latent_dim=12, num_features=1024)
 # the dispatch rule's sweep: RBF (D, K, S) and DF (D, S), each at L = 1, 5
-# and N = 20, 600, M = 100
+# and N = 20, 600, M = 100; the RBF widths 20 to 72 (72: the rk4 steps at
+# latent_dim RBF_WIDE_Q) are past the 16 dims #3 keeps in registers, 20
+# to 32 close around where the rule's choices change, and at 72 the tiled
+# VJP #10 does not fit (its VJP column is empty there)
 RBF_SWEEP = ((6, 6, 256), (12, 12, 256), (6, 6, 1024), (6, 6, 2048),
-             (12, 12, 1024))
+             (12, 12, 1024), (20, 20, 256), (24, 24, 256), (28, 28, 256),
+             (32, 32, 256), (48, 48, 256), (72, 72, 256))
 DF_SWEEP = ((6, 256), (6, 512), (12, 256), (12, 1024))
 # shapes at which the rule takes another kernel: a wide request of
 # WIDE_BATCH sequences (L*N*K*(S+M) >= 2.4e7: #9), RBF rk4 steps of
 # BIG_BATCH sequences at the main widths (#3 in blocks of 8 rows), RBF
-# rk4 steps at latent_dim RBF_WIDE_Q, wider than #10's block holds (#4),
+# rk4 steps at latent_dim RBF_WIDE_Q, wider than #10's block holds (#9
+# and #4),
 # and DF rk4 steps at L=1 (the first half of a run's epochs) with
 # DF_BIG_BATCH sequences (#6)
 WIDE_BATCH, BIG_BATCH, DF_BIG_BATCH, RBF_WIDE_Q = 400, 160, 600, 72
+
+
+def rbf_lengthscale(D):
+    """The RBF lengthscale of the kernel checks at state dim D: 2 up to
+    D = 12, then 2 sqrt(D / 12). For standard-normal x and z the update's
+    envelope exp(-0.5 |(x - z) / ls|^2) has an exponent near -D / ls^2, so
+    it stays near the e^-3 of D = 12; at lengthscale 2 and D = 72 it is
+    near e^-18, and the update's cotangents (dZ, dls, dnu) near 0."""
+    return 2.0 * max(1.0, D / 12) ** 0.5
 
 
 def device_us(fn, names, reps=10):
@@ -1684,18 +1715,9 @@ def device_us(fn, names, reps=10):
     library that the trace held (`<name>_<suffix>`, such as the kernel
     that sums a VJP's slabs), under its own name without `_kernel`."""
     import re
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as tprofile
     fn()
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    cuda = device_events(lambda: [fn() for _ in range(reps)])
     out = {}
-    cuda = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     for name in names:
         pat = re.compile(r'(?<![A-Za-z_])(' + name + r'_\w+)')
         found = {}
@@ -1758,8 +1780,8 @@ def wide_kernels(args, card):
            'repeats': {'rbf': 0, 'df': 0}}
 
     def rbf_ops(L_, N_, D_, S_):
-        g = init_svgp_params(rng, D_, D_, M, lengthscale=2.0, variance=0.7,
-                             device='cuda')
+        g = init_svgp_params(rng, D_, D_, M, lengthscale=rbf_lengthscale(D_),
+                             variance=0.7, device='cuda')
         with torch.no_grad():
             operands = pathwise.rbf_fused_operands(
                 g, draw_fn_sample(g, gen, S_, L=L_))
@@ -1785,9 +1807,16 @@ def wide_kernels(args, card):
                     (L_,) + (1,) * operands[i].dim()))).contiguous()
         return tuple(operands)
 
+    def tiled_vjp_fits(fam, D_):
+        """Whether the family's tiled VJP takes state dim D_ on this card
+        (the RBF #10 holds every D of its items in shared memory)."""
+        return fam != 'rbf' or pathwise_tiled.use_tiled(
+            1, 1, D_, 1, 1, 1, dev)[1]
+
     def check(fam, name, x, operands, single_only=False):
         """Both pairs of the family (the single-block one alone where
-        `single_only`), each wrapper forward and every cotangent through
+        `single_only`; the tiled pair's forward alone where its VJP does
+        not fit), each wrapper forward and every cotangent through
         torch.autograd.grad, against the plain version: the tiled pair's
         errors go to out['errs'][fam + '_fwd'/'_bwd'], the single-block
         pair's to fam + '_fwd_single'/'_bwd_single'."""
@@ -1815,11 +1844,22 @@ def wide_kernels(args, card):
             require(o.shape == r.shape, f'{name}: shape {tuple(o.shape)}')
             out['errs'].setdefault(key + '_fwd', []).append(
                 compare(o, r, f'fwd {fam} {pair} {name}'))
+            if pair == 'tiled' and not tiled_vjp_fits(fam, x.shape[-1]):
+                with torch.no_grad():
+                    require(torch.equal(o, wrapper(x, *operands)),
+                            f'{name}: two launches of the tiled {fam} '
+                            f'forward on the same inputs differ')
+                log(f'  bwd {fam} tiled {name}: the tiled VJP does not fit '
+                    f'this state dim (not run)')
+                continue
             inputs = [t.clone().requires_grad_() for t in (x,) + operands]
             bars = torch.autograd.grad(wrapper(*inputs), inputs, gbar)
             torch.cuda.synchronize()
+            # past D = 12 every RBF cotangent is held to its own size: the
+            # update's (dZ, dls, dnu) are far below 1 there
             out['errs'].setdefault(key + '_bwd', []).append(compare_bwd(
-                bars, ref, f'bwd {fam} {pair} {name}', names))
+                bars, ref, f'bwd {fam} {pair} {name}', names,
+                own_scale=fam == 'rbf' and x.shape[-1] > 12))
             # every pair sums fixed partials in a fixed order: a second
             # launch on the same inputs gives the same bits
             with torch.no_grad():
@@ -1862,22 +1902,27 @@ def wide_kernels(args, card):
                     gbar = check(fam, name, x, operands)
                     # ms per call of each pair's forward and VJP: three
                     # rounds in turns, the median of each (the host's
-                    # jitter moves a single reading by ~10%)
+                    # jitter moves a single reading by ~10%); no tiled VJP
+                    # where it does not fit
                     reps = 20 if N_ > BATCH else 50
                     fns = [lambda m=m: m._launch(x, operands)
                            for m in mods] + [
                         lambda m=m: m._launch_bwd(x, operands, gbar)
                         for m in mods]
+                    if not tiled_vjp_fits(fam, D_):
+                        fns[3] = None
                     rounds = [[] for _ in fns]
                     with torch.no_grad():
                         for _ in range(3):
                             for fn, r in zip(fns, rounds):
-                                r.append(cuda_ms(fn, reps))
-                    t = [sorted(r)[1] for r in rounds]
+                                if fn is not None:
+                                    r.append(cuda_ms(fn, reps))
+                    t = [sorted(r)[1] if r else None for r in rounds]
                     out['sweep'].append((fam, shape, L_, N_, t, pick))
                     log(f'  sweep {fam} {name}: fwd single {t[0]:.4f} '
                         f'tiled {t[1]:.4f}; vjp single {t[2]:.4f} tiled '
-                        f'{t[3]:.4f} ms; rule -> fwd '
+                        + ('-' if t[3] is None else f'{t[3]:.4f}')
+                        + f' ms; rule -> fwd '
                         f'{"tiled" if pick[0] else "single"}, vjp '
                         f'{"tiled" if pick[1] else "single"}')
                     if (L_, N_) == (L, BATCH) and shape in ((12, 12, 1024),
@@ -1906,6 +1951,43 @@ def wide_kernels(args, card):
     check('rbf', f'L=5 N=20 D={RBF_WIDE_Q} S=256 (the rk4 steps at '
                  f'latent_dim {RBF_WIDE_Q})',
           *rbf_ops(L, BATCH, RBF_WIDE_Q, 256), single_only=True)
+    # #4 and #9 at the shapes their paths launch them at, against the
+    # float64 plain version, as rbf_pathwise_probe.py --flows holds #1/#2:
+    # per output or cotangent, max |error| over max |float64| (its own
+    # size), the kernel's no more than F64_NOISE times the f32 plain
+    # version's
+    out['f64'] = {}
+    for name, (x, operands), role in (
+            (f'pathwise_bwd (#4) at L=5 N=20 D={RBF_WIDE_Q} S=256',
+             rbf_ops(L, BATCH, RBF_WIDE_Q, 256), 'bwd'),
+            (f'pathwise_tiled_fwd (#9) at L=5 N={WIDE_BATCH} D=12 S=1024',
+             rbf_ops(L, WIDE_BATCH, 12, 1024), 'fwd')):
+        x64, ops64 = x.double(), [t.double() for t in operands]
+        with torch.no_grad():
+            if role == 'fwd':
+                got = (pathwise_tiled._launch(x, operands),)
+                plain = (pathwise.pathwise_eval_reference(x, *operands),)
+                ref = (pathwise.pathwise_eval_reference(x64, *ops64),)
+                names = ('f',)
+            else:
+                gbar = torch.randn((L, BATCH, RBF_WIDE_Q), generator=gen,
+                                   device=dev)
+                got = pathwise._launch_bwd(x, operands, gbar)
+                plain = pathwise.pathwise_vjp_reference(x, *operands, gbar)
+                ref = pathwise.pathwise_vjp_reference(x64, *ops64,
+                                                      gbar.double())
+                names = ('x',) + pathwise.NAMES
+        torch.cuda.synchronize()
+        errs = {n: tuple(float((v.double() - c).abs().max())
+                         / float(c.abs().max()) for v in (a, b))
+                for n, a, b, c in zip(names, got, plain, ref)}
+        out['f64'][name] = errs
+        log(f'  {name}, float64 plain version: max |kernel - f64| / max '
+            f'|f32 plain - f64|, each over max |f64|: ' + ', '.join(
+                f'{n} {k:.2e} / {p:.2e}' for n, (k, p) in errs.items()))
+        bad = [n for n, (k, p) in errs.items() if k > F64_NOISE * p]
+        require(not bad, f'{name}: {bad} farther from float64 than '
+                f'{F64_NOISE} times the f32 plain version: {errs}')
     log(f'two launches on the same inputs gave the same bits: both RBF '
         f'pairs (pathwise_fwd / pathwise_bwd, pathwise_tiled_fwd / '
         f'pathwise_tiled_bwd) at all {out["repeats"]["rbf"]} of their '
@@ -1923,6 +2005,8 @@ def wide_kernels(args, card):
             for role, single, tiled, chose in (
                     ('fwd', t[0], t[1], pick[0]),
                     ('vjp', t[2], t[3], pick[1])):
+                if tiled is None:   # no choice: the tiled VJP does not fit
+                    continue
                 took, other = (tiled, single) if chose else (single, tiled)
                 if took <= other:
                     hits += 1
@@ -2195,6 +2279,70 @@ def wide_paths(args, card, slice_launches, kern):
                 f'q={qbig} (CUDA events over 2 steps): '
                 f'{out["big_ms"][kernel, nbig, qbig]:.3f} ms a step, '
                 f'launches {got}; card {card}')
+            if qbig == RBF_WIDE_Q:
+                # the trace of one step: each of the rule's library calls
+                # is its main kernel and then its summing kernel, with no
+                # PyTorch reduction of its outputs in between (the
+                # profiler drops some events, so the pairs are counted)
+                seq = kernel_sequence(lambda: stp(big, Xbig, Lbig, gbig))
+                after = collections.Counter()
+                pairs = {}
+                for name in (fk, bk):
+                    at = [i for i, n in enumerate(seq)
+                          if f'{name}_kernel' in n]
+                    paired = [i for i in at if i + 1 < len(seq)
+                              and f'{name}_sum_kernel' in seq[i + 1]]
+                    pairs[name] = (len(paired), len(at))
+                    after.update(seq[i + 2][:70] for i in paired
+                                 if i + 2 < len(seq))
+                    require(paired, f'rk4 step at q={qbig}: no launch of '
+                            f'{name} followed by its summing kernel')
+                log(f'  trace of one such step: {len(seq)} device kernels; '
+                    'main kernels followed by their summing kernel: '
+                    + ', '.join(f'{n} {p} of {a}' for n, (p, a) in
+                                pairs.items())
+                    + '; the kernels after a summing kernel: '
+                    + ', '.join(f'{n} ({c})' for n, c in after.most_common(6)))
+                # one rk4 train step at this width through the rule's
+                # kernels against autograd through the plain version on
+                # the card, same noise (TOL_GRAD, RELU_FLIP), at the
+                # kernel checks' lengthscale for this width: at 2 the
+                # update's envelopes are near e^-18 and the gradients of
+                # the inducing locations, lengthscales and q(u) near 0
+                ls_q = rbf_lengthscale(qbig)
+                mq, gq = init_model(args.seed + 53, device='cuda', **dict(
+                    CONFIG, solver='rk4', latent_dim=qbig, lengthscale=ls_q))
+                noise = step_noise(args.seed + 54, qbig, S6, M, L_=Lbig)
+                relu_k, relu_p = {}, {}
+                with cudnn_deterministic():
+                    (loss_k, _, _, g_k), d = run_path(lambda: step_grads(
+                        mq, gq, Xbig, noise, 360.0, True, 'cuda', Lbig,
+                        relu_in=relu_k))
+                got = {k: v for k, v in d.items() if v}
+                require(set(got) == {fk, bk}, f'the RBF rk4 step at '
+                        f'latent_dim {qbig} launched {got}, the rule names '
+                        f'{fk} and {bk}')
+                kernel_eval = pathwise_tiled.pathwise_eval
+                pathwise_tiled.pathwise_eval = pathwise.pathwise_eval_reference
+                try:
+                    with cudnn_deterministic():
+                        (loss_p, _, _, g_p), dp = run_path(
+                            lambda: step_grads(
+                                mq, gq, Xbig, noise, 360.0, True, 'cuda',
+                                Lbig, relu_in=relu_p, relu_pin=relu_k))
+                finally:
+                    pathwise_tiled.pathwise_eval = kernel_eval
+                require(not any(dp.values()), f'the plain step launched '
+                        f'{dp}')
+                check_grads(
+                    f'RBF rk4, one train step at latent_dim {qbig}, '
+                    f'lengthscale {ls_q:.4f} (L={Lbig}, batch {nbig}; '
+                    f'launches {got}) against autograd through the plain '
+                    f'version on the card',
+                    (float(loss_k), float(loss_p),
+                     *worst_grad_error(g_k, g_p, mq),
+                     *relu_flips(relu_k, relu_p)))
+                del mq, gq
             del big
 
     # the tiled kernels' times at the wide shapes (L=5, N=20)
@@ -2236,9 +2384,9 @@ def wide_paths(args, card, slice_launches, kern):
                 torch.autograd.grad(tiled(*inputs), inputs, gbar)})
         log(f'{fam} tiled kernels at the wide shapes (L=5, N=20, D=12, '
             f'S=1024, M=100): fwd {kf:.4f} ms (plain {pf:.4f}, bound '
-            f'{bf[0]:.5f} {bf[1]}), bwd {kb:.4f} ms through autograd, with '
-            f'slab sums (plain {pb:.4f}, bound {bb[0]:.5f} {bb[1]}); '
-            f'card {card}')
+            f'{bf[0]:.5f} {bf[1]}), bwd {kb:.4f} ms through autograd, its '
+            f'summing kernel included (plain {pb:.4f}, bound {bb[0]:.5f} '
+            f'{bb[1]}); card {card}')
     return out
 
 
@@ -2456,16 +2604,18 @@ def main():
     df_pathwise_tiled._bwd_lib()
     log(f'build: {time.perf_counter() - t0:.1f} s')
     # registers and spills of every kernel instance (nvcc -Xptxas -v); the
-    # tiled DF pair (#11/#12) and the RBF pair #3/#10 keep their per-thread
-    # arrays in registers
+    # tiled DF pair (#11/#12) and the RBF kernels #3, #4, #9 and #10 keep
+    # their per-thread arrays in registers
     for name in sources:
         for sym, (regs, st, ld) in sorted(_build.ptxas_usage(name).items()):
             log(f'ptxas {name}: {sym}: {regs} registers, spill stores {st} '
                 f'bytes, spill loads {ld} bytes')
             # the tiled DF pair's kernels (their wide ones for D above 16
-            # too: per-thread arrays of a fixed 8 output dims) and #3/#10
-            if name.startswith('df_pathwise_tiled') or (
-                    name in ('pathwise_fwd', 'pathwise_tiled_bwd')):
+            # too: per-thread arrays of a fixed 8 output dims) and the
+            # per-step RBF kernels
+            if name.startswith('df_pathwise_tiled') or name in (
+                    'pathwise_fwd', 'pathwise_bwd', 'pathwise_tiled_fwd',
+                    'pathwise_tiled_bwd'):
                 require(st == 0 and ld == 0, f'{sym} spills registers')
 
     # -- 2. the forecaster at full width ---------------------------------

@@ -14,17 +14,24 @@ unpacked with `git archive` into chip_archive/, say), so that two versions
 are timed in one call on one card. The script prints the card, the device
 time of an empty kernel built with this checkout's kernels (the floor
 under every kernel's device time; none for a --repo checkout), then per
-shape (L, N, D, K, S; M = 100,
-an RBF sample drawn from a seed) one JSON line: the largest error of each
-pair's forward and of every cotangent against `pathwise_eval_reference`
-and autograd through it (chip_smoke.py's tolerances: abs 1e-4 + rel 1e-4;
-cotangents 1e-4 (1 + max |plain|)), whether two launches gave the same
+shape (L, N, D, K, S; M = 100, an RBF sample drawn from a seed at
+chip_smoke.py's `rbf_lengthscale(D)`) one JSON line: the largest error of
+each pair's forward and of every cotangent against
+`pathwise_eval_reference` and autograd through it (chip_smoke.py's
+tolerances: abs 1e-4 + rel 1e-4; cotangents 1e-4 (1 + max |plain|)), each
+output's and cotangent's max |error| over its max |float64| against the
+float64 plain version, for each pair (`f64`) and for the f32 plain
+version (`f64_plain`), whether two launches gave the same
 bits, ms per call (CUDA events around --reps calls of the wrapper; the
 median of three rounds taken in turns, single-block then tiled) and
 device us per launch (torch.profiler over --reps launches) of each kernel,
-#10's second kernel, which sums its slabs, apart (null where the checkout
-has none). It exits non-zero if a kernel disagrees with the plain
-version.
+the second kernel of its library call, which sums its blocks' terms,
+apart (`fwd_sum_us`, `bwd_sum_us`; null where the checkout has none: a
+parent whose wrapper sums in PyTorch), and the device us per call of all
+the call's kernels together (`fwd_call_us`, `bwd_call_us`: the library's
+or the parent's PyTorch sums included). Where #10's block does not fit the
+card (D above 65) the tiled VJP is skipped (null). It exits non-zero if a
+kernel disagrees with the plain version.
 
     python3 rbf_pathwise_probe.py --flows [L,N,D,K,S,T ...] [--repo DIR]
         [--no-train-steps]
@@ -81,10 +88,13 @@ import sys
 import chip_smoke as cs
 
 # (L, N, D, K, S): the main widths and the wide shape at L = 5 and 1 first,
-# then the other rows and widths the paths launch the pair at, and an edge
+# then the other rows and widths the paths launch the pairs at (the rk4
+# steps at latent_dim 72, where #10 does not fit, take #9 and #4), and an
+# edge
 SHAPES = ((5, 20, 6, 6, 256), (1, 20, 6, 6, 256), (5, 20, 12, 12, 1024),
           (1, 20, 12, 12, 1024), (5, 160, 6, 6, 256), (1, 20, 6, 6, 2048),
-          (5, 400, 12, 12, 1024), (5, 600, 6, 6, 256), (2, 33, 7, 5, 30))
+          (5, 400, 12, 12, 1024), (5, 600, 6, 6, 256), (5, 20, 72, 72, 256),
+          (2, 33, 7, 5, 30))
 # (L, N, D, K, S, T): the RBF euler pair at the default run's train steps
 # (L = 1 and 5, T = 16) and its requests (L = 5, T = 16 and the T = 32
 # rollout), then chip_smoke.py's order-2 and 75-row-tile checks
@@ -464,6 +474,7 @@ def main():
         return 2
     sys.path.insert(0, os.path.abspath(args.repo))
     from vae_gp_ode_tpu_torch.gp.svgp import draw_fn_sample, init_svgp_params
+    from vae_gp_ode_tpu_torch import ops
     from vae_gp_ode_tpu_torch.ops import _build, pathwise
     from vae_gp_ode_tpu_torch.ops import pathwise_tiled as tiled
 
@@ -494,6 +505,14 @@ def main():
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rng = np.random.default_rng(args.seed)
+    def call_us(fn, reps):
+        """Device us per call of fn(), all of its kernels together (a
+        parent's PyTorch reductions included; torch.profiler)."""
+        fn()
+        ev = cs.device_events(lambda: [fn() for _ in range(reps)])
+        return sum(e.time_range.elapsed_us() for e in ev) / reps if ev \
+            else None
+
     def device_us(fn, name, reps):
         """Device us per launch of kernel `name` and of the other kernels
         of its library call together (each None where the trace held
@@ -505,8 +524,8 @@ def main():
 
     failed = []
     for L, N, D, K, S in shapes:
-        gp = init_svgp_params(rng, D, K, M, lengthscale=2.0, variance=0.7,
-                              device='cuda')
+        gp = init_svgp_params(rng, D, K, M, lengthscale=cs.rbf_lengthscale(D),
+                              variance=0.7, device='cuda')
         with torch.no_grad():
             ops_ = pathwise.rbf_fused_operands(
                 gp, draw_fn_sample(gp, gen, S, L=L))
@@ -515,15 +534,33 @@ def main():
         with torch.no_grad():
             ref = pathwise.pathwise_eval_reference(x, *ops_)
         refb = pathwise.pathwise_vjp_reference(x, *ops_, g)
-        row = {'L': L, 'N': N, 'D': D, 'K': K, 'S': S, 'M': M}
+        # the float64 plain version: each output's or cotangent's max
+        # |error| over its own max |float64|
+        x64, ops64 = x.double(), [t.double() for t in ops_]
+        with torch.no_grad():
+            ref64 = pathwise.pathwise_eval_reference(x64, *ops64)
+        refb64 = pathwise.pathwise_vjp_reference(x64, *ops64, g.double())
+        names = ('f', 'x') + pathwise.NAMES
+
+        def f64_errs(outs):
+            return {n: float((a.double() - b).abs().max())
+                    / float(b.abs().max())
+                    for n, a, b in zip(names, outs, (ref64,) + refb64)}
+        row = {'L': L, 'N': N, 'D': D, 'K': K, 'S': S, 'M': M,
+               'lengthscale': cs.rbf_lengthscale(D),
+               'f64_plain': f64_errs((ref,) + refb)}
         pairs = (('single', pathwise), ('tiled', tiled))
+        # #10's block holds every D of its items: it does not fit past D=65
+        tiled_vjp = tiled.tiled_bwd_smem_bytes(D) <= ops.card_properties(
+            dev)[1]
         reps = args.reps if N <= 160 else max(3, args.reps // 4)
         for tag, mod in pairs:
+            vjp = mod is pathwise or tiled_vjp
             with torch.no_grad():
                 o1 = mod._launch(x, ops_)
                 o2 = mod._launch(x, ops_)
-                b1 = mod._launch_bwd(x, ops_, g)
-                b2 = mod._launch_bwd(x, ops_, g)
+                b1 = mod._launch_bwd(x, ops_, g) if vjp else ()
+                b2 = mod._launch_bwd(x, ops_, g) if vjp else ()
             torch.cuda.synchronize()
             err = (o1 - ref).abs()
             ok = bool(torch.isfinite(o1).all()) and bool(
@@ -539,23 +576,31 @@ def main():
             if not ok:
                 failed.append(f'{tag} {row}')
             with torch.no_grad():
-                fwd_us, _ = device_us(lambda: mod._launch(x, ops_),
-                                      mod.KERNEL, reps)
-                bwd_us, sum_us = device_us(
+                fwd_us, fwd_sum_us = device_us(
+                    lambda: mod._launch(x, ops_), mod.KERNEL, reps)
+                bwd_us, bwd_sum_us = device_us(
                     lambda: mod._launch_bwd(x, ops_, g), mod.BWD_KERNEL,
-                    reps)
-            row[tag] = {'fwd_err': float(err.max()), 'bwd_rel_err': berr,
-                        'ok': ok, 'bitwise_repeat': same, 'fwd_us': fwd_us,
-                        'bwd_us': bwd_us}
-            if mod is tiled:
-                row[tag]['bwd_sum_us'] = sum_us
+                    reps) if vjp else (None, None)
+                fwd_call = call_us(lambda: mod._launch(x, ops_), reps)
+                bwd_call = call_us(lambda: mod._launch_bwd(x, ops_, g),
+                                   reps) if vjp else None
+            row[tag] = {'fwd_err': float(err.max()),
+                        'bwd_rel_err': berr if vjp else None,
+                        'f64': f64_errs((o1,) + tuple(b1)), 'ok': ok,
+                        'bitwise_repeat': same, 'fwd_us': fwd_us,
+                        'fwd_sum_us': fwd_sum_us, 'bwd_us': bwd_us,
+                        'bwd_sum_us': bwd_sum_us,
+                        'fwd_call_us': fwd_call, 'bwd_call_us': bwd_call}
         # ms per call: three rounds in turns, the median of each
-        rounds = {(tag, role): [] for tag, _ in pairs
-                  for role in ('fwd', 'bwd')}
+        rounds = {(tag, role): [] for tag, mod in pairs
+                  for role in ('fwd', 'bwd')
+                  if role == 'fwd' or mod is pathwise or tiled_vjp}
         with torch.no_grad():
             for _ in range(3):
                 for role in ('fwd', 'bwd'):
                     for tag, mod in pairs:
+                        if (tag, role) not in rounds:
+                            continue
                         fn = ((lambda: mod._launch(x, ops_)) if role == 'fwd'
                               else (lambda: mod._launch_bwd(x, ops_, g)))
                         rounds[tag, role].append(cs.cuda_ms(fn, reps))

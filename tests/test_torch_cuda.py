@@ -13,7 +13,7 @@ rows and 12288 feature columns). The divergence-free kernels #5-#8: the
 same two tolerances (sums over up to 6144 feature columns, 100 inducing
 points and 36 output-dim pairs). The grid-tiled kernels #9-#12: the same
 two tolerances (sums over up to 12288 feature columns, in per-block
-partials summed by the wrapper).
+partials summed by a second kernel of each library call).
 """
 
 import ctypes
@@ -226,10 +226,10 @@ def test_forecaster_runs_through_the_kernel(cuda):
 
 # -- the per-step eval (kernel #3) and its VJP (kernel #4) -------------------
 
-def _pathwise_operands(dev, L, N, D, K, S, M=100, seed=0):
+def _pathwise_operands(dev, L, N, D, K, S, M=100, seed=0, lengthscale=2.0):
     rng = np.random.default_rng(seed)
-    gp = init_svgp_params(rng, D, K, M, lengthscale=2.0, variance=0.7,
-                          device=dev)
+    gp = init_svgp_params(rng, D, K, M, lengthscale=lengthscale,
+                          variance=0.7, device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
         operands = rbf_fused_operands(gp, draw_fn_sample(gp, gen, S, L=L))
@@ -589,6 +589,43 @@ def test_tiled_pathwise_vjp_per_draw_gp_operands_and_layouts(cuda):
     got = torch.autograd.grad(out, inputs, g[0])
     _assert_cotangents(got, pathwise.pathwise_vjp_reference(x[0], *one,
                                                             g[0]))
+
+
+@pytest.mark.parametrize('L,N,D,K,S', [(5, 20, 72, 72, 256),
+                                       (5, 400, 12, 12, 1024)])
+def test_rbf_vjp_and_tiled_eval_at_their_path_shapes(cuda, L, N, D, K, S):
+    """#4 at the shape of the rk4 steps at latent_dim 72 and #9 at that of
+    the request of 400 sequences (each also at the other's), launched
+    directly: against the plain version, the same bits on two launches,
+    one count per launch. The lengthscale 2 sqrt(D / 12) keeps the
+    update's envelopes exp(-0.5 |(x - z) / ls|^2) at those of D = 12 (at
+    lengthscale 2 and D = 72 they are near e^-18 and the update's
+    cotangents near 0), and each cotangent is held to 1e-4 of its own
+    largest plain entry."""
+    x, operands, gen = _pathwise_operands(
+        cuda, L, N, D, K, S, lengthscale=2.0 * max(1.0, D / 12) ** 0.5)
+    g = torch.randn((L, N, K), generator=gen, device=cuda)
+    before = dict(ops.LAUNCHES)
+    with torch.no_grad():
+        out = pathwise_tiled._launch(x, operands)
+        again = pathwise_tiled._launch(x, operands)
+        bars = pathwise._launch_bwd(x, operands, g)
+        bars2 = pathwise._launch_bwd(x, operands, g)
+        ref = pathwise.pathwise_eval_reference(x, *operands)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES['pathwise_tiled_fwd'] == \
+        before['pathwise_tiled_fwd'] + 2
+    assert ops.LAUNCHES['pathwise_bwd'] == before['pathwise_bwd'] + 2
+    torch.testing.assert_close(out, ref, **TOL)
+    assert torch.equal(out, again)
+    refs = pathwise.pathwise_vjp_reference(x, *operands, g)
+    # the update's cotangents (Z, nu, ls) are not rounding noise
+    assert min(float(refs[i].abs().max()) for i in (4, 5, 6)) > 1e-3 * max(
+        float(r.abs().max()) for r in refs)
+    for i, (a, b) in enumerate(zip(bars, refs)):
+        err = float((a - b).abs().max())
+        assert err <= 1e-4 * float(b.abs().max()), (i, err)
+    assert all(torch.equal(a, b) for a, b in zip(bars, bars2))
 
 
 @pytest.mark.parametrize('L,N,q,S,ls', [

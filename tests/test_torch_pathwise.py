@@ -139,38 +139,6 @@ def test_per_draw_gp_operands_match_shared():
                                    shared[i].numpy(), rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize('lead', [False, True])
-def test_slab_split_matches_the_vjp(lead):
-    """The CUDA wrapper's reduction (`split_slabs`) on slabs laid out as
-    csrc/pathwise_bwd.cu writes them - one per (draw, row tile) - built
-    here from the plain VJP of each tile's rows, gives the plain VJP of
-    the whole batch, shared operands summed over the draws."""
-    L, tile = 3, 2
-    rng = np.random.default_rng(40 + lead)
-    args = _t(_operands(rng, lead=(L,)))
-    if lead:                       # per-draw Z, ls and var too
-        for i in (4, 6, 7):
-            args[i] = args[i].expand((L,) + tuple(args[i].shape)) \
-                .contiguous() * (1.0 + 0.1 * torch.arange(L).reshape(
-                    (L,) + (1,) * args[i].dim()))
-    x, operands = args[0], args[1:]
-    N = x.shape[1]
-    g = torch.as_tensor(rng.standard_normal((L, N, 3)).astype(np.float32))
-    slabs = []
-    for l in range(L):
-        ops_l = [t[l] if t.dim() > nd else t
-                 for t, nd in zip(operands, tpw._BASE_DIMS)]
-        tiles = []
-        for r in range(0, N, tile):
-            bars = tpw.pathwise_vjp_reference(x[l, r:r + tile], *ops_l,
-                                              g[l, r:r + tile])[1:]
-            tiles.append(torch.cat([b.reshape(-1) for b in bars]))
-        slabs.append(torch.stack(tiles))
-    split = tpw.split_slabs(torch.stack(slabs).sum(dim=1), operands)
-    ref = tpw.pathwise_vjp_reference(x, *operands, g)
-    _assert_cotangents((ref[0],) + split, ref)
-
-
 def test_fn_eval_on_the_cpu_is_the_plain_composition():
     """gp.svgp.fn_eval on CPU tensors is the plain pathwise eval on the
     fused operand block, with a batch of draws, launches nothing, and

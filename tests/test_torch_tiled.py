@@ -172,8 +172,11 @@ def test_df_plain_vjp_matches_jax_tiled_kernel():
 
 # (D, K, S) -> {(L, N): (forward tiled, VJP tiled)} on an H100: refit to
 # the redesigned #3/#10 from the sweep in chip_smoke.py phase 6d (PERF.md
-# section 6): the VJP tiled wherever #10's block fits, the forward tiled
-# for S + M > 768 from L*N*K*(S + M) = 8e6
+# section 6), and to the redesigned #4/#9 from the same sweep with D = 20,
+# 24, 28, 32, 48 and 72 added: up to 16 state dims the forward tiled for
+# S + M > 768 from L*N*K*(S + M) = 8e6, past 16 from L*N*K*(S + M)*D^2 =
+# 2.5e9; the VJP tiled wherever #10's block fits up to 28 state dims and
+# at one draw above
 RBF_RULE = {
     (6, 6, 256): {(1, 20): (False, True), (5, 20): (False, True),
                   (1, 600): (False, True), (5, 600): (False, True)},
@@ -184,7 +187,19 @@ RBF_RULE = {
     (6, 6, 2048): {(1, 20): (False, True), (5, 20): (False, True),
                    (1, 600): (False, True), (5, 600): (True, True)},
     (12, 12, 1024): {(1, 20): (False, True), (5, 20): (False, True),
-                     (1, 600): (True, True), (5, 600): (True, True)}}
+                     (1, 600): (True, True), (5, 600): (True, True)},
+    (20, 20, 256): {(1, 20): (False, True), (5, 20): (False, True),
+                    (1, 600): (False, True), (5, 600): (True, True)},
+    (24, 24, 256): {(1, 20): (False, True), (5, 20): (False, True),
+                    (1, 600): (True, True), (5, 600): (True, True)},
+    (28, 28, 256): {(1, 20): (False, True), (5, 20): (False, True),
+                    (1, 600): (True, True), (5, 600): (True, True)},
+    (32, 32, 256): {(1, 20): (False, True), (5, 20): (False, False),
+                    (1, 600): (True, True), (5, 600): (True, False)},
+    (48, 48, 256): {(1, 20): (False, True), (5, 20): (True, False),
+                    (1, 600): (True, True), (5, 600): (True, False)},
+    (72, 72, 256): {(1, 20): (True, False), (5, 20): (True, False),
+                    (1, 600): (True, False), (5, 600): (True, False)}}
 # (D, S) -> {(L, N): (forward tiled, VJP tiled)}: refit to the redesigned
 # #11/#12 (PERF.md section 6); the forward at D <= 8 checked again against
 # the redesigned #5 (the sweep kept it at every D <= 8 shape); the VJP
@@ -228,7 +243,7 @@ def test_rule_at_the_rows_of_the_smoke_paths():
     #3/#10 (RBF) and, at L = 5, #5/#12 (DF; at L = 1 the redesigned #6
     takes the VJP: ~26 us modelled against #12's ~54), and at batch 20
     #3/#10 and #5/#12; RBF rk4 steps at q = 72, wider than #10's block
-    holds, take #3/#4; DF rk4 steps at L = 1 with 600 sequences take
+    holds, take #9/#4; DF rk4 steps at L = 1 with 600 sequences take
     #5/#6."""
     for L in (1, 5):
         assert tpt.pick(L, 20, 12, 12, 1024, 100, OPTIN) == (False, True)
@@ -237,7 +252,7 @@ def test_rule_at_the_rows_of_the_smoke_paths():
         assert _pick_df(L, 160, 6, 1536, 100) == (False, L == 5)
         assert tpt.pick(L, 20, 6, 6, 256, 100, OPTIN) == (False, True)
         assert _pick_df(L, 20, 6, 1536, 100) == (False, True)
-        assert tpt.pick(L, 20, 72, 72, 256, 100, OPTIN) == (False, False)
+        assert tpt.pick(L, 20, 72, 72, 256, 100, OPTIN) == (True, False)
     assert tpt.pick(5, 400, 12, 12, 1024, 100, OPTIN)[0]
     assert _pick_df(5, 400, 12, 12288, 100)[0]
     assert _pick_df(1, 600, 6, 1536, 100) == (False, False)
@@ -260,7 +275,7 @@ def test_rule_kernels_name_the_picked_pair(monkeypatch):
     assert tpt.rule_kernels(5, 160, 6, 6, 256, 100, dev) == (
         'pathwise_fwd', 'pathwise_tiled_bwd')
     assert tpt.rule_kernels(5, 20, 72, 72, 256, 100, dev) == (
-        'pathwise_fwd', 'pathwise_bwd')
+        'pathwise_tiled_fwd', 'pathwise_bwd')
     assert tdpt.rule_kernels(5, 20, 12, 12288, 100, dev) == (
         'df_pathwise_tiled_fwd', 'df_pathwise_tiled_bwd')
     assert tdpt.rule_kernels(5, 400, 12, 12288, 100, dev) == (
@@ -276,14 +291,15 @@ def test_rbf_rule_keeps_the_single_block_vjp_where_the_tiled_block_is_too_big():
     terms, its points' dZ, dls and dnu sums and the warps' dx terms in
     shared memory
     (`tiled_bwd_smem_bytes`, csrc/pathwise_tiled_bwd.cu): a state dim
-    whose block exceeds the opt-in limit goes to #4."""
+    whose block exceeds the opt-in limit goes to #4 (at one draw, where
+    the rule keeps #10 above 28 state dims while it fits)."""
     assert tpt.tiled_bwd_smem_bytes(12) == 4 * (
         240 + 12 + 864 + 1344 + 4 * 25 * 64 + 3072)
     D = 66
     assert tpt.tiled_bwd_smem_bytes(D) > OPTIN >= tpt.tiled_bwd_smem_bytes(
         D - 1)
-    assert tpt.pick(5, 20, D - 1, 12, 1024, 100, OPTIN)[1]
-    assert not tpt.pick(5, 20, D, 12, 1024, 100, OPTIN)[1]
+    assert tpt.pick(1, 20, D - 1, 12, 1024, 100, OPTIN)[1]
+    assert not tpt.pick(1, 20, D, 12, 1024, 100, OPTIN)[1]
 
 
 # -- the CPU path ----------------------------------------------------------------

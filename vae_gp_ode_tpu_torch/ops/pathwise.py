@@ -15,12 +15,15 @@ inside a `torch.autograd.Function` whose backward launches
 `pathwise_eval_reference`, and autograd through it. Every operand may
 carry a leading dim of L draws or be shared by all draws (one launch for
 all L, as the JAX package's vmap over `pallas_call`); the forward's
-blocks sum their partials within a thread-block cluster and the VJP's
-cotangents of shared operands are summed over the draws from per-block
-slabs, both in a fixed order, without atomics.
+blocks sum their partials within a thread-block cluster, and the VJP's
+library call sums its blocks' terms (and the cotangents of shared
+operands over the draws) in a second kernel, both in a fixed order,
+without atomics, so the wrapper runs no reduction.
 """
 
 import ctypes
+import itertools
+import math
 
 import torch
 
@@ -45,7 +48,12 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _ARGTYPES = [_P, _LL] * 8 + [_P] + [_I] * 7 + [_P]
-_BWD_ARGTYPES = [_P, _LL] * 8 + [_P, _P, _P] + [_I] * 7 + [_P]
+#: a VJP library's launcher: operands, g, workspace and its size, the eight
+#: outputs, the shapes, device and stream
+VJP_ARGTYPES = [_P, _LL] * 8 + [_P, _P, _LL] + [_P] * 8 + [_I] * 7 + [_P]
+#: a VJP library's workspace size: shapes, then the draw strides of omega,
+#: phase, weights and nu
+VJP_WORKSPACE_ARGTYPES = [_I] * 6 + [_LL] * 4
 
 
 def pathwise_eval_reference(x, omega, phase, weights, Z, nu, ls, var):
@@ -140,12 +148,12 @@ def _lib():
 def _bwd_lib():
     lib = _build.load('pathwise_bwd')
     if lib.pathwise_bwd.argtypes is None:
-        lib.pathwise_bwd.argtypes = _BWD_ARGTYPES
+        lib.pathwise_bwd.argtypes = VJP_ARGTYPES
         lib.pathwise_bwd.restype = ctypes.c_int
-        lib.pathwise_bwd_slab_floats.argtypes = [_I] * 4
-        lib.pathwise_bwd_slab_floats.restype = ctypes.c_longlong
-        lib.pathwise_bwd_rows.argtypes = []
-        lib.pathwise_bwd_rows.restype = ctypes.c_int
+        lib.pathwise_bwd_workspace.argtypes = VJP_WORKSPACE_ARGTYPES
+        lib.pathwise_bwd_workspace.restype = ctypes.c_longlong
+        lib.pathwise_bwd_max_dim.argtypes = []
+        lib.pathwise_bwd_max_dim.restype = ctypes.c_int
     return lib
 
 
@@ -171,50 +179,49 @@ def _launch(x, operands):
     return out
 
 
-def _launch_bwd(x, operands, g):
-    """Launch the VJP kernel for the cotangent g (L, N, K). Returns dx
-    (L, N, D) and the operands' cotangents, each in its operand's
-    shape."""
+def launch_vjp(name, launcher, workspace_floats, x, operands, g):
+    """Launch a VJP library call (`launcher`, sized by `workspace_floats`:
+    #4 or #10) for the cotangent g (L, N, K) and count it as kernel `name`.
+    Returns dx (L, N, D) and the operands' cotangents, each in its
+    operand's shape (summed by the library over the draws an operand is
+    shared by): the library's own outputs, with no reduction after it."""
     _check_tensors(x.device, zip(('x',) + NAMES + ('g',),
                                  (x,) + tuple(operands) + (g,)))
     L, N, D, K, S, M, strides = _check(x, operands)
     if tuple(g.shape) != (L, N, K):
         raise ValueError(f'g has shape {tuple(g.shape)}, expected '
                          f'({L}, {N}, {K})')
-    lib = _bwd_lib()
-    P = lib.pathwise_bwd_slab_floats(D, K, S, M)
-    n_tiles = -(-N // lib.pathwise_bwd_rows())
-    dx = torch.empty((L, N, D), dtype=torch.float32, device=x.device)
-    slab = torch.empty((L, n_tiles, P), dtype=torch.float32, device=x.device)
+    om, ph, w, _, nu, _, _ = strides
+    n_ws = workspace_floats(L, N, D, K, S, M, om, ph, w, nu)
+    workspace = torch.empty(n_ws, dtype=torch.float32, device=x.device)
+    shapes = [(L, N, D)] + [tuple(t.shape) for t in operands]
+    sizes = [math.prod(shape) for shape in shapes]
+    out = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
+    offsets = itertools.accumulate([0] + sizes[:-1])
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.pathwise_bwd(*_flat(x, operands, strides), g.data_ptr(),
-                          dx.data_ptr(), slab.data_ptr(), L, N, D, K, S, M,
-                          x.device.index, stream)
+    rc = launcher(*_flat(x, operands, strides), g.data_ptr(),
+                  workspace.data_ptr(), n_ws,
+                  *(out.data_ptr() + 4 * o for o in offsets), L, N, D, K, S,
+                  M, x.device.index, stream)
     if rc != 0:
-        raise RuntimeError(f'{BWD_KERNEL} launch failed: CUDA error {rc} '
+        raise RuntimeError(f'{name} launch failed: CUDA error {rc} '
                            f'(L={L} N={N} D={D} K={K} S={S} M={M})')
-    ops.count(BWD_KERNEL, (L, N, D, K, S, M))
-    return (dx,) + split_slabs(slab.sum(dim=1), operands)
+    ops.count(name, (L, N, D, K, S, M))
+    return tuple(part.view(shape)
+                 for part, shape in zip(out.split(sizes), shapes))
 
 
-def split_slabs(per_draw, operands, base_dims=_BASE_DIMS):
-    """Cut the (L, P) tile-summed slabs into the operands' cotangents, laid
-    out one after another in operand order ([omega | phase | weights | Z |
-    nu | ls | var] in csrc/pathwise_bwd.cu), summing over the draws an
-    operand is shared by. `base_dims`: each operand's number of trailing
-    (non-draw) dims."""
-    L = per_draw.shape[0]
-    out, o = [], 0
-    for t, nd in zip(operands, base_dims):
-        inner = tuple(t.shape[-nd:])
-        n = int(torch.Size(inner).numel())
-        part = per_draw[:, o:o + n].reshape((L,) + inner)
-        o += n
-        out.append(part if t.dim() == nd + 1 else part.sum(dim=0))
-    if o != per_draw.shape[1]:
-        raise AssertionError(f'slab holds {per_draw.shape[1]} floats, '
-                             f'operands {o}')
-    return tuple(out)
+def _launch_bwd(x, operands, g):
+    """Launch the VJP kernel #4 and its sums for the cotangent g (L, N,
+    K); see `launch_vjp`. Raises for a state dim D past the library's
+    limit (`pathwise_bwd_max_dim`)."""
+    lib = _bwd_lib()
+    limit = lib.pathwise_bwd_max_dim()
+    if x.shape[-1] > limit:
+        raise ValueError(f'{BWD_KERNEL} takes state dims up to {limit}, got '
+                         f'D={x.shape[-1]}')
+    return launch_vjp(BWD_KERNEL, lib.pathwise_bwd, lib.pathwise_bwd_workspace,
+                      x, operands, g)
 
 
 def _draws(x, operands, base_dims=_BASE_DIMS):

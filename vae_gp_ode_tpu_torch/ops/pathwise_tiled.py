@@ -11,18 +11,24 @@ Both pairs compute the same function, `ops.pathwise.pathwise_eval_reference`
   features and inducing points and sum their partials through
   distributed shared memory (clusters of 8 for long feature lists, of one
   block that loads its own items for short ones).
-* `csrc/pathwise_bwd.cu` (#4): one block per (draw, row tile) that walks
-  all K*S feature columns.
-* `csrc/pathwise_tiled_fwd.cu` (#9): a grid over (draw, output dim k,
-  feature chunk), with the inducing update in a slot of its own; per-block
-  partials go to a slab that the wrapper sums, without atomics.
+* `csrc/pathwise_bwd.cu` (#4): blocks of 128 contiguous feature columns
+  of omega's (D, S*K) layout beside blocks of 128 inducing points of one
+  output dim, a column or point per thread with 20 rows in registers, D in
+  sub-tiles of 16, so that it takes any D up to 1,024 (#10's block holds
+  D <= 65).
+* `csrc/pathwise_tiled_fwd.cu` (#9): blocks of 20 rows, up to 32 output
+  dims and a range of features (or of inducing points), each thread a
+  20-row register tile of one output dim over contiguous columns; the
+  blocks' partials are summed by a second kernel of the same library call.
 * `csrc/pathwise_tiled_bwd.cu` (#10): blocks of 64 contiguous feature
-  columns of omega's (D, S*K) layout beside blocks of 64 inducing points
-  of one output dim, all rows per block in tiles of 20; per-block partials
-  go to slabs that a second kernel of the same library call sums in a
-  fixed order (and over the draws of a shared operand), so the wrapper
-  runs no reduction; the library exports the size of its workspace, and
-  its launcher checks the buffer it is given.
+  columns beside blocks of 64 inducing points of one output dim, all rows
+  per block in tiles of 20, every D of an item in shared memory (D <= 65).
+
+#4, #9 and #10 each sum what crosses their blocks in a second kernel of
+the same library call, in a fixed order (the VJPs also over the draws of
+a shared operand), without atomics, so the wrappers run no reduction;
+each library exports the size of its workspace, and its launcher checks
+the buffer it is given.
 
 `pathwise_eval` is the per-step eval that `gp.svgp.fn_eval` calls: CPU
 tensors take the plain version; CUDA tensors take the kernels that
@@ -30,8 +36,6 @@ tensors take the plain version; CUDA tensors take the kernels that
 """
 
 import ctypes
-import itertools
-import math
 
 import torch
 
@@ -39,8 +43,8 @@ from vae_gp_ode_tpu_torch import ops
 from vae_gp_ode_tpu_torch.ops import _build
 from vae_gp_ode_tpu_torch.ops import pathwise
 from vae_gp_ode_tpu_torch.ops.pathwise import (
-    NAMES, _check, _check_tensors, _draws, _flat, apply_routed,
-    pathwise_eval_reference,
+    NAMES, VJP_ARGTYPES, VJP_WORKSPACE_ARGTYPES, _check, _check_tensors,
+    _draws, _flat, apply_routed, launch_vjp, pathwise_eval_reference,
 )
 
 KERNEL = 'pathwise_tiled_fwd'
@@ -55,8 +59,7 @@ BWD_REPLACES = 'vae_gp_ode_tpu/ops/pathwise_tiled.py:150'
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
-_ARGTYPES = [_P, _LL] * 8 + [_P] + [_I] * 7 + [_P]
-_BWD_ARGTYPES = [_P, _LL] * 8 + [_P, _P, _LL] + [_P] * 8 + [_I] * 7 + [_P]
+_ARGTYPES = [_P, _LL] * 8 + [_P, _LL, _P] + [_I] * 7 + [_P]
 # -- the kernels --------------------------------------------------------------
 
 def _lib():
@@ -64,17 +67,19 @@ def _lib():
     if lib.pathwise_tiled_fwd.argtypes is None:
         lib.pathwise_tiled_fwd.argtypes = _ARGTYPES
         lib.pathwise_tiled_fwd.restype = ctypes.c_int
-        lib.pathwise_tiled_fwd_chunk.argtypes = []
-        lib.pathwise_tiled_fwd_chunk.restype = ctypes.c_int
+        lib.pathwise_tiled_fwd_workspace.argtypes = [_I] * 7
+        lib.pathwise_tiled_fwd_workspace.restype = ctypes.c_longlong
+        lib.pathwise_tiled_fwd_max_dim.argtypes = []
+        lib.pathwise_tiled_fwd_max_dim.restype = ctypes.c_int
     return lib
 
 
 def _bwd_lib():
     lib = _build.load('pathwise_tiled_bwd')
     if lib.pathwise_tiled_bwd.argtypes is None:
-        lib.pathwise_tiled_bwd.argtypes = _BWD_ARGTYPES
+        lib.pathwise_tiled_bwd.argtypes = VJP_ARGTYPES
         lib.pathwise_tiled_bwd.restype = ctypes.c_int
-        lib.pathwise_tiled_bwd_workspace.argtypes = [_I] * 6 + [_LL] * 4
+        lib.pathwise_tiled_bwd_workspace.argtypes = VJP_WORKSPACE_ARGTYPES
         lib.pathwise_tiled_bwd_workspace.restype = ctypes.c_longlong
         lib.pathwise_tiled_bwd_smem_bytes.argtypes = [_I]
         lib.pathwise_tiled_bwd_smem_bytes.restype = ctypes.c_longlong
@@ -84,55 +89,38 @@ def _bwd_lib():
 
 
 def _launch(x, operands):
-    """Launch the tiled forward kernel; returns (L, N, K), the sum of its
-    per-slot partials."""
+    """Launch the tiled forward kernel and its sum; returns (L, N, K), the
+    library's own output. Raises for a state dim D past the library's
+    limit (`pathwise_tiled_fwd_max_dim`)."""
     _check_tensors(x.device, zip(('x',) + NAMES, (x,) + tuple(operands)))
     L, N, D, K, S, M, strides = _check(x, operands)
     lib = _lib()
-    n_slots = -(-S // lib.pathwise_tiled_fwd_chunk()) + 1
-    part = torch.empty((L, n_slots, N, K), dtype=torch.float32,
-                       device=x.device)
+    limit = lib.pathwise_tiled_fwd_max_dim()
+    if D > limit:
+        raise ValueError(f'{KERNEL} takes state dims up to {limit}, got '
+                         f'D={D}')
+    # the grid's layout, and so the partials' size, follows the SM count
+    n_ws = lib.pathwise_tiled_fwd_workspace(
+        L, N, D, K, S, M, ops.card_properties(x.device)[0])
+    workspace = torch.empty(n_ws, dtype=torch.float32, device=x.device)
+    out = torch.empty((L, N, K), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.pathwise_tiled_fwd(*_flat(x, operands, strides),
-                                part.data_ptr(), L, N, D, K, S, M,
-                                x.device.index, stream)
+                                workspace.data_ptr(), n_ws, out.data_ptr(),
+                                L, N, D, K, S, M, x.device.index, stream)
     if rc != 0:
         raise RuntimeError(f'{KERNEL} launch failed: CUDA error {rc} '
                            f'(L={L} N={N} D={D} K={K} S={S} M={M})')
     ops.count(KERNEL, (L, N, D, K, S, M))
-    return part.sum(dim=1)
+    return out
 
 
 def _launch_bwd(x, operands, g):
-    """Launch the tiled VJP kernel and its sums for the cotangent g (L, N,
-    K). Returns dx (L, N, D) and the operands' cotangents, each in its
-    operand's shape (summed by the library over the draws an operand is
-    shared by)."""
-    _check_tensors(x.device, zip(('x',) + NAMES + ('g',),
-                                 (x,) + tuple(operands) + (g,)))
-    L, N, D, K, S, M, strides = _check(x, operands)
-    if tuple(g.shape) != (L, N, K):
-        raise ValueError(f'g has shape {tuple(g.shape)}, expected '
-                         f'({L}, {N}, {K})')
+    """Launch the tiled VJP kernel #10 and its sums for the cotangent g
+    (L, N, K); see `pathwise.launch_vjp`."""
     lib = _bwd_lib()
-    om, ph, w, _, nu, _, _ = strides
-    n_ws = lib.pathwise_tiled_bwd_workspace(L, N, D, K, S, M, om, ph, w, nu)
-    workspace = torch.empty(n_ws, dtype=torch.float32, device=x.device)
-    shapes = [(L, N, D)] + [tuple(t.shape) for t in operands]
-    sizes = [math.prod(shape) for shape in shapes]
-    out = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
-    offsets = itertools.accumulate([0] + sizes[:-1])
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.pathwise_tiled_bwd(
-        *_flat(x, operands, strides), g.data_ptr(), workspace.data_ptr(),
-        n_ws, *(out.data_ptr() + 4 * o for o in offsets), L, N, D, K, S, M,
-        x.device.index, stream)
-    if rc != 0:
-        raise RuntimeError(f'{BWD_KERNEL} launch failed: CUDA error {rc} '
-                           f'(L={L} N={N} D={D} K={K} S={S} M={M})')
-    ops.count(BWD_KERNEL, (L, N, D, K, S, M))
-    return tuple(part.view(shape)
-                 for part, shape in zip(out.split(sizes), shapes))
+    return launch_vjp(BWD_KERNEL, lib.pathwise_tiled_bwd,
+                      lib.pathwise_tiled_bwd_workspace, x, operands, g)
 
 
 def tiled_pathwise_eval(x, omega, phase, weights, Z, nu, ls, var):
@@ -170,23 +158,40 @@ def pick(L, N, D, K, S, M, optin):
     sweep per call that `chip_smoke.py` phase 6d measures on an H100 and
     the device time per launch of both pairs (PERF.md section 6).
 
-    The VJP: #10 takes every shape whose block fits the shared memory
-    (`tiled_bwd_smem_bytes`, D <= 65 at the H100's opt-in): it was the
-    faster call at all 20 shapes of the sweep, by 1.3-8x, and the faster
-    kernel on the device at every measured shape. #4 remains for wider
-    states.
+    The forward: both kernels are one call's host issue (~60-90 us on
+    the sweep's host, #9's ~15 us more) plus a few to a few hundred
+    microseconds of device time, #9 with the second kernel of its
+    library call. Up to 16 state dims (the dims #3 keeps in registers)
+    #3 takes a short feature list (S + M <= 768) in clusters of one
+    block at any row count; a long list takes clusters of 8 blocks per
+    (draw, row tile), which cost more than #9's grid once there are many
+    rows: #9 takes S + M > 768 from L*N*K*(S + M) >= 8e6 row-feature
+    products, where the sweep's calls favour it (1.4-2.2x at N = 600).
+    Past 16 dims #3's time grows faster than D (0.07 ms a call at L=5,
+    N=20 up to D = 32, 0.11 at 48, 0.54 at 72), and #9 takes the shapes
+    with L*N*K*(S + M)*D^2 >= 2.5e9: in the sweep at D = 20, 24, 28, 32,
+    48 and 72 (S = 256) that splits the cells #3 wins (N = 20 up to
+    D = 48 at L = 1 and D = 32 at L = 5; N = 600 at L = 1 up to D = 20,
+    0.065 against 0.080 ms) from those #9 wins (N = 600 at L = 5 from
+    D = 20 and at L = 1 from D = 28; D = 48 at L = 5; D = 72), but for
+    one near tie (D = 24, L = 1, N = 600: 0.073 against 0.075 ms).
 
-    The forward: both kernels are one call's host issue (~40-70 us on
-    the sweep's host) plus a few to a few hundred microseconds of device
-    time, and #9's partials need a second launch. #3 takes a short
-    feature list (S + M <= 768) in clusters of one block at any row
-    count. A long list takes clusters of 8 blocks per (draw, row tile),
-    which cost more than #9's grid once there are many rows: #9 takes
-    S + M > 768 from L*N*K*(S + M) >= 8e6 row-feature products, where the
-    sweep's calls favour it (1.4-2x at N = 600).
+    The VJP: #10 takes every shape whose block fits the shared memory
+    (`tiled_bwd_smem_bytes`, D <= 65 at the H100's opt-in) up to 28
+    state dims, and at one draw above: at N = 600 it was the faster call
+    at L = 1 at every width the sweep has and at L = 5 up to D = 28 (11%
+    at 28). #4 takes the rest: every state #10's block does not fit, and
+    D > 28 at L > 1, where the sweep's calls favour it at N = 600 (35% at
+    D = 32, 12% at 48). The N = 20 calls are host-bound, within 0-22%
+    either way. Between 28 and 32 nothing is measured; the boundary sits
+    at the last width where #10 won.
     """
-    fwd = S + M > 768 and L * N * K * (S + M) >= 8e6
-    bwd = tiled_bwd_smem_bytes(D) <= optin
+    work = L * N * K * (S + M)
+    if D > 16:
+        fwd = work * D * D >= 2.5e9
+    else:
+        fwd = S + M > 768 and work >= 8e6
+    bwd = tiled_bwd_smem_bytes(D) <= optin and (D <= 28 or L == 1)
     return fwd, bwd
 
 

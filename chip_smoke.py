@@ -111,6 +111,23 @@ Run from the repository root on a machine with an NVIDIA H100:
    the plain version on the card (TOL_GRAD, RELU_FLIP; at 64 from
    lengthscale DF_WIDEST_LS, where the field does not amplify f32
    rounding);
+6f. the pretrained workflow, each path run with the counts set to 0 just
+   before and read just after: `main_vae` for 2 epochs at its defaults
+   (2880 frames, batch 64; finite losses, no kernel of the twelve), the
+   training CLI's run() with --pretrained from the encoder and decoder it
+   wrote for 2 epochs at main.py's defaults (every step launches #1 and #2
+   once and no other kernel; the VAE's weights and the encoder's and
+   decoder's BatchNorm statistics bit for bit as pretrained), one frozen
+   step's GP-leaf gradients against the CPU float64 step (TOL_GRAD,
+   RELU_FLIP) and one under set_sync_debug_mode('error'), frozen step
+   times at L=1 and L=5 (CUDA events) with their device busy time and
+   idle share (torch.profiler); then `evaluate` on that run and on
+   checkpoints/df_5000ep (a copy under build/; each test batch and the
+   T=32 rollout launch #1 or #7 once and nothing else; finite mse_mean and
+   mse_std; wall time), and its first test batch on the card against the
+   CPU with the same noise (frames and compute_mse_std: TOL_FORWARD for
+   the RBF run, DF_CKPT_FRAMES and DF_CKPT_MSE_REL for the
+   ill-conditioned DF checkpoint);
 7. times kernels, requests and train steps with CUDA events, and traces
    one request, one L=5 train step, one L=5 rk4 train step, one DF
    request, DF L=5, L=1 and rk4 train steps and one wide L=5 train step
@@ -135,8 +152,10 @@ import contextlib
 import copy
 import dataclasses
 import faulthandler
+import functools
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -203,6 +222,23 @@ def nvidia_smi():
     return res.stdout.strip().splitlines()[0]
 
 
+def count_path(fn, launches):
+    """Run one path on the card with every launch count set to 0 just
+    before and read just after: returns (fn's result, the path's launches
+    by kernel), adds them to `launches` and the path's shapes to
+    PATH_SHAPES."""
+    import torch
+    from vae_gp_ode_tpu_torch import ops
+    ops.reset_launches()
+    res = fn()
+    torch.cuda.synchronize()
+    d = dict(ops.LAUNCHES)
+    for k in launches:
+        launches[k] += d[k]
+    PATH_SHAPES.update(ops.SHAPES)
+    return res, d
+
+
 def cuda_ms(fn, reps, warmup=3):
     """Mean milliseconds of fn() on the card, CUDA events over `reps`."""
     import torch
@@ -267,11 +303,12 @@ def kernel_sequence(fn):
 def profile(fn, what):
     """Trace one call of fn() with torch.profiler: the device's kernels by
     self time, and the device's busy share of the span from its first
-    kernel's start to its last kernel's end."""
+    kernel's start to its last kernel's end. Returns (busy ms, idle
+    share), or None where the trace holds no device events."""
     kernels = device_events(fn)
     if not kernels:
         log(f'profile of {what}: the trace holds no device events')
-        return
+        return None
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     span_us = (max(e.time_range.end for e in kernels)
                - min(e.time_range.start for e in kernels))
@@ -284,6 +321,7 @@ def profile(fn, what):
         by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
         log(f'  {t / 1e3:9.4f} ms  {n:4d}x  {name[:90]}')
+    return busy_us / 1e3, 1 - busy_us / span_us
 
 
 def flow_bound(L_, N, D, K, S, M, T_):
@@ -361,10 +399,13 @@ def step_noise(seed, q, S, M, L_=1, batch=None, order=1, df=False):
 
 
 def step_grads(model, gp, batch, noise_np, ndata, eps_guard, where,
-               L_=1, dtype=None, relu_in=None, relu_pin=None):
+               L_=1, dtype=None, relu_in=None, relu_pin=None,
+               freeze_vae=False):
     """Loss and gradients (by name, as f32 on the CPU) of one train step's
     loss on `where` for copies of model and gp, with the injected noise;
-    in `dtype` (float64 for a CPU reference) or the model's own f32.
+    in `dtype` (float64 for a CPU reference) or the model's own f32; with
+    `freeze_vae` the frozen-VAE step's (the GP leaves' gradients alone,
+    its BatchNorm modes).
     `relu_in` (a dict) receives each ReLU's input, on the CPU in float64;
     `relu_pin` (such a dict from another run) makes each ReLU pass its
     input where the pinned input was > 0 and give 0 elsewhere, that is
@@ -381,8 +422,10 @@ def step_grads(model, gp, batch, noise_np, ndata, eps_guard, where,
         **{k: getattr(g, k).to(where, dtype) for k in (
             'inducing_loc', 'Um', 'Us_sqrt')})
     st = trainer.TrainState(
-        model=copy.deepcopy(model).to(where, dtype).train(),
-        gp=g.requires_grad_(), optimizer=None, step=None)
+        model=copy.deepcopy(model).to(where, dtype),
+        gp=g.requires_grad_(), optimizer=None, step=None,
+        freeze_vae=freeze_vae)
+    trainer.set_train_mode(st)
     for p in st.model.parameters():
         p.grad = None
 
@@ -432,7 +475,8 @@ def worst_grad_error(grads, ref, model):
     from vae_gp_ode_tpu_torch.training import trainer
     scale = {n: float(g.abs().max()) for n, g in ref.items()}
     for n in trainer.bias_before_batchnorm(model):
-        scale[n] = scale[n[:-len('bias')] + 'weight']
+        if n in scale:
+            scale[n] = scale[n[:-len('bias')] + 'weight']
     worst, worst_name = 0.0, None
     for n, gr in ref.items():
         rel = float((grads[n] - gr).abs().max()) / max(scale[n], 1e-30)
@@ -442,11 +486,12 @@ def worst_grad_error(grads, ref, model):
 
 
 def pinned_grads(model, gp, batch, noise_np, ndata, eps_guard, tested,
-                 reference, L_=1, ref_model=None):
+                 reference, L_=1, ref_model=None, freeze_vae=False):
     """One train step's gradients by `tested` and by `reference` (each
-    (device, dtype) for step_grads) with the same noise, the reference
-    (with `ref_model` in place of `model` where given) on the tested
-    run's ReLU branches (RELU_FLIP). Returns (the tested
+    (device, dtype) for step_grads; `freeze_vae` for the frozen-VAE step)
+    with the same noise, the reference (with `ref_model` in place of
+    `model` where given) on the tested run's ReLU branches (RELU_FLIP).
+    Returns (the tested
     run's loss, the reference's, the worst leaf's max error relative to
     its largest entry, that leaf, the ReLU units whose branch the two
     runs' own inputs disagree on, the largest relative input among
@@ -454,11 +499,11 @@ def pinned_grads(model, gp, batch, noise_np, ndata, eps_guard, tested,
     relu_t, relu_r = {}, {}
     loss_t, _, _, g_t = step_grads(model, gp, batch, noise_np, ndata,
                                    eps_guard, tested[0], L_, tested[1],
-                                   relu_in=relu_t)
+                                   relu_in=relu_t, freeze_vae=freeze_vae)
     loss_r, _, _, g_r = step_grads(ref_model or model, gp, batch, noise_np,
                                    ndata, eps_guard, reference[0], L_,
                                    reference[1], relu_in=relu_r,
-                                   relu_pin=relu_t)
+                                   relu_pin=relu_t, freeze_vae=freeze_vae)
     worst, name = worst_grad_error(g_t, g_r, model)
     flips, flip_at = relu_flips(relu_t, relu_r)
     return float(loss_t), float(loss_r), worst, name, flips, flip_at
@@ -551,15 +596,7 @@ def solver_paths(args, card, batch, targs, slice_launches):
     rng = np.random.default_rng(args.seed + 11)
     out = {}
 
-    def run_path(fn):
-        ops.reset_launches()
-        res = fn()
-        torch.cuda.synchronize()
-        d = dict(ops.LAUNCHES)
-        for k in slice_launches:
-            slice_launches[k] += d[k]
-        PATH_SHAPES.update(ops.SHAPES)
-        return res, d
+    run_path = functools.partial(count_path, launches=slice_launches)
 
     # -- kernels #3 and #4 against their plain versions ------------------
     log('kernels pathwise_fwd / pathwise_bwd vs pathwise_eval_reference '
@@ -959,15 +996,7 @@ def df_paths(args, card, batch, slice_launches):
     rng = np.random.default_rng(args.seed + 21)
     out = {}
 
-    def run_path(fn):
-        ops.reset_launches()
-        res = fn()
-        torch.cuda.synchronize()
-        d = dict(ops.LAUNCHES)
-        for k in slice_launches:
-            slice_launches[k] += d[k]
-        PATH_SHAPES.update(ops.SHAPES)
-        return res, d
+    run_path = functools.partial(count_path, launches=slice_launches)
 
     def df_ops(L_, N_, q_=q, S_=S, ls=2.0):
         g = init_svgp_params(rng, q_, q_, M, kernel='DF', lengthscale=ls,
@@ -1566,7 +1595,6 @@ def df_wide_state(args, card, batch, slice_launches):
     and returns the largest kernel errors."""
     import numpy as np
     import torch
-    from vae_gp_ode_tpu_torch import ops
     from vae_gp_ode_tpu_torch.gp.svgp import draw_fn_sample, init_svgp_params
     from vae_gp_ode_tpu_torch.models.odegpvae import init_model
     from vae_gp_ode_tpu_torch.ops import df_pathwise, df_pathwise_tiled
@@ -1577,15 +1605,7 @@ def df_wide_state(args, card, batch, slice_launches):
     rng = np.random.default_rng(args.seed + 71)
     out = {'fwd': [], 'bwd': []}
 
-    def run_path(fn):
-        ops.reset_launches()
-        res = fn()
-        torch.cuda.synchronize()
-        d = dict(ops.LAUNCHES)
-        for k in slice_launches:
-            slice_launches[k] += d[k]
-        PATH_SHAPES.update(ops.SHAPES)
-        return res, d
+    run_path = functools.partial(count_path, launches=slice_launches)
 
     log(f'DF above state dim 16: df_pathwise_tiled_fwd / '
         f'df_pathwise_tiled_bwd (their wide kernels) vs '
@@ -2060,15 +2080,7 @@ def wide_paths(args, card, slice_launches, kern):
     q, S, M = WIDE['latent_dim'], WIDE['num_features'], WIDE['num_inducing']
     out = {'step_ms': {}, 'request_ms': {}, 'profiles': {}}
 
-    def run_path(fn):
-        ops.reset_launches()
-        res = fn()
-        torch.cuda.synchronize()
-        d = dict(ops.LAUNCHES)
-        for k in slice_launches:
-            slice_launches[k] += d[k]
-        PATH_SHAPES.update(ops.SHAPES)
-        return res, d
+    run_path = functools.partial(count_path, launches=slice_launches)
 
     for kernel in ('RBF', 'DF'):
         tag = 'wide' + ('_df' if kernel == 'DF' else '')
@@ -2541,6 +2553,214 @@ def per_shape_split(card):
     return out
 
 
+# the DF checkpoint's trained (600, 600) gram has condition number 3.3e6:
+# its frames differ between card and CPU by up to 0.036 on a request of
+# random pixels and 0.047 on the first test batch (on an H100; ROADMAP
+# Queue C item 3), held to 0.1 as the checkpoint request of 6c is; the
+# mean and std of its squared errors to 1e-2 relative
+DF_CKPT_FRAMES = 0.1
+DF_CKPT_MSE_REL = 1e-2
+
+
+def pretrained_workflow(args, card, slice_launches):
+    """Phase 6f, the paper's workflow: `main_vae` for TRAIN_EPOCHS epochs
+    at its defaults, the training CLI's run() with --pretrained from what
+    it wrote (every step launches #1 and #2 once and no other kernel; the
+    VAE and the encoder's and decoder's statistics bit for bit as
+    pretrained), one frozen step's GP gradients against the CPU float64
+    step (TOL_GRAD, RELU_FLIP) and under set_sync_debug_mode('error'),
+    frozen step times at L=1 and L=5 with their device busy time and idle
+    share, and `evaluate` on that run and on checkpoints/df_5000ep (each
+    test batch and the rollout launch #1 or #7 once), its first test
+    batch against the CPU with the same noise."""
+    import numpy as np
+    import torch
+    from vae_gp_ode_tpu_torch import main as train_cli, main_vae
+    from vae_gp_ode_tpu_torch.data.mnist import load_data
+    from vae_gp_ode_tpu_torch.ops import flow_fused
+    from vae_gp_ode_tpu_torch.training import checkpoint, trainer
+    run_path = functools.partial(count_path, launches=slice_launches)
+    dev = torch.device('cuda')
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, 'build', 'chip_smoke', 'pretrained')
+    shutil.rmtree(work, ignore_errors=True)
+
+    # -- VAE pretraining at main_vae.py's defaults ---------------------------
+    vargs = main_vae.make_parser().parse_args([
+        '--vae_epochs', str(TRAIN_EPOCHS), '--device', 'cuda',
+        '--output_path', os.path.join(work, 'vae'),
+        '--save', os.path.join(work, 'frames')])
+    t0 = time.perf_counter()
+    pre, d = run_path(lambda: main_vae.run(vargs))
+    pre_s = time.perf_counter() - t0
+    require(not any(d.values()), f'VAE pretraining launched {d}')
+    frames = vargs.n_train * vargs.n_angle
+    per_epoch = -(-frames // vargs.batch)
+    rows = [e['rows'] for e in pre['epochs']]
+    require(len(rows) == TRAIN_EPOCHS and all(
+        r.shape == (per_epoch, 3) and np.isfinite(r).all() for r in rows),
+        'VAE pretraining: a loss is not finite')
+    require(np.isfinite(pre['test_mse']), 'VAE test MSE is not finite')
+    log(f'VAE pretraining (main_vae at its defaults: {frames} frames of '
+        f'{vargs.n_train} digits x {vargs.n_angle} angles, batch '
+        f'{vargs.batch}, q {vargs.latent_dim}, n_filt {vargs.n_filt}): '
+        f'{TRAIN_EPOCHS} epochs of {per_epoch} steps, losses finite '
+        f'(first {rows[0][0, 0]:.2f}, last {rows[-1][-1, 0]:.2f}), test '
+        f'reconstruction MSE {pre["test_mse"]:.4f}; epoch times '
+        + ', '.join(f'{e["seconds"]:.3f}' for e in pre['epochs'])
+        + f' s (the first with cuDNN\'s first calls), {pre_s:.1f} s with '
+        f'the dataset; no kernel of the twelve launched; card {card}')
+
+    # -- training on the frozen VAE: the CLI's run() -------------------------
+    save = os.path.join(work, 'mnist')
+    targs = train_args(save, '--pretrained', 'True', '--vae_path',
+                       pre['model_dir'])
+    steps, seen = [], {}
+
+    def on_step(ep, L_):
+        from vae_gp_ode_tpu_torch import ops
+        now = dict(ops.LAUNCHES)
+        steps.append((ep, L_, {k: now[k] - seen.get(k, 0) for k in now}))
+        seen.update(now)
+
+    t0 = time.perf_counter()
+    result, launched = run_path(lambda: train_cli.run(targs,
+                                                      on_step=on_step))
+    train_s = time.perf_counter() - t0
+    require(result['bailout'] is None, 'NaN bailout in the frozen run')
+    per_run = targs.Ndata // targs.batch + bool(targs.Ndata % targs.batch)
+    require(len(steps) == TRAIN_EPOCHS * per_run, f'{len(steps)} steps')
+    for i, (ep, L_, d) in enumerate(steps):
+        # the first step of a later epoch also counts the previous epoch's
+        # monitoring eval (one forward launch)
+        evals = 1 if i % per_run == 0 and ep > 0 else 0
+        if d[flow_fused.BWD_KERNEL] != 1 or d[flow_fused.KERNEL] != (
+                1 + evals) or any(v for k, v in d.items()
+                                  if not k.startswith('flow_fused')):
+            raise AssertionError(f'frozen train step {i} (epoch {ep}, '
+                                 f'L={L_}) launched {d}')
+    losses = np.concatenate([e['loss'] for e in result['epochs']])
+    require(losses.size == len(steps) and np.isfinite(losses).all(),
+            f'frozen losses {losses}')
+    state = result['state']
+    require(state.freeze_vae and int(state.step) == len(steps),
+            'the run did not train a frozen state')
+    pretrained = checkpoint.load_vae_weights(
+        *train_cli.pretrained_vae_files(pre['model_dir']))
+    for part, sd in zip(('encoder', 'decoder'), pretrained):
+        for name, t in getattr(state.model, part).state_dict().items():
+            require(torch.equal(t.cpu(), sd[name]),
+                    f'{part}.{name} changed in the frozen run')
+    log(f'training on the frozen VAE: run() --pretrained True for '
+        f'{TRAIN_EPOCHS} epochs at main.py\'s defaults, {len(steps)} steps '
+        f'in {train_s:.1f} s (data and first calls included); every step '
+        f'launched {flow_fused.KERNEL} and {flow_fused.BWD_KERNEL} once '
+        f'and no other kernel; launches {launched}; losses finite (first '
+        f'{losses[0]:.2f}, last {losses[-1]:.2f}); the encoder\'s and '
+        f'decoder\'s weights and BatchNorm statistics bit for bit as '
+        f'pretrained')
+
+    _, testset = load_data(targs, device=dev)
+    batch = testset.first()
+    q, S, M = targs.latent_dim, targs.num_features, targs.num_inducing
+    check_grads('frozen step: GPU vs CPU (float64) GP-leaf gradients (L=1, '
+                'same noise)', pinned_grads(
+                    state.model, state.gp, batch,
+                    step_noise(args.seed + 41, q, S, M), targs.Ndata,
+                    targs.eps_guard, ('cuda', None), ('cpu', torch.float64),
+                    freeze_vae=True))
+    step = trainer.make_train_step(targs.Ndata, eps_guard=targs.eps_guard)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        step(state, batch, L)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log('sync check: a frozen train step (L=5) under '
+        'set_sync_debug_mode("error"): no synchronising operation')
+    times = []
+    for L_ in (1, L):
+        for _ in range(3):
+            step(state, batch, L_)
+        ms = cuda_ms(lambda: step(state, batch, L_), 20, warmup=0)
+        busy = profile(lambda: step(state, batch, L_),
+                       f'one frozen L={L_} train step')
+        require(busy is not None,
+                'the profiler recorded no device time of a frozen step')
+        times.append(f'L={L_}: {ms:.3f} ms, device busy {busy[0]:.3f} ms, '
+                     f'idle share {busy[1]:.3f}')
+    log('frozen train step (CUDA events over 20 steps, batch on the card): '
+        + '; '.join(times) + f'; card {card}')
+
+    # -- evaluate: the frozen run and the shipped DF checkpoint ---------------
+    df_run = os.path.join(work, 'df_5000ep')
+    shutil.copytree(os.path.join(root, 'checkpoints', 'df_5000ep'), df_run,
+                    ignore=shutil.ignore_patterns('eval'))
+    evaluate_runs(args, card, (('RBF', result['save']), ('DF', df_run)),
+                  batch, len(testset), slice_launches)
+
+
+def evaluate_runs(args, card, runs, batch, n_batches, slice_launches):
+    """`evaluate` on the card for each (kernel, run directory) of `runs`
+    (the directory gets its eval/): each of the n_batches test batches and
+    the rollout launch the kernel's trajectory kernel once and no other
+    kernel, finite errors; then the first test batch `batch` on the card
+    and on the CPU with the same noise (frames and compute_mse_std)."""
+    import numpy as np
+    import torch
+    from vae_gp_ode_tpu_torch import evaluate
+    from vae_gp_ode_tpu_torch.ops import df_flow_fused, flow_fused
+    from vae_gp_ode_tpu_torch.serving import load_run_dir
+    from vae_gp_ode_tpu_torch.training import trainer
+    run_path = functools.partial(count_path, launches=slice_launches)
+    eargs = evaluate.make_parser().parse_args(['--device', 'cuda'])
+    for kernel, run_dir in runs:
+        name = flow_fused.KERNEL if kernel == 'RBF' else df_flow_fused.KERNEL
+        t0 = time.perf_counter()
+        res, d = run_path(lambda: evaluate.evaluate_one(eargs, run_dir))
+        seconds = time.perf_counter() - t0
+        # a forward cannot skip its trajectory, so n_batches + 1 calls
+        # with n_batches + 1 launches launched it once each
+        require(d[name] == n_batches + 1 and sum(d.values()) == d[name],
+                f'evaluate ({kernel}) launched {d}')
+        require(np.isfinite(res['mse_mean']) and np.isfinite(res['mse_std']),
+                f'evaluate ({kernel}): {res}')
+        roll = np.load(os.path.join(run_dir, 'eval', 'rollout.npy'))
+        require(roll.shape == (1, 3, TROLL * T, 1, 28, 28) and np.isfinite(
+            roll).all(), f'rollout {roll.shape}')
+        log(f'evaluate ({kernel}, {os.path.basename(run_dir)}): '
+            f'{json.dumps(res)}; {n_batches} test batches and the '
+            f'T={TROLL * T} rollout launched {name} once each, no other '
+            f'kernel; {seconds:.2f} s wall (data included); card {card}')
+
+        # the first test batch on the card and on the CPU, same noise
+        got = []
+        for where in (batch.device, torch.device('cpu')):
+            _, st, ta = load_run_dir(run_dir, device=where)
+            noise = {k: torch.as_tensor(v, dtype=torch.float32, device=where)
+                     for k, v in step_noise(
+                         args.seed + 42, ta.latent_dim, ta.num_features,
+                         ta.num_inducing, L_=L, batch=batch.shape[0],
+                         df=kernel == 'DF').items()}
+            X = batch.to(where)
+            Xrec, _ = trainer.make_eval_step()(st, X, L, noise=noise)
+            got.append((Xrec.cpu(), evaluate.compute_mse_std(
+                st, [X], L, noise=lambda i, b: noise)))
+        (card_rec, card_mse), (cpu_rec, cpu_mse) = got
+        frame_err = float((card_rec - cpu_rec).abs().max())
+        mse_rel = max(abs(a - b) / abs(b) for a, b in zip(card_mse, cpu_mse))
+        lim = (TOL_FORWARD, TOL_FORWARD) if kernel == 'RBF' else (
+            DF_CKPT_FRAMES, DF_CKPT_MSE_REL)
+        log(f'  first test batch, card vs CPU with the same noise (L={L}): '
+            f'frames max abs err {frame_err:.3e} (tol {lim[0]:g}); '
+            f'compute_mse_std {card_mse[0]:.6f} / {card_mse[1]:.6f} vs '
+            f'{cpu_mse[0]:.6f} / {cpu_mse[1]:.6f}, max rel err '
+            f'{mse_rel:.3e} (tol {lim[1]:g})')
+        require(frame_err <= lim[0] and mse_rel <= lim[1],
+                f'evaluate ({kernel}): the card disagrees with the CPU')
+
+
 def train_args(save, *extra):
     """The training CLI's arguments at the defaults of main.py, for
     TRAIN_EPOCHS epochs, writing under `save`, with `extra` flags."""
@@ -2917,6 +3137,10 @@ def main():
     dfw_launches = {k: 0 for k in ops.LAUNCHES}
     dfw = df_wide_state(args, card, batch, dfw_launches)
 
+    # -- 6f. the pretrained workflow: main_vae, --pretrained, evaluate ------
+    pre_launches = {k: 0 for k in ops.LAUNCHES}
+    pretrained_workflow(args, card, pre_launches)
+
     # -- 7. timings --------------------------------------------------------
     with torch.no_grad():
         ms_kernel = cuda_ms(
@@ -2969,7 +3193,7 @@ def main():
     kf, pf, bf, kb, pb, bb = path['pathwise_ms'][L]
     # launches: each path run's, counts set to 0 just before it
     runs = (serve_launches, train_launches, slice_launches, df_launches,
-            wide_launches, dfw_launches)
+            wide_launches, dfw_launches, pre_launches)
     total = {k: sum(d[k] for d in runs) for k in ops.LAUNCHES}
     # #3-#6: the largest error of phases 6b/6c and of 6d's sweep shapes
     errs = kern['errs']

@@ -14,7 +14,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, 'vae_gp_ode_tpu_torch')
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'vae_gp_ode_tpu')
 #: the port's scripts at the repository root
-SCRIPTS = ['chip_smoke', 'grad_precision_probe', 'df_state_probe']
+SCRIPTS = ['chip_smoke', 'grad_precision_probe', 'df_state_probe',
+           'rbf_pathwise_probe', 'df_pathwise_probe', 'df_tiled_probe']
 
 
 def _port_modules():
@@ -61,7 +62,8 @@ def test_every_module_imports_with_jax_blocked():
                 'ops.pathwise', 'ops.df_pathwise', 'ops.df_flow_fused',
                 'ops.pathwise_tiled', 'ops.df_pathwise_tiled',
                 'kernels.divfree', 'dynamics.solvers', 'dynamics.adjoint',
-                'utils.jax_import'):
+                'utils.jax_import', 'utils.torch_import', 'evaluate',
+                'main_vae'):
         assert f'vae_gp_ode_tpu_torch.{mod}' in _port_modules()
     code = (
         'import sys\n'

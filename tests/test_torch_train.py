@@ -571,13 +571,48 @@ def test_cli_run_trains_and_checkpoints(tmp_path):
 
 
 @pytest.mark.parametrize('flag', [
-    ['--pretrained', 'True'], ['--data_parallel', 'True'],
-    ['--epochs_per_dispatch', '2'], ['--dimwise', 'False']])
+    ['--data_parallel', 'True'], ['--epochs_per_dispatch', '2'],
+    ['--dimwise', 'False']])
 def test_cli_refuses_paths_not_ported(tmp_path, flag):
-    """Paths not ported yet raise (the solver flags and --kernel DF are
-    ported: test_cli_runs_the_solver_flags)."""
+    """Paths not ported yet raise (the solver flags, --kernel DF and
+    --pretrained are ported: test_cli_runs_the_solver_flags,
+    test_cli_trains_from_a_pretrained_vae)."""
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tmain.run(_cli_args(tmp_path, *flag))
+    assert not os.path.exists(tmp_path / 'run')
+
+
+def test_cli_trains_from_a_pretrained_vae(tmp_path):
+    """--pretrained True --vae_path DIR: the encoder and decoder of DIR
+    (save_vae_weights' files) load, stay bit for bit as loaded with their
+    BatchNorm statistics while the GP trains, and Adam holds the GP
+    leaves alone."""
+    model, _ = init_model(5, latent_dim=Q, n_filt=NF, random_bn=True,
+                          device='cpu')
+    vae_dir = tmp_path / 'MNIST-VAE'
+    checkpoint.save_vae_weights(model.encoder, model.decoder,
+                                str(vae_dir / 'encoder.ckpt'),
+                                str(vae_dir / 'decoder.ckpt'))
+    result = tmain.run(_cli_args(tmp_path, '--pretrained', 'True',
+                                 '--vae_path', str(vae_dir)))
+    state = result['state']
+    assert result['bailout'] is None and int(state.step) == 6
+    assert state.freeze_vae and state.param_names() == [
+        f'gp.{n}' for n in state.gp.LEAVES]
+    for part in ('encoder', 'decoder'):
+        for (n, a), b in zip(getattr(state.model, part).state_dict().items(),
+                             getattr(model, part).state_dict().values()):
+            assert torch.equal(a, b), (part, n)
+    assert all(np.isfinite(e['loss']).all() for e in result['epochs'])
+
+
+def test_cli_pretrained_without_vae_files_raises(tmp_path):
+    """--pretrained True with a --vae_path that holds no encoder/decoder
+    files raises FileNotFoundError naming the file, before the run
+    directory is made."""
+    with pytest.raises(FileNotFoundError, match='encoder.ckpt'):
+        tmain.run(_cli_args(tmp_path, '--pretrained', 'True', '--vae_path',
+                            ''))
     assert not os.path.exists(tmp_path / 'run')
 
 

@@ -1,14 +1,19 @@
-"""Rotating-MNIST sequences for coupled training (port of the sequence
-half of `vae_gp_ode_tpu/data/mnist.py`).
+"""Rotating-MNIST data (port of `vae_gp_ode_tpu/data/mnist.py`).
 
 `load_mnist_data` reads `<data_root>/rot_mnist/rot-mnist.mat` (X (N, 16,
 784), filtered to one digit) when it exists, else draws synthetic rotating
 glyphs of the same shapes (`data.synthetic`); splits train/valid/test,
-normalises with the MNIST mean/std (a reference quirk kept for parity) and
-moves each split to the device once. `Loader` batches by indexing that
-device tensor with a per-epoch permutation drawn on the host from the same
-`np.random.RandomState` stream as the JAX package, so both packages see
-the same batches for the same seed.
+normalises with the MNIST mean/std (a reference quirk kept for parity;
+`normalize=False` skips it) and moves each split to the device once.
+`Loader` batches by indexing that device tensor with a per-epoch
+permutation drawn on the host from the same `np.random.RandomState`
+stream as the JAX package, so both packages see the same batches for the
+same seed; with `labels=` it yields (x, labels).
+
+The frame loaders of VAE pretraining: `create_rotating_dataset` draws
+rotating glyphs as flat frames, `load_rotating_mnist_data` reads them back
+from a saved .npy and `load_mat_mnist_data` flattens the .mat sequences;
+all three keep [0, 1] pixels and carry frame-index labels.
 """
 
 import os
@@ -28,10 +33,15 @@ class Loader:
     sequence once per epoch, the last batch short when the batch size
     does not divide the data (the reference DataLoader's drop_last=False).
     Each epoch's permutation goes to the device once; batches are
-    gathered there."""
+    gathered there. With `labels` (one per item) it yields (x, labels)
+    batches; `epoch_batches_with_tail` returns the items alone."""
 
-    def __init__(self, X, batch_size, shuffle=True, seed=0, device='cuda'):
-        self.X = torch.as_tensor(np.asarray(X), device=resolve_device(device))
+    def __init__(self, X, batch_size, shuffle=True, seed=0, labels=None,
+                 device='cuda'):
+        dev = resolve_device(device)
+        self.X = torch.as_tensor(np.asarray(X), device=dev)
+        self.labels = None if labels is None else torch.as_tensor(
+            np.asarray(labels), device=dev)
         self.batch_size = batch_size
         self.shuffle = shuffle
         self._rng = np.random.RandomState(seed)
@@ -47,7 +57,11 @@ class Loader:
     def __iter__(self):
         idx = self._permutation()
         for i in range(len(self)):
-            yield self.X[idx[i * self.batch_size:(i + 1) * self.batch_size]]
+            sel = idx[i * self.batch_size:(i + 1) * self.batch_size]
+            if self.labels is None:
+                yield self.X[sel]
+            else:
+                yield self.X[sel], self.labels[sel]
 
     def first(self):
         """The first batch of a fresh epoch (draws one permutation)."""
@@ -105,11 +119,12 @@ def _load_raw_sequences(data_root, Ntotal, T, digit=3, seed=0,
 
 
 def load_mnist_data(data_root='data/', batch_size=20, T=16, Ndata=360,
-                    Nvalid=40, Ntest=40, digit=3, rotrand=False, seed=0,
-                    n_glyphs=0, device='cuda'):
+                    Nvalid=40, Ntest=40, digit=3, rotrand=False,
+                    normalize=True, seed=0, n_glyphs=0, device='cuda'):
     """Train/valid/test Loaders of (B, T, 1, 28, 28) sequences on
     `device`: the first Ndata sequences train, the next Nvalid validate,
-    the next Ntest test (the JAX package's split and seeds)."""
+    the next Ntest test (the JAX package's split and seeds); `normalize`
+    applies the MNIST mean/std."""
     Ntotal = Ndata + Nvalid + Ntest
     X, source = _load_raw_sequences(data_root, Ntotal, T, digit, seed,
                                     n_glyphs=n_glyphs)
@@ -121,7 +136,8 @@ def load_mnist_data(data_root='data/', batch_size=20, T=16, Ndata=360,
     X = X[:Ntotal].reshape(-1, T, 1, 28, 28).astype(np.float32)
     if rotrand:
         X = rot_start(X, T, seed=seed)
-    X = (X - MNIST_MEAN) / MNIST_STD
+    if normalize:
+        X = (X - MNIST_MEAN) / MNIST_STD
 
     splits = (X[:Ndata], X[Ndata:Ndata + Nvalid], X[Ndata + Nvalid:Ntotal])
     loaders = [Loader(x, batch_size, shuffle=True, seed=seed + i,
@@ -151,3 +167,55 @@ def load_data(args, device='cuda'):
         device=device,
     )
     return train, test
+
+
+def load_mat_mnist_data(args, device='cuda'):
+    """(trainset, testset) Loaders of (frames, labels) over the .mat
+    sequences: the first Ndata and the next Ntest sequences (of --value
+    when --mask) flattened into (N*T, 1, 28, 28) unnormalised frames, each
+    labelled with its frame index (the JAX package's seeds)."""
+    fullname = os.path.join(args.data_root, 'rot_mnist', 'rot-mnist.mat')
+    X = _read_mat(fullname,
+                  getattr(args, 'value', 3) if getattr(args, 'mask', True)
+                  else None)
+    N, Ntest, T = args.Ndata, args.Ntest, args.T
+    seed = getattr(args, 'seed', 0)
+    Xtr = X[:N].reshape(N * T, 1, 28, 28)
+    Xte = X[N:N + Ntest].reshape(Ntest * T, 1, 28, 28)
+    t = np.linspace(0, T - 1, T).astype(np.uint8).reshape(1, -1)
+    trainset = Loader(Xtr, args.batch, shuffle=True, seed=seed,
+                      labels=np.repeat(t, N, axis=0).reshape(-1),
+                      device=device)
+    testset = Loader(Xte, args.batch, shuffle=True, seed=seed + 1,
+                     labels=np.repeat(t, Ntest, axis=0).reshape(-1),
+                     device=device)
+    return trainset, testset
+
+
+def create_rotating_dataset(digit=3, train_n=100, test_n=10, n_angles=64,
+                            seed=0):
+    """(train, test) rotating frames for VAE pretraining, (N, n_angles, 1,
+    28, 28) float32 in [0, 1], from seeds `seed` and `seed + 1`. The
+    digits are synthetic glyphs of one class (no MNIST file here), so a
+    `digit` other than 3 is warned about, not honoured."""
+    if digit != 3:
+        import warnings
+        warnings.warn(
+            f'create_rotating_dataset: digit={digit} requested but the '
+            f'synthetic generator draws one glyph class (no MNIST file in '
+            f'this environment) - returning glyphs', stacklevel=2)
+    train = synthetic.make_rotating_frames(train_n, n_angles, seed=seed)
+    test = synthetic.make_rotating_frames(test_n, n_angles, seed=seed + 1)
+    return train, test
+
+
+def load_rotating_mnist_data(data_path, n_angle, batch_size, seed=0,
+                             device='cuda'):
+    """Loader of (frames, labels) over a saved .npy of rotating frames:
+    x (N*n_angle, 1, 28, 28) unnormalised, labels the frame indices
+    0..n_angle-1."""
+    x = np.load(data_path).reshape((-1, 1, 28, 28)).astype(np.float32)
+    t = np.linspace(0, n_angle - 1, n_angle).astype(np.uint8).reshape(1, -1)
+    labels = np.repeat(t, x.shape[0] // n_angle, axis=0).reshape(-1)
+    return Loader(x, batch_size, shuffle=True, seed=seed, labels=labels,
+                  device=device)

@@ -1,9 +1,10 @@
-"""Synthetic rotating-digit sequences (port of
-`vae_gp_ode_tpu/data/synthetic.py`, sequence generator only).
+"""Synthetic rotating-digit sequences and frames (port of
+`vae_gp_ode_tpu/data/synthetic.py`).
 
 Without `rot-mnist.mat` in the repository, both packages train on
 procedurally drawn '3'-like glyphs rotated through T uniform angles: the
-shapes, value range and rotation structure of rot-MNIST. Rotation is
+shapes, value range and rotation structure of rot-MNIST, as sequences for
+coupled training and as flat frames for VAE pretraining. Rotation is
 scipy's (bilinear, `reshape=False`, clipped to [0, 1]); the JAX package's
 native C++ rotation matches it to 1e-5 and is not ported (ROADMAP Queue A
 item 9).
@@ -68,3 +69,19 @@ def make_rotating_sequences(n_sequences, T=16, size=28, seed=0,
             X[n, t] = rotate_image(bases[n],
                                    angles[t] + offsets[n]).reshape(-1)
     return X
+
+
+def make_rotating_frames(n_digits, n_angles=16, size=28, seed=0):
+    """Generate (n_digits, n_angles, 1, size, size) float32 in [0, 1]: the
+    flat-frame layout of VAE pretraining, each glyph unrotated and then
+    rotated through the angles of np.linspace(0, 2 pi, n_angles)[1:], from
+    the same `np.random.RandomState(seed)` stream as the JAX package."""
+    rng = np.random.RandomState(seed)
+    angles = np.rad2deg(np.linspace(0, 2 * np.pi, n_angles)[1:])
+    out = np.zeros((n_digits, n_angles, 1, size, size), np.float32)
+    for n in range(n_digits):
+        base = _draw_digit3(rng, size)
+        out[n, 0, 0] = base
+        for i, a in enumerate(angles):
+            out[n, i + 1, 0] = rotate_image(base, a)
+    return out

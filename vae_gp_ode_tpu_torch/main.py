@@ -7,10 +7,15 @@ repository's `main.py`, with its flags and defaults).
 The run: data (rot-MNIST, or synthetic rotating glyphs when
 `<data_root>/rot_mnist/rot-mnist.mat` is absent) -> `init_model` -> the
 kernel hyperparameters set to --lengthscale/--variance (the reference
-initialises them twice) -> Adam -> epochs of train steps (L=1 for the
-first half of the epochs, then L=5) -> the per-epoch monitoring eval on
-the first test batch (train-mode BatchNorm) -> meters and log lines ->
-a checkpoint every --plot_freq epochs and after the last, in
+initialises them twice) -> with --pretrained, the encoder and decoder
+from --vae_path (`encoder.pt`/`decoder.pt` of the reference, else
+`encoder.ckpt`/`decoder.ckpt` of `main_vae` or of the JAX package's
+pretraining), frozen -> Adam (over the GP leaves alone when frozen) ->
+epochs of train steps (L=1 for the first half of the epochs, then L=5) ->
+the per-epoch monitoring eval on the first test batch (train-mode
+BatchNorm; eval mode with a frozen VAE, whose weights are then checked
+bit for bit once per epoch) -> meters and log lines -> a checkpoint every
+--plot_freq epochs and after the last, in
 `<save>_<timestamp>/odegpvae_mnist.ckpt`.
 
 Metrics stay on the device until a flush (every --epochs_per_fetch epochs
@@ -112,8 +117,6 @@ def make_parser():
 
 #: flags of paths not ported yet: (flag, default test, ROADMAP item)
 _NOT_PORTED = (
-    ('--pretrained', lambda a: not a.pretrained,
-     'Queue A item 9 (pretrained VAE, freeze_vae)'),
     ('--data_parallel', lambda a: not a.data_parallel,
      'Queue A item 13 (data parallel)'),
     ('--dimwise False', lambda a: a.dimwise or a.kernel == 'DF',
@@ -143,7 +146,39 @@ def check_supported(args):
             f'{args.D_in} {args.D_out}')
 
 
-def _logger(logpath):
+def pretrained_vae_files(vae_path):
+    """(encoder, decoder) files of a pretrained VAE in `vae_path`: the
+    reference's `encoder.pt`/`decoder.pt` where `encoder.pt` exists, else
+    `encoder.ckpt`/`decoder.ckpt`; raises FileNotFoundError naming a
+    missing one."""
+    ext = 'pt' if os.path.exists(os.path.join(vae_path, 'encoder.pt')) \
+        else 'ckpt'
+    paths = tuple(os.path.join(vae_path, f'{name}.{ext}')
+                  for name in ('encoder', 'decoder'))
+    for path in paths:
+        if not os.path.isfile(path):
+            raise FileNotFoundError(
+                f'--pretrained: {path} does not exist (--vae_path '
+                f'{vae_path!r} holds neither encoder.pt/decoder.pt nor '
+                f'encoder.ckpt/decoder.ckpt)')
+    return paths
+
+
+def load_pretrained_vae(model, vae_path):
+    """Load the encoder and decoder of `pretrained_vae_files(vae_path)`
+    into `model`, in place, after checking every name and shape."""
+    from vae_gp_ode_tpu_torch.training.checkpoint import load_vae_weights
+    from vae_gp_ode_tpu_torch.utils import torch_import
+    enc, dec = pretrained_vae_files(vae_path)
+    if enc.endswith('.pt'):
+        sds = (torch_import.load_torch_checkpoint(enc),
+               torch_import.load_torch_checkpoint(dec))
+    else:
+        sds = load_vae_weights(enc, dec)
+    return torch_import.vae_from_torch(model, *sds)
+
+
+def run_logger(logpath):
     logger = logging.getLogger('vae_gp_ode_tpu_torch')
     logger.setLevel(logging.INFO)
     logger.handlers.clear()
@@ -176,15 +211,17 @@ def run(args, on_step=None):
     from vae_gp_ode_tpu_torch.training.meters import (
         CachedAverageMeter, CachedHyperparams, CachedRunningAverageMeter)
     from vae_gp_ode_tpu_torch.training.trainer import (
-        create_train_state, make_epoch_eval_step, make_train_step,
-        run_epoch_with_tail)
+        create_train_state, make_epoch_eval_step, make_eval_step,
+        make_train_step, run_epoch_with_tail)
 
     check_supported(args)
+    if args.pretrained:
+        pretrained_vae_files(args.vae_path)    # before the run directory
     dev = resolve_device(args.device)
     stamp = datetime.now().strftime('_%d_%m_%Y-%H:%M:%S')
     save = os.path.abspath(args.save + stamp)
     os.makedirs(save, exist_ok=True)
-    logger = _logger(os.path.join(save, 'logs'))
+    logger = run_logger(os.path.join(save, 'logs'))
     logger.info('Results stored in %s', save)
     with open(os.path.join(save, 'args.json'), 'w') as f:
         json.dump(vars(args), f, indent=2, sort_keys=True)
@@ -214,11 +251,26 @@ def run(args, on_step=None):
             float(invsoftplus(torch.tensor(args.lengthscale))))
         gp.kernel.unconstrained_variance.fill_(
             float(invsoftplus(torch.tensor(args.variance))))
+    if args.pretrained:
+        load_pretrained_vae(model, args.vae_path)
+        logger.info('***** Loaded pretrained VAE from %s (frozen) *****',
+                    args.vae_path)
     state = create_train_state(model, gp, lr=args.lr,
-                               fix_kernel=args.fix_kernel)
-    logger.info('VAE parameters %d | GP leaves %d',
+                               fix_kernel=args.fix_kernel,
+                               freeze_vae=args.pretrained)
+    logger.info('VAE parameters %d%s | GP leaves %d',
                 sum(p.numel() for p in model.parameters()),
+                ' (frozen)' if args.pretrained else '',
                 sum(p.numel() for p in gp.parameters()))
+    if args.pretrained:
+        frozen = [p.detach().clone() for p in model.parameters()]
+
+        def vae_unchanged():
+            """The VAE weights bit for bit as loaded: compared on the
+            device, one host read."""
+            return bool(torch.stack([
+                (a.view(torch.int32) == b.view(torch.int32)).all()
+                for a, b in zip(model.parameters(), frozen)]).all())
     logger.info(
         'Model parameters: num features %d | num inducing %d | num epochs '
         '%d | lr %g | ode %d | D_in %d | D_out %d | dt %g | kernel %s | '
@@ -246,7 +298,10 @@ def run(args, on_step=None):
 
     train_step = make_train_step(num_observations=args.Ndata,
                                  eps_guard=args.eps_guard)
-    epoch_eval = make_epoch_eval_step()
+    # a frozen VAE stays in eval mode (the reference eval()s it), so its
+    # monitoring eval is the published-number protocol's
+    epoch_eval = (make_eval_step() if args.pretrained
+                  else make_epoch_eval_step())
     generator = torch.Generator(device=dev)
     generator.manual_seed(args.seed)
     result = {'state': state, 'save': save, 'ckpt': ckpt_path,
@@ -317,6 +372,8 @@ def run(args, on_step=None):
         batches, tail = trainset.epoch_batches_with_tail()
         metrics = run_epoch_with_tail(step, state, batches, tail, L,
                                       generator)
+        if args.pretrained and not vae_unchanged():
+            raise RuntimeError(f'epoch {ep}: the frozen VAE weights changed')
         _, mse = epoch_eval(state, testset.first(), 1, generator)
         pending.append(dict(metrics, mse=mse, ep=ep))
         artifacts = ep % args.plot_freq == 0 or ep == args.Nepoch - 1

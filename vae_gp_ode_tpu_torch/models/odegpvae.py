@@ -165,7 +165,7 @@ def _fan_in(mod):
     return w[0].numel()                              # (out, in[, kH, kW])
 
 
-def _init_weights(model, rng, random_bn=False):
+def init_weights(model, rng, random_bn=False):
     """Initialise the VAE as flax's defaults do: lecun_normal kernels
     (truncated normal, variance 1/fan_in), zero biases, BatchNorm scale 1,
     bias 0, running mean 0 and variance 1. With `random_bn`, BatchNorm
@@ -202,7 +202,7 @@ def init_model(seed=0, *, latent_dim=6, n_filt=8, order=1, frames=5,
                random_bn=False, use_adjoint=False, remat=True,
                device='cuda'):
     """Build (model, gp) as the JAX package's `init_model` does, from the
-    numpy seed `seed`: flax-default VAE initialisers (see `_init_weights`;
+    numpy seed `seed`: flax-default VAE initialisers (see `init_weights`;
     `random_bn=True` draws non-trivial BatchNorm statistics), and a GP
     with the dimwise layout (`kernel` 'RBF' or 'DF'; DF needs order 1,
     since its inputs and outputs have one width) that maps q*order inputs
@@ -219,7 +219,7 @@ def init_model(seed=0, *, latent_dim=6, n_filt=8, order=1, frames=5,
                      rtol=rtol, atol=atol, max_steps=max_steps,
                      num_features=num_features, use_adjoint=use_adjoint,
                      remat=remat, device='cpu')
-    _init_weights(model, rng, random_bn=random_bn)
+    init_weights(model, rng, random_bn=random_bn)
     gp = init_svgp_params(rng, latent_dim * order, latent_dim, num_inducing,
                           kernel=kernel, q_diag=q_diag,
                           lengthscale=lengthscale, variance=variance)

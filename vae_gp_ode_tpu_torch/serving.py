@@ -1,6 +1,11 @@
-"""Serving: the eval-mode forecaster (port of `make_forecast_fn` of
-`vae_gp_ode_tpu/serving.py`; the artifact export is not ported yet).
+"""Serving: the eval-mode forecaster and a trained run's state (port of
+`make_forecast_fn` and `load_run_dir` of `vae_gp_ode_tpu/serving.py`; the
+artifact export is not ported yet, ROADMAP Queue A item 14).
 """
+
+import json
+import os
+import types
 
 import torch
 
@@ -65,3 +70,38 @@ def make_forecast_fn(model, params, gp, *, L=1, T_custom=None,
         return Xrec
 
     return fn
+
+
+def load_run_dir(model_path, device='cuda'):
+    """(model, state, args) of a training run directory: `args.json` (the
+    run's flags; `pretrained` and `fix_kernel` shape the train state) and
+    `odegpvae_mnist.ckpt`, the port's own checkpoint or the JAX package's
+    npz one (such as `checkpoints/df_5000ep`; the `device` its flags name
+    is not read), on `device` (default the GPU; raises if it is absent).
+    The dataset is not touched."""
+    from vae_gp_ode_tpu_torch.models.odegpvae import init_model
+    from vae_gp_ode_tpu_torch.training import checkpoint as ckpt
+    from vae_gp_ode_tpu_torch.training.trainer import create_train_state
+
+    with open(os.path.join(model_path, 'args.json')) as f:
+        ta = types.SimpleNamespace(**json.load(f))
+    if ta.kernel == 'RBF' and not getattr(ta, 'dimwise', True):
+        raise NotImplementedError('a run with --dimwise False: the shared-'
+                                  'lengthscale RBF is not ported yet '
+                                  '(ROADMAP Queue A item 2)')
+    model, gp = init_model(
+        0, latent_dim=ta.latent_dim, n_filt=ta.n_filt, order=ta.ode,
+        frames=ta.frames, dt=ta.dt, solver=ta.solver,
+        dense=getattr(ta, 'ts_dense_scale', 1),
+        num_features=ta.num_features, num_inducing=ta.num_inducing,
+        kernel=ta.kernel, q_diag=ta.q_diag,
+        use_adjoint=getattr(ta, 'use_adjoint', False), device=device)
+    state = create_train_state(
+        model, gp, lr=ta.lr, fix_kernel=bool(getattr(ta, 'fix_kernel', False)),
+        freeze_vae=bool(getattr(ta, 'pretrained', False)))
+    path = os.path.join(model_path, 'odegpvae_mnist.ckpt')
+    if ckpt.checkpoint_format(path) == 'torch':
+        ckpt.restore_checkpoint(path, state)
+    else:
+        ckpt.restore_jax_checkpoint(path, state)
+    return state.model, state, ta

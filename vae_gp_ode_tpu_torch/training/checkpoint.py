@@ -11,9 +11,19 @@ tensors.
 
 `restore_jax_checkpoint` reads the JAX package's own npz checkpoint (a
 trained run of `main.py`) into the port's TrainState with numpy alone.
+A state with a frozen VAE (`freeze_vae`) holds Adam's moments of the GP
+leaves alone, in both formats.
+
+`save_vae_weights`/`load_vae_weights` keep a pretrained encoder and
+decoder in two files (the pretraining's output, `--pretrained`'s input):
+the port writes their state dicts with `torch.save` and reads those, or
+the JAX package's npz VAE files, into the port's layout. Both formats are
+zip archives, told apart by their entries (`checkpoint_format`); a legacy
+pickle file is refused.
 """
 
 import os
+import zipfile
 
 import numpy as np
 import torch
@@ -34,12 +44,39 @@ def _contents(state: TrainState):
     }
 
 
-def save_checkpoint(state: TrainState, path):
-    """Write the train state to `path`."""
+def _save(obj, path):
+    """torch.save to a temporary file renamed into place."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = f'{path}.{os.getpid()}.tmp'
-    torch.save(_contents(state), tmp)
+    torch.save(obj, tmp)
     os.replace(tmp, path)
+
+
+def save_checkpoint(state: TrainState, path):
+    """Write the train state to `path`."""
+    _save(_contents(state), path)
+
+
+def checkpoint_format(path):
+    """'torch' for a file written by `torch.save`, 'npz' for the JAX
+    package's npz checkpoints and VAE files. Both are zip archives, told
+    apart by their entries (torch's `data.pkl`; npz members, all `.npy`:
+    `leaf_<i>` and `__treedef__`, or `p/...` and `s/...`); anything else
+    raises ValueError, a legacy pickle file too (loading one runs its
+    code)."""
+    with open(path, 'rb') as f:
+        if not zipfile.is_zipfile(f):
+            raise ValueError(f'{path} is not a zip archive (a legacy '
+                             f'pickle checkpoint?): refused, since loading '
+                             f'a pickle runs its code')
+        with zipfile.ZipFile(f) as z:
+            names = z.namelist()
+    if any(n.endswith('/data.pkl') for n in names):
+        return 'torch'
+    if names and all(n.endswith('.npy') for n in names):
+        return 'npz'
+    raise ValueError(f'{path} is a zip archive of neither torch.save nor '
+                     f'np.savez (entries {names[:4]})')
 
 
 def _check_like(saved, like, where):
@@ -130,8 +167,11 @@ def restore_jax_checkpoint(path, like: TrainState):
     The file is `vae_gp_ode_tpu/training/checkpoint.py`'s npz format:
     the TrainState's leaves as `leaf_0, leaf_1, ...` in pytree order (step,
     VAE params, BatchNorm statistics, SVGP leaves, Adam's count, mu and
-    nu) and its treedef as text (`__treedef__`). It is read with numpy
-    (no pickle, nothing of JAX); the leaf count, the SVGP's static q_diag
+    nu) and its treedef as text (`__treedef__`). A frozen-VAE state
+    (`like.freeze_vae`) is `multi_transform`'s: Adam's count, mu and nu of
+    the GP leaves alone, with an empty `MaskedNode` where the VAE would
+    be. It is read with numpy (no pickle, nothing of JAX); the leaf count
+    (which tells a frozen layout from the other), the SVGP's static q_diag
     and kernel name in the treedef, and every name and shape are checked
     against `like` before anything is copied.
     """
@@ -145,10 +185,12 @@ def restore_jax_checkpoint(path, like: TrainState):
     n_params = 2 * len(_jax_vae_names(order))
     n_stats = sum(2 for _, layer in _jax_vae_names(order)
                   if layer.startswith('BatchNorm'))
-    want = 1 + n_params + n_stats + 5 + 1 + 2 * (n_params + 5)
+    adam_vae = 0 if like.freeze_vae else n_params
+    want = 1 + n_params + n_stats + 5 + 1 + 2 * (adam_vae + 5)
+    kind = 'frozen-VAE ' if like.freeze_vae else ''
     if n != want:
-        raise ValueError(f'{path} holds {n} leaves; a JAX TrainState of '
-                         f'this model (order {order}) has {want}')
+        raise ValueError(f'{path} holds {n} leaves; a JAX {kind}TrainState '
+                         f'of this model (order {order}) has {want}')
     tag = f"SVGPParams[({like.gp.q_diag}, '{like.gp.kernel_name}')]"
     if tag not in treedef:
         raise ValueError(f'{path} is not a checkpoint of a GP with '
@@ -161,7 +203,76 @@ def restore_jax_checkpoint(path, like: TrainState):
     state_np['gp'] = _take_gp(it)
     adam = {'count': next(it)}
     for k in ('mu', 'nu'):
-        adam[k] = {'params': _take_tree(it, order, False),
-                   'gp': _take_gp(it)}
+        adam[k] = {} if like.freeze_vae else {
+            'params': _take_tree(it, order, False)}
+        adam[k]['gp'] = _take_gp(it)
     state_np['adam'] = adam
     return load_train_state(like, state_np)
+
+
+def load_state_checked(module, sd, what):
+    """`module.load_state_dict(sd)` after checking that `sd` holds every
+    name of the module's state dict and no other, each with the module's
+    shape (a state dict without BatchNorm's `num_batches_tracked`, which
+    nothing reads, keeps the module's own); raises ValueError naming what
+    differs."""
+    own = module.state_dict()
+    sd = dict(sd)
+    for name, t in own.items():
+        if name.endswith('num_batches_tracked'):
+            sd.setdefault(name, t)
+    if set(sd) != set(own):
+        raise ValueError(f'{what}: names {sorted(set(sd) ^ set(own))} are '
+                         f'in only one of the file and the model')
+    for name, t in own.items():
+        if tuple(sd[name].shape) != tuple(t.shape):
+            raise ValueError(f'{what}: {name} has shape '
+                             f'{tuple(sd[name].shape)} in the file, '
+                             f'{tuple(t.shape)} in the model')
+    module.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()})
+
+
+def save_vae_weights(encoder, decoder, encoder_path, decoder_path):
+    """Write the encoder's and the decoder's state dicts (parameters and
+    BatchNorm statistics) to two files, as the reference's VAE.save does,
+    so that pretraining and coupled training stay apart."""
+    for module, path in ((encoder, encoder_path), (decoder, decoder_path)):
+        _save({k: v.detach().cpu() for k, v in module.state_dict().items()},
+              path)
+
+
+def _unflatten(flat):
+    """{'a/b/c': v} -> {'a': {'b': {'c': v}}}."""
+    tree = {}
+    for key, v in flat.items():
+        *path, leaf = key.split('/')
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return tree
+
+
+def load_vae_weights(encoder_path, decoder_path):
+    """(encoder, decoder) state dicts of CPU tensors in the port's layout
+    (`models.vae` names) from the files of `save_vae_weights`, or of the
+    JAX package's `save_vae_weights` (npz of `p/<layer>/<leaf>` parameters
+    and `s/<layer>/<stat>` statistics in flax layout, read with numpy
+    alone and converted as `utils.jax_import` converts a train state).
+    Load them into modules with `load_state_checked`."""
+    from vae_gp_ode_tpu_torch.utils import jax_import
+
+    out = []
+    for path, convert in ((encoder_path, jax_import.encoder_from_jax),
+                          (decoder_path, jax_import.decoder_from_jax)):
+        if checkpoint_format(path) == 'torch':
+            out.append(torch.load(path, map_location='cpu',
+                                  weights_only=True))
+            continue
+        with np.load(path, allow_pickle=False) as data:
+            tree = {kind: _unflatten({k[2:]: data[k] for k in data.files
+                                      if k.startswith(kind + '/')})
+                    for kind in ('p', 's')}
+        sd = convert(tree['p'], tree['s'], 'm')
+        out.append({k[len('m.'):]: v for k, v in sd.items()})
+    return tuple(out)

@@ -8,6 +8,14 @@ adjoint kernel once, or the per-step VJP kernel per evaluation), and
 Adam over the VAE parameters and the GP leaves jointly. PyTorch updates in place: a step mutates the
 `TrainState` and returns its metrics as device tensors.
 
+With a frozen (pretrained) VAE, `freeze_vae`, Adam holds the GP leaves
+alone, the VAE parameters take no gradient (the backward pass runs through
+the decoder's activations only, and not at all through the encoder), and
+the encoder and decoder normalise with their pretrained running
+statistics, which never change; in an order-2 run the velocity encoder
+keeps train-mode BatchNorm (the reference eval()s only the encoder and
+the decoder), so its statistics still move.
+
 Adam is optax.adam's arithmetic, op for op in f32 (`Adam` below), not
 torch.optim.Adam: the two differ in how they round the bias corrections,
 and that decides whether the first step, which moves every leaf by about
@@ -96,24 +104,28 @@ class Adam:
 @dataclasses.dataclass
 class TrainState:
     """The model (VAE parameters and BatchNorm statistics), the GP leaves,
-    Adam over both (`params()` order), the number of applied steps (0-d
-    int64 on the model's device), and whether the kernel hyperparameters
-    are frozen."""
+    Adam over the optimised leaves (`params()` order), the number of
+    applied steps (0-d int64 on the model's device), whether the kernel
+    hyperparameters are frozen and whether the VAE is (then Adam holds the
+    GP leaves alone)."""
 
     model: ODEGPVAE
     gp: SVGPParams
     optimizer: Adam
     step: torch.Tensor
     fix_kernel: bool = False
+    freeze_vae: bool = False
 
     def params(self):
-        """The optimised tensors: VAE parameters, then the GP leaves in
-        `SVGPParams.parameters()` order."""
-        return list(self.model.parameters()) + self.gp.parameters()
+        """The optimised tensors: VAE parameters (unless the VAE is
+        frozen), then the GP leaves in `SVGPParams.parameters()` order."""
+        vae = [] if self.freeze_vae else list(self.model.parameters())
+        return vae + self.gp.parameters()
 
     def param_names(self):
-        return ([n for n, _ in self.model.named_parameters()]
-                + [f'gp.{n}' for n in self.gp.LEAVES])
+        vae = [] if self.freeze_vae else [
+            n for n, _ in self.model.named_parameters()]
+        return vae + [f'gp.{n}' for n in self.gp.LEAVES]
 
 
 def create_train_state(model, gp, lr=1e-3, fix_kernel=False,
@@ -124,18 +136,30 @@ def create_train_state(model, gp, lr=1e-3, fix_kernel=False,
     `fix_kernel` freezes the kernel lengthscales and variance: their
     gradients are zeroed before Adam, so their moments stay exactly 0 and
     they do not move, as the JAX package's masked `set_to_zero` does.
+    `freeze_vae` freezes the VAE (the pretrained path): Adam keeps no
+    moments for it, as the JAX package's `multi_transform` with
+    `set_to_zero` does, and its parameters stop requiring gradients.
     """
-    if freeze_vae:
-        raise NotImplementedError(
-            'freeze_vae (the pretrained-VAE path) is not ported yet (ROADMAP '
-            'Queue A item 9)')
     gp.requires_grad_(True)
+    model.requires_grad_(not freeze_vae)
     state = TrainState(model=model, gp=gp, optimizer=None,
                        step=torch.zeros((), dtype=torch.int64,
                                         device=model.device),
-                       fix_kernel=fix_kernel)
+                       fix_kernel=fix_kernel, freeze_vae=freeze_vae)
     state.optimizer = Adam(state.params(), lr=lr)
     return state
+
+
+def set_train_mode(state: TrainState):
+    """BatchNorm modes of a train step: train mode throughout, or, with a
+    frozen VAE, eval mode (the pretrained running statistics) for the
+    encoder and the decoder and train mode for the velocity encoder of an
+    order-2 model (a reference quirk: its statistics still move).
+    Returns the model."""
+    model = state.model.train(not state.freeze_vae)
+    if state.freeze_vae and model.order == 2:
+        model.encoder_v.train()
+    return model
 
 
 def bias_before_batchnorm(model):
@@ -154,8 +178,11 @@ def bias_before_batchnorm(model):
 
 
 def _bn_stats(model):
-    return [b for name, b in model.named_buffers()
-            if name.endswith(('running_mean', 'running_var'))]
+    """The running statistics of the BatchNorm layers in train mode (the
+    ones a forward pass moves)."""
+    return [b for mod in model.modules()
+            if isinstance(mod, nn.BatchNorm2d) and mod.training
+            for b in (mod.running_mean, mod.running_var)]
 
 
 def loss_fn(state: TrainState, batch, L: int, num_observations: float,
@@ -184,7 +211,8 @@ def apply_gradients(state: TrainState, ok=None):
     g = torch.cat([p.grad.reshape(-1) for p in params])
     if state.fix_kernel:
         # lengthscales and variance: the first two GP leaves, adjacent
-        n_vae = sum(p.numel() for p in state.model.parameters())
+        n_vae = 0 if state.freeze_vae else sum(
+            p.numel() for p in state.model.parameters())
         n_kern = sum(p.numel() for p in state.gp.parameters()[:2])
         g[n_vae:n_vae + n_kern] = 0.0
     state.optimizer.step(g, ok)
@@ -193,13 +221,16 @@ def apply_gradients(state: TrainState, ok=None):
 
 def make_train_step(num_observations: float, eps_guard: bool = False):
     """Returns train_step(state, batch, L, generator=None, noise=None) ->
-    metrics: loss, backward, Adam, with the NaN guard. metrics holds 0-d
+    metrics: loss, backward, Adam, with the NaN guard (which also restores
+    the BatchNorm statistics a train-mode module moved). metrics holds 0-d
     device tensors: loss, nll, kl_reg, kl_u, nfe, and kernel_var (the
-    kernel variances after the update)."""
+    kernel variances after the update). A state with a frozen VAE takes
+    the frozen step (`set_train_mode`; the JAX package's
+    `make_train_step(freeze_vae=True)`)."""
 
     def train_step(state: TrainState, batch, L: int, generator=None,
                    noise: Optional[dict] = None):
-        model = state.model.train()
+        model = set_train_mode(state)
         bn = _bn_stats(model)
         saved = [b.clone() for b in bn]
         for p in state.params():
@@ -258,7 +289,8 @@ def make_epoch_eval_step():
     (Xrec, mse): the per-epoch monitoring eval, which never leaves train
     mode, so BatchNorm normalises with the test batch's statistics and
     updates its running statistics (under no_grad), as the JAX package's
-    `make_epoch_eval_step` does."""
+    `make_epoch_eval_step` does. A run with a frozen VAE monitors with
+    `make_eval_step` instead (the reference eval()s its VAE there)."""
 
     def eval_step(state: TrainState, batch, L: int = 1, generator=None,
                   noise: Optional[dict] = None):

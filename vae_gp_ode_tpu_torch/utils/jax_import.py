@@ -132,7 +132,8 @@ def from_jax(variables_np, gp_np, kernel='RBF'):
 
 def train_state_from_jax(state_np, *, latent_dim=6, n_filt=8, order=1,
                          frames=5, dt=0.1, num_features=256, lr=1e-3,
-                         fix_kernel=False, solver='euler', dense=1,
+                         fix_kernel=False, freeze_vae=False,
+                         solver='euler', dense=1,
                          rtol=1e-6, atol=1e-6, max_steps=256,
                          use_adjoint=False, remat=True, kernel='RBF',
                          device='cuda'):
@@ -146,6 +147,8 @@ def train_state_from_jax(state_np, *, latent_dim=6, n_filt=8, order=1,
                   'mu': {'params': ..., 'gp': SVGP leaves},
                   'nu': {'params': ..., 'gp': SVGP leaves}}}
 
+    (with `freeze_vae`, a frozen-VAE state: mu and nu hold 'gp' alone).
+
     The model is built at the given widths and solver settings (the JAX
     ODEGPVAE's fields) on `device`; `kernel` is the GP's static
     `kernel_name` ('RBF' or 'DF')."""
@@ -158,7 +161,7 @@ def train_state_from_jax(state_np, *, latent_dim=6, n_filt=8, order=1,
                      num_features=num_features, use_adjoint=use_adjoint,
                      remat=remat, device=device)
     state = create_train_state(model, gp.to(model.device), lr=lr,
-                               fix_kernel=fix_kernel)
+                               fix_kernel=fix_kernel, freeze_vae=freeze_vae)
     return load_train_state(state, state_np)
 
 
@@ -175,9 +178,9 @@ def _check_shapes(got, want, where):
 
 def load_train_state(state, state_np):
     """Copy a JAX `TrainState` given as nested dicts of numpy arrays (the
-    layout `train_state_from_jax` takes) into the port's TrainState
-    `state`, in place, after checking every name and shape against it;
-    returns `state`."""
+    layout `train_state_from_jax` takes; a frozen-VAE state's Adam moments
+    hold 'gp' alone) into the port's TrainState `state`, in place, after
+    checking every name and shape against it; returns `state`."""
     sd, gp = from_jax(state_np['variables'], state_np['gp'],
                       state.gp.kernel_name)
     _check_shapes(sd, state.model.state_dict(), 'model')
@@ -190,7 +193,8 @@ def load_train_state(state, state_np):
     params = dict(zip(state.param_names(), state.params()))
     moments = {}
     for k in ('mu', 'nu'):
-        named = _vae_from_jax(adam[k]['params'], None)
+        named = (_vae_from_jax(adam[k]['params'], None)
+                 if 'params' in adam[k] else {})
         named.update({f'gp.{n}': v for n, v in gp_from_jax(
             adam[k]['gp']).named_parameters()})
         _check_shapes(named, params, f'adam.{k}')

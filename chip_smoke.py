@@ -128,6 +128,32 @@ Run from the repository root on a machine with an NVIDIA H100:
    CPU with the same noise (frames and compute_mse_std: TOL_FORWARD for
    the RBF run, DF_CKPT_FRAMES and DF_CKPT_MSE_REL for the
    ill-conditioned DF checkpoint);
+6g. the shared-lengthscale RBF kernel (`--dimwise False`) and multi-epoch
+   segments, each path run with the counts set to 0 just before and read
+   just after: the RBF kernels on shared operands from --seed broadcast
+   over the output dims (`ops.pathwise.dimwise_block`) against the port's
+   plain shared formula (`rbf_rff_eval` + `rbf_f_update`, autograd) -
+   #1/#2 and #3/#4 at orders 1 and 2, L=1 and 5, N=20, #9/#10 at q=12,
+   S=1024, N=400 - the output within TOL_FORWARD and the cotangent of
+   every shared leaf within TOL_BWD, each launched twice for the same
+   bits; the training CLI's run() with --dimwise False for 2 epochs at
+   main.py's defaults (every step launches #1 and #2 once and no other
+   kernel, finite losses), one step's gradients against the CPU float64
+   step (TOL_GRAD, RELU_FLIP), one step under set_sync_debug_mode('error'),
+   step times at L=1 and 5 with their device busy time and idle share, an
+   rk4 step's gradients against the CPU and 3 rk4 steps through the
+   rule's per-step pair alone, three requests and a T=32 rollout from
+   `load_run_dir` (#1 once each) and `evaluate` on the run (as in 6f);
+   run() at --Nepoch 24 --plot_freq 100 with --epochs_per_dispatch 10
+   (epochs 1-10 and 12-21 as segments) and 1, and at --pretrained from
+   6f's files with --Nepoch 12 and 4 and 1, under cuDNN's deterministic
+   algorithms: every step launches #1 and #2 once, per-step metrics,
+   monitoring mses, checkpoint epochs and final state bit for bit, the
+   frozen check once per segment, each run's host synchronisations
+   (set_sync_debug_mode('warn')) and wall time; the A/B of one L=5 shared
+   flow forward and backward (N=20, T=16) through #1/#2 on the broadcast
+   operands and through the plain shared formula, in turns, device busy
+   time per round (torch.profiler), median of 5;
 7. times kernels, requests and train steps with CUDA events, and traces
    one request, one L=5 train step, one L=5 rk4 train step, one DF
    request, DF L=5, L=1 and rk4 train steps and one wide L=5 train step
@@ -385,15 +411,18 @@ def compare_bwd(out, ref, what, names=('z0', 'omf', 'phf', 'ws', 'Zb', 'zn',
     return worst
 
 
-def step_noise(seed, q, S, M, L_=1, batch=None, order=1, df=False):
+def step_noise(seed, q, S, M, L_=1, batch=None, order=1, df=False,
+               shared=False):
     """Raw draws for one train step (z0 and L_ GP draws) from a numpy
     seed, the same for the GPU and the CPU step (`df`: the divergence-free
-    kernel's 2S weights)."""
+    kernel's 2S weights; `shared`: the shared-lengthscale RBF kernel's
+    one set of frequencies and phases)."""
     import numpy as np
     rs = np.random.default_rng(seed)
+    per_dim = () if shared else (q,)
     return {'z0': rs.standard_normal((batch or BATCH, q)),
-            'omega': rs.standard_normal((L_, q * order, S, q)),
-            'phase_u': rs.random((L_, 1, S, q)),
+            'omega': rs.standard_normal((L_, q * order, S) + per_dim),
+            'phase_u': rs.random((L_, 1, S) + per_dim),
             'weights': rs.standard_normal((L_, 2 * S if df else S, q)),
             'epsilon': rs.standard_normal((L_, M, q))}
 
@@ -2699,6 +2728,7 @@ def pretrained_workflow(args, card, slice_launches):
                     ignore=shutil.ignore_patterns('eval'))
     evaluate_runs(args, card, (('RBF', result['save']), ('DF', df_run)),
                   batch, len(testset), slice_launches)
+    return pre['model_dir']
 
 
 def evaluate_runs(args, card, runs, batch, n_batches, slice_launches):
@@ -2742,7 +2772,8 @@ def evaluate_runs(args, card, runs, batch, n_batches, slice_launches):
                      for k, v in step_noise(
                          args.seed + 42, ta.latent_dim, ta.num_features,
                          ta.num_inducing, L_=L, batch=batch.shape[0],
-                         df=kernel == 'DF').items()}
+                         df=kernel == 'DF',
+                         shared=not st.gp.kernel.dimwise).items()}
             X = batch.to(where)
             Xrec, _ = trainer.make_eval_step()(st, X, L, noise=noise)
             got.append((Xrec.cpu(), evaluate.compute_mse_std(
@@ -2759,6 +2790,402 @@ def evaluate_runs(args, card, runs, batch, n_batches, slice_launches):
             f'{mse_rel:.3e} (tol {lim[1]:g})')
         require(frame_err <= lim[0] and mse_rel <= lim[1],
                 f'evaluate ({kernel}): the card disagrees with the CPU')
+
+
+def shared_leaves(g, sample):
+    """The leaves of a shared-lengthscale RBF sample and its GP as fresh
+    tensors that require gradients: omega (L, D, S), phase (L, 1, S),
+    weights (L, S, K), Z (M, D), nu (L, M, K), the unconstrained
+    lengthscales (D,) and variance (1,)."""
+    return [t.detach().clone().requires_grad_() for t in (
+        sample.rff.omega, sample.rff.phase, sample.rff.weights,
+        g.inducing_loc, sample.nu, g.kernel.unconstrained_lengthscales,
+        g.kernel.unconstrained_variance)]
+
+
+SHARED_NAMES = ('omega', 'phase', 'weights', 'Z', 'nu', 'ls', 'var')
+
+
+def shared_plain_eval(x, omega, phase, weights, Z, nu, uls, uvar):
+    """The port's plain shared formula: `rbf_rff_eval` + `rbf_f_update`."""
+    from vae_gp_ode_tpu_torch.kernels import rbf as rbfk
+    kern = rbfk.RBFParams(uls, uvar)
+    return (rbfk.rbf_rff_eval(kern, rbfk.RFFState(omega, phase, weights), x)
+            + rbfk.rbf_f_update(kern, nu, x, Z))
+
+
+def shared_block(omega, phase, weights, Z, nu, uls, uvar):
+    """The dimwise operand block the kernels take, broadcast from the
+    shared leaves (`ops.pathwise.dimwise_block`)."""
+    from vae_gp_ode_tpu_torch.core.transforms import softplus
+    from vae_gp_ode_tpu_torch.ops.pathwise import dimwise_block
+    return dimwise_block(omega, phase, weights, Z, nu, softplus(uls),
+                         softplus(uvar), False)
+
+
+def shared_plain_flow(z0, leaves, T_, order):
+    """Euler (dt = CONFIG's) through the plain shared formula, autograd:
+    zs (L, T, N, D)."""
+    import torch
+    K = leaves[2].shape[-1]
+    zs = [z0.expand(leaves[0].shape[:-2] + tuple(z0.shape))]
+    for _ in range(T_ - 1):
+        z = zs[-1]
+        f = shared_plain_eval(z, *leaves)
+        if order == 2:
+            f = torch.cat([z[..., K:], f], dim=-1)
+        zs.append(z + CONFIG['dt'] * f)
+    return torch.stack(zs, dim=-3)
+
+
+def shared_kernel_flow(z0, leaves, T_, order):
+    """The same trajectory through #1 (and #2 in reverse mode) on the
+    broadcast operands."""
+    from vae_gp_ode_tpu_torch.ops import flow_fused
+    return flow_fused.fused_euler_flow(z0, *shared_block(*leaves),
+                                       CONFIG['dt'], T_, order)
+
+
+def hold_shared(what, route, plain, inputs, names, gen):
+    """Run `route` and `plain` on the same leaves (forward and the VJP of
+    one random cotangent): `route` twice for the same bits, its output
+    within TOL_FORWARD of the plain one's and each cotangent within
+    TOL_BWD (1 + max |plain|). Returns (forward err, largest cotangent
+    err)."""
+    import torch
+    outs = []
+    for _ in range(2):
+        out = route(*inputs)
+        g = torch.randn(out.shape, generator=torch.Generator(
+            device=out.device).manual_seed(7), device=out.device)
+        outs.append((out.detach(), torch.autograd.grad(out, inputs, g)))
+    (out, grads), (out2, grads2) = outs
+    require(torch.equal(out, out2) and all(
+        torch.equal(a, b) for a, b in zip(grads, grads2)),
+        f'{what}: two launches gave different bits')
+    ref = plain(*inputs)
+    ref_grads = torch.autograd.grad(ref, inputs, g)
+    fwd = float((out - ref.detach()).abs().max())
+    log(f'  {what}: forward max abs err {fwd:.3e} (tol {TOL_FORWARD:g}); '
+        f'same bits twice')
+    require(bool(torch.isfinite(out).all()) and fwd <= TOL_FORWARD,
+            f'{what}: the kernels disagree with the plain shared formula')
+    return fwd, compare_bwd(grads, ref_grads, what, names=names)
+
+
+def shared_rbf(args, card, batch, slice_launches, vae_dir):
+    """Phase 6g, the shared-lengthscale RBF kernel (`--dimwise False`) and
+    multi-epoch segments: (i) the kernels on broadcast shared operands
+    against the plain shared formula; (ii) the training CLI's run() with
+    --dimwise False (every step #1/#2 once), gradients, a sync check, step
+    times, rk4 steps, requests and `evaluate`; (iii) segment runs against
+    per-epoch runs, bit for bit, with their host synchronisations; (iv)
+    the A/B of the shared flow through #1/#2 against the plain shared
+    formula. Returns what the summary line needs."""
+    import warnings
+    import numpy as np
+    import torch
+    from vae_gp_ode_tpu_torch import main as train_cli
+    from vae_gp_ode_tpu_torch.gp.svgp import draw_fn_sample, init_svgp_params
+    from vae_gp_ode_tpu_torch.models.odegpvae import init_model
+    from vae_gp_ode_tpu_torch.ops import flow_fused, pathwise, pathwise_tiled
+    from vae_gp_ode_tpu_torch.serving import load_run_dir, make_forecast_fn
+    from vae_gp_ode_tpu_torch.training import trainer
+    run_path = functools.partial(count_path, launches=slice_launches)
+    dev = torch.device('cuda')
+    q, S, M = CONFIG['latent_dim'], CONFIG['num_features'], \
+        CONFIG['num_inducing']
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 61)
+    rng = np.random.default_rng(args.seed + 61)
+    errs = {k: [] for k in ('flow_fwd', 'flow_bwd', 'step_fwd', 'step_bwd',
+                            'tiled_fwd', 'tiled_bwd')}
+    out = {'errs': errs}
+
+    def shared_sample(D_in, K, S_, L_):
+        g = init_svgp_params(rng, D_in, K, M, dimwise=False,
+                             lengthscale=CONFIG['lengthscale'],
+                             variance=CONFIG['variance'], device='cuda')
+        with torch.no_grad():
+            return g, draw_fn_sample(g, gen, S_, L=L_)
+
+    # -- 6g-i: the kernels on shared operands against the plain formula -----
+    log('phase 6g: the shared-lengthscale RBF kernel on broadcast operands '
+        'against the plain shared formula on the card:')
+    for order in (1, 2):
+        for L_ in (1, L):
+            g, sample = shared_sample(q * order, q, S, L_)
+            leaves = shared_leaves(g, sample)
+            z0 = torch.randn(BATCH, q * order, generator=gen, device=dev)
+            x = torch.randn(L_, BATCH, q * order, generator=gen, device=dev)
+            tag = f'order {order}, L={L_}, N={BATCH}'
+            f, b = hold_shared(
+                f'#1/#2 {tag}, T={T}',
+                lambda *lv: shared_kernel_flow(z0, lv, T, order),
+                lambda *lv: shared_plain_flow(z0, lv, T, order), leaves,
+                SHARED_NAMES, gen)
+            errs['flow_fwd'].append(f)
+            errs['flow_bwd'].append(b)
+            f, b = hold_shared(
+                f'#3/#4 {tag}',
+                lambda x_, *lv: pathwise.fused_pathwise_eval(
+                    x_, *shared_block(*lv)),
+                shared_plain_eval, [x.requires_grad_()] + leaves,
+                ('x',) + SHARED_NAMES, gen)
+            errs['step_fwd'].append(f)
+            errs['step_bwd'].append(b)
+    g, sample = shared_sample(12, 12, 1024, L)
+    x = torch.randn(L, 400, 12, generator=gen, device=dev,
+                    requires_grad=True)
+    f, b = hold_shared(
+        f'#9/#10 order 1, L={L}, N=400, q=12, S=1024',
+        lambda x_, *lv: pathwise_tiled.tiled_pathwise_eval(
+            x_, *shared_block(*lv)),
+        shared_plain_eval, [x] + shared_leaves(g, sample),
+        ('x',) + SHARED_NAMES, gen)
+    errs['tiled_fwd'].append(f)
+    errs['tiled_bwd'].append(b)
+
+    # -- 6g-ii: training with --dimwise False: the CLI's run() -------------
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, 'build', 'chip_smoke', 'shared')
+    shutil.rmtree(work, ignore_errors=True)
+    targs = train_args(os.path.join(work, 'mnist'), '--dimwise', 'False')
+    steps, seen = [], {}
+
+    def on_step(ep, L_):
+        from vae_gp_ode_tpu_torch import ops
+        now = dict(ops.LAUNCHES)
+        steps.append((ep, L_, deltas(seen, now)))
+        seen.update(now)
+
+    def per_step_launches(what, steps, per_epoch):
+        """Every step launched #1 and #2 once and no other kernel (the
+        first step of a later epoch also counts the previous epoch's
+        monitoring eval, one #1 launch)."""
+        for i, (ep, L_, d) in enumerate(steps):
+            evals = 1 if i % per_epoch == 0 and ep > 0 else 0
+            if d[flow_fused.BWD_KERNEL] != 1 or d[flow_fused.KERNEL] != (
+                    1 + evals) or any(v for k, v in d.items()
+                                      if not k.startswith('flow_fused')):
+                raise AssertionError(f'{what}: train step {i} (epoch {ep}, '
+                                     f'L={L_}) launched {d}')
+
+    t0 = time.perf_counter()
+    result, launched = run_path(lambda: train_cli.run(targs,
+                                                      on_step=on_step))
+    train_s = time.perf_counter() - t0
+    require(result['bailout'] is None, 'NaN bailout in the shared run')
+    per_epoch = targs.Ndata // targs.batch + bool(targs.Ndata % targs.batch)
+    require(len(steps) == TRAIN_EPOCHS * per_epoch, f'{len(steps)} steps')
+    per_step_launches('--dimwise False', steps, per_epoch)
+    losses = np.concatenate([e['loss'] for e in result['epochs']])
+    require(losses.size == len(steps) and np.isfinite(losses).all(),
+            f'shared losses {losses}')
+    state = result['state']
+    require(tuple(state.gp.kernel.unconstrained_lengthscales.shape) == (q,),
+            'the run did not train a shared kernel')
+    log(f'training with --dimwise False: run() for {TRAIN_EPOCHS} epochs '
+        f'at main.py\'s defaults, {len(steps)} steps in {train_s:.1f} s; '
+        f'every step launched {flow_fused.KERNEL} and '
+        f'{flow_fused.BWD_KERNEL} once and no other kernel; launches '
+        f'{launched}; losses finite (first {losses[0]:.2f}, last '
+        f'{losses[-1]:.2f})')
+    check_grads('shared step: GPU vs CPU (float64) train-step gradients '
+                '(L=1, same noise)', pinned_grads(
+                    state.model, state.gp, batch,
+                    step_noise(args.seed + 62, q, S, M, shared=True),
+                    targs.Ndata, targs.eps_guard, ('cuda', None),
+                    ('cpu', torch.float64)))
+    step = trainer.make_train_step(targs.Ndata, eps_guard=targs.eps_guard)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        step(state, batch, L)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log('sync check: a shared train step (L=5) under '
+        'set_sync_debug_mode("error"): no synchronising operation')
+    out['step'] = {}
+    times = []
+    for L_ in (1, L):
+        for _ in range(3):
+            step(state, batch, L_)
+        ms = cuda_ms(lambda: step(state, batch, L_), 20, warmup=0)
+        busy = profile(lambda: step(state, batch, L_),
+                       f'one shared L={L_} train step')
+        require(busy is not None,
+                'the profiler recorded no device time of a shared step')
+        out['step'][L_] = (ms, busy)
+        times.append(f'L={L_}: {ms:.3f} ms, device busy {busy[0]:.3f} ms, '
+                     f'idle share {busy[1]:.3f}')
+    log('shared train step (CUDA events over 20 steps, batch on the card): '
+        + '; '.join(times) + f'; card {card}')
+    # the L=5 step's device busy time beside the dimwise step's, in turns
+    dstate = trainer.create_train_state(*init_model(
+        args.seed, device='cuda', **CONFIG), lr=targs.lr)
+    for _ in range(3):
+        step(dstate, batch, L)
+    pair = {'shared': [], 'dimwise': []}
+    for _ in range(3):
+        for k, st_ in (('shared', state), ('dimwise', dstate)):
+            # a trace the profiler recorded nothing of is taken again
+            for _ in range(3):
+                reading = busy_ms(lambda: step(st_, batch, L))
+                if reading[0] > 0:
+                    pair[k].append(reading)
+                    break
+    require(all(pair.values()),
+            'the profiler recorded no device time of an L=5 step')
+    out['busy_pair'] = {k: (statistics.median(b for b, _ in v), v[0][1])
+                        for k, v in pair.items()}
+    log(f'L={L} train step, shared against dimwise, in turns, device busy '
+        f'ms (torch.profiler): ' + '; '.join(
+            f'{k}: ' + ', '.join(f'{b:.3f}' for b, _ in v) + f' (median '
+            f'{out["busy_pair"][k][0]:.3f}, {v[0][1]} kernels)'
+            for k, v in pair.items()) + f'; card {card}')
+
+    # rk4 through the rule's per-step pair, GPU vs CPU gradients
+    rm, rg = init_model(args.seed + 63, device='cuda', dimwise=False,
+                        **dict(CONFIG, solver='rk4'))
+    check_grads('shared rk4 step: GPU vs CPU (float64) train-step '
+                'gradients (L=1, same noise)', pinned_grads(
+                    rm, rg, batch,
+                    step_noise(args.seed + 63, q, S, M, shared=True),
+                    targs.Ndata, targs.eps_guard, ('cuda', None),
+                    ('cpu', torch.float64)))
+    rstate = trainer.create_train_state(rm, rg, lr=targs.lr)
+    metrics, d = run_path(lambda: [step(rstate, batch, L)
+                                   for _ in range(3)])
+    fk, bk = rule_names('RBF', L, BATCH, q, S, M)
+    require(d[fk] > 0 and d[bk] > 0 and sum(d.values()) == d[fk] + d[bk]
+            and all(bool(torch.isfinite(m['loss'])) for m in metrics),
+            f'shared rk4 steps launched {d}; the rule names {fk}, {bk}')
+    log(f'shared rk4: 3 train steps (L={L}) through the rule\'s pair '
+        f'{fk}/{bk} alone: launches {d}; losses finite')
+
+    # the run directory serves: 3 requests and a rollout, one #1 each
+    model, st, _ = load_run_dir(result['save'], device='cuda')
+    rng_px = np.random.default_rng(args.seed + 64)
+    fns = (make_forecast_fn(model, None, st.gp, L=L, normalize_input=True,
+                            device='cuda'),
+           make_forecast_fn(model, None, st.gp, L=L, T_custom=T * TROLL,
+                            normalize_input=True, device='cuda'))
+    for i, (fn_, Tout) in enumerate(((fns[0], T),) * 3 + ((fns[1],
+                                                            T * TROLL),)):
+        X = rng_px.random((BATCH, T, 1, 28, 28)).astype(np.float32)
+        Xrec, d = run_path(lambda: fn_(X, args.seed + i))
+        require(tuple(Xrec.shape) == (L, BATCH, Tout, 1, 28, 28) and bool(
+            torch.isfinite(Xrec).all()) and d[flow_fused.KERNEL] == 1 and
+            sum(d.values()) == 1, f'shared request {i}: {d}')
+    log(f'shared run directory (load_run_dir): 3 requests of {BATCH} '
+        f'sequences and a T={T * TROLL} rollout, {flow_fused.KERNEL} once '
+        f'each and no other kernel, finite')
+    from vae_gp_ode_tpu_torch.data.mnist import load_data
+    _, testset = load_data(targs, device=dev)
+    evaluate_runs(args, card, (('RBF', result['save']),), batch,
+                  len(testset), slice_launches)
+
+    # -- 6g-iii: segments against per-epoch runs, bit for bit ----------------
+    def counted_run(what, targs, n_epochs, segments):
+        steps.clear()
+        seen.clear()           # run_path sets the counts to 0
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode('warn')
+            try:
+                t0 = time.perf_counter()
+                res, d = run_path(lambda: train_cli.run(targs,
+                                                        on_step=on_step))
+                secs = time.perf_counter() - t0
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = sum('synchroniz' in str(w.message) for w in caught)
+        require(res['bailout'] is None and res['segments'] == segments,
+                f'{what}: segments {res["segments"]}, expected {segments}')
+        per_step_launches(what, steps, per_epoch)
+        require(len(steps) == n_epochs * per_epoch, f'{what}: {len(steps)} '
+                f'steps')
+        log(f'  {what}: segments {res["segments"]}, {len(steps)} steps, '
+            f'{syncs} host synchronisations (set_sync_debug_mode("warn")), '
+            f'{secs:.2f} s wall (data and set-up included), frozen checks '
+            f'{res["frozen_checks"]}; every step launched '
+            f'{flow_fused.KERNEL} and {flow_fused.BWD_KERNEL} once; '
+            f'launches {d}')
+        return res, syncs, secs
+
+    def same_bits(what, a, b):
+        require(len(a['epochs']) == len(b['epochs']) and all(
+            ra.keys() == rb.keys() and all(
+                np.array_equal(ra[k], rb[k]) for k in ra)
+            for ra, rb in zip(a['epochs'], b['epochs'])),
+            f'{what}: per-step metrics or mses differ')
+        sa, sb = a['state'], b['state']
+        require(all(torch.equal(x, y) for x, y in zip(sa.params(),
+                                                      sb.params())) and all(
+            torch.equal(x, y) for x, y in zip(sa.model.buffers(),
+                                              sb.model.buffers())) and
+            torch.equal(sa.optimizer.mu, sb.optimizer.mu) and
+            torch.equal(sa.optimizer.nu, sb.optimizer.nu) and
+            a['ckpt_epochs'] == b['ckpt_epochs'],
+            f'{what}: the final states differ')
+        log(f'  {what}: per-step losses and metrics, monitoring mses, '
+            f'checkpoint epochs {a["ckpt_epochs"]} and the final parameters, '
+            f'BatchNorm statistics and Adam moments bit for bit')
+
+    log('phase 6g segments (cudnn deterministic):')
+    out['segments'] = {}
+    with cudnn_deterministic():
+        for what, extra, n_ep, segs in (
+                ('main.py defaults', (), 24, [(1, 10), (12, 10)]),
+                ('--pretrained', ('--pretrained', 'True', '--vae_path',
+                                  vae_dir), 12, [(1, 4), (6, 4)])):
+            E = segs[0][1]
+            runs = {}
+            for e in (E, 1):
+                a = train_args(os.path.join(work, f'seg{e}_{len(extra)}'),
+                               '--Nepoch', str(n_ep), '--plot_freq', '100',
+                               '--epochs_per_dispatch', str(e), *extra)
+                runs[e] = counted_run(
+                    f'{what}, --Nepoch {n_ep} --epochs_per_dispatch {e}', a,
+                    n_ep, segs if e > 1 else [])
+            same_bits(f'{what}: E={E} against E=1', runs[E][0], runs[1][0])
+            if extra:
+                require(runs[E][0]['frozen_checks'] == n_ep - sum(
+                    n - 1 for _, n in segs), 'frozen checks')
+            out['segments'][what] = {e: r[1:] + (r[0]['frozen_checks'],)
+                                     for e, r in runs.items()}
+
+    # -- 6g-iv: A/B of the shared flow, kernels against the plain formula ---
+    g, sample = shared_sample(q, q, S, L)
+    leaves = shared_leaves(g, sample)
+    z0 = torch.randn(BATCH, q, generator=gen, device=dev)
+    zsbar = torch.randn(L, T, BATCH, q, generator=gen, device=dev)
+    calls = {
+        'kernels': lambda: torch.autograd.grad(
+            shared_kernel_flow(z0, leaves, T, 1), leaves, zsbar),
+        'plain': lambda: torch.autograd.grad(
+            shared_plain_flow(z0, leaves, T, 1), leaves, zsbar)}
+    busy = {k: [] for k in calls}
+    for fn_ in calls.values():
+        fn_()
+    for _ in range(5):
+        for k, fn_ in calls.items():
+            busy[k].append(busy_ms(fn_))
+    ms = {k: cuda_ms(fn_, 10) for k, fn_ in calls.items()}
+    med = {k: statistics.median(b for b, _ in v) for k, v in busy.items()}
+    out['ab'] = (med, ms, {k: v[0][1] for k, v in busy.items()})
+    log(f'A/B, one L={L} shared flow forward + backward (N={BATCH}, T={T}, '
+        f'q={q}, S={S}, M={M}, order 1), in turns, device busy ms per '
+        f'round (torch.profiler): ' + '; '.join(
+            f'{k}: ' + ', '.join(f'{b:.4f}' for b, _ in v) + f' (median '
+            f'{med[k]:.4f}, {v[0][1]} kernels)' for k, v in busy.items())
+        + '; CUDA events per call: ' + ', '.join(
+            f'{k} {v:.4f} ms' for k, v in ms.items()) + f'; card {card}')
+    log(f'phase 6g launches on its paths (counts set to 0 before each): '
+        f'{ {k: v for k, v in slice_launches.items() if v} }')
+    return out
 
 
 def train_args(save, *extra):
@@ -3139,7 +3566,11 @@ def main():
 
     # -- 6f. the pretrained workflow: main_vae, --pretrained, evaluate ------
     pre_launches = {k: 0 for k in ops.LAUNCHES}
-    pretrained_workflow(args, card, pre_launches)
+    vae_dir = pretrained_workflow(args, card, pre_launches)
+
+    # -- 6g. the shared-lengthscale RBF kernel and multi-epoch segments -----
+    shared_launches = {k: 0 for k in ops.LAUNCHES}
+    shared = shared_rbf(args, card, batch, shared_launches, vae_dir)
 
     # -- 7. timings --------------------------------------------------------
     with torch.no_grad():
@@ -3193,19 +3624,23 @@ def main():
     kf, pf, bf, kb, pb, bb = path['pathwise_ms'][L]
     # launches: each path run's, counts set to 0 just before it
     runs = (serve_launches, train_launches, slice_launches, df_launches,
-            wide_launches, dfw_launches, pre_launches)
+            wide_launches, dfw_launches, pre_launches, shared_launches)
     total = {k: sum(d[k] for d in runs) for k in ops.LAUNCHES}
     # #3-#6: the largest error of phases 6b/6c and of 6d's sweep shapes
     errs = kern['errs']
+    # 6g's shared-operand checks join the RBF kernels' errors
+    serr = shared['errs']
     timed = {  # name: (ms, plain ms, (bound ms, bound by), max abs err)
         flow_fused.KERNEL: (ms_kernel, ms_plain, (bound_ms, bound_by),
-                            max_abs_err),
+                            max(max_abs_err, *serr['flow_fwd'])),
         flow_fused.BWD_KERNEL: (ms_b, ms_bp, (bound_b, by_b),
-                                bwd_max_abs_err),
+                                max(bwd_max_abs_err, *serr['flow_bwd'])),
         pathwise.KERNEL: (kf, pf, bf, max(path['pathwise_err'][0],
-                                          *errs['rbf_single_fwd'])),
+                                          *errs['rbf_single_fwd'],
+                                          *serr['step_fwd'])),
         pathwise.BWD_KERNEL: (kb, pb, bb, max(path['pathwise_err'][1],
-                                              *errs['rbf_single_bwd']))}
+                                              *errs['rbf_single_bwd'],
+                                              *serr['step_bwd']))}
     for mod, bwd, err in ((df_pathwise, False, max(
                               dfp['pathwise_err'][0], *errs['df_single_fwd'])),
                           (df_pathwise, True, max(
@@ -3215,7 +3650,8 @@ def main():
         name = mod.BWD_KERNEL if bwd else mod.KERNEL
         timed[name] = dfp['kernel_ms'][L][name] + (err,)
     for mod, fam in ((pathwise_tiled, 'rbf'), (df_pathwise_tiled, 'df')):
-        wider = dfw if fam == 'df' else {'fwd': [], 'bwd': []}
+        wider = dfw if fam == 'df' else {'fwd': serr['tiled_fwd'],
+                                         'bwd': serr['tiled_bwd']}
         timed[mod.KERNEL] = wide['kernel_ms'][mod.KERNEL] + (
             max(errs[fam + '_fwd'] + wider['fwd']),)
         timed[mod.BWD_KERNEL] = wide['kernel_ms'][mod.BWD_KERNEL] + (

@@ -155,17 +155,16 @@ def test_flow_forward_matches_jax(order):
 
 
 def test_flow_forward_rejects_what_is_not_ported():
-    """What the flow still refuses: the shared-lengthscale RBF kernel (no
-    GP of it can be built), an unknown solver, order 3 and fewer than 2
-    time points. Every solver of dynamics.solvers and dense output are
-    ported (tests/test_torch_solvers.py), and the DF kernel
-    (tests/test_torch_df.py)."""
+    """What the flow still refuses: an unknown solver, order 3 and fewer
+    than 2 time points. Every solver of dynamics.solvers and dense output
+    are ported (tests/test_torch_solvers.py), the DF kernel
+    (tests/test_torch_df.py) and the shared-lengthscale RBF kernel, whose
+    params now build (tests/test_torch_shared_rbf.py)."""
     rng = np.random.default_rng(50)
     _, tgp = _gp_pair(rng, 1)
     z0 = torch.zeros(N, Q)
     ts = torch.arange(T, dtype=torch.float32) * 0.1
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        RBFParams(torch.zeros(Q), torch.zeros(1))
+    assert not RBFParams(torch.zeros(Q), torch.zeros(1)).dimwise
     with pytest.raises(ValueError, match='unknown solver'):
         tflow.flow_forward(tgp, None, z0, ts, solver='rk45', device='cpu')
     with pytest.raises(ValueError):

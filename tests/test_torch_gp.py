@@ -196,8 +196,8 @@ def test_ode_rhs_matches(order):
 
 def test_unported_kernels_and_bad_order_raise():
     rng = np.random.default_rng(5)
-    with pytest.raises(NotImplementedError, match='dimwise'):
-        trbf.RBFParams(torch.zeros(Q), torch.zeros(1))   # shared lengthscales
+    # shared lengthscales are ported: their params build, dimwise False
+    assert not trbf.RBFParams(torch.zeros(Q), torch.zeros(1)).dimwise
     with pytest.raises(ValueError):
         tsvgp.init_svgp_params(rng, Q, Q, M, kernel='nope')
     _, tgp = _gp_pair(rng)

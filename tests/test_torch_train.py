@@ -570,13 +570,12 @@ def test_cli_run_trains_and_checkpoints(tmp_path):
     assert int(restored.step) == 6
 
 
-@pytest.mark.parametrize('flag', [
-    ['--data_parallel', 'True'], ['--epochs_per_dispatch', '2'],
-    ['--dimwise', 'False']])
+@pytest.mark.parametrize('flag', [['--data_parallel', 'True']])
 def test_cli_refuses_paths_not_ported(tmp_path, flag):
-    """Paths not ported yet raise (the solver flags, --kernel DF and
-    --pretrained are ported: test_cli_runs_the_solver_flags,
-    test_cli_trains_from_a_pretrained_vae)."""
+    """Paths not ported yet raise (the solver flags, --kernel DF,
+    --pretrained, --dimwise False and --epochs_per_dispatch are ported:
+    test_cli_runs_the_solver_flags, test_cli_trains_from_a_pretrained_vae,
+    tests/test_torch_shared_rbf.py, tests/test_torch_segment.py)."""
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tmain.run(_cli_args(tmp_path, *flag))
     assert not os.path.exists(tmp_path / 'run')

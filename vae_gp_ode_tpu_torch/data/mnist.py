@@ -80,6 +80,25 @@ class Loader:
             else None
         return stacked, tail
 
+    def epoch_index_batches(self, n_epochs):
+        """The index-only form of `n_epochs` `epoch_batches_with_tail()`
+        calls, from the same one-permutation-per-epoch stream: (heads
+        (E, I, B), tails (E, N % B) or None when B divides N), int64 on
+        the loader's device; X[heads[e]] and X[tails[e]] are epoch e's
+        batches."""
+        n, B = self.X.shape[0], self.batch_size
+        I = n // B
+        perms = torch.stack([self._permutation() for _ in range(n_epochs)])
+        heads = perms[:, :I * B].reshape(n_epochs, I, B)
+        return heads, (perms[:, I * B:] if n % B else None)
+
+    def first_index(self, n_epochs):
+        """The index-only form of `n_epochs` `first()` calls: the indices
+        of each epoch's first batch, (E, min(B, N)) int64 on the loader's
+        device, from the same permutation stream."""
+        return torch.stack([self._permutation()[:self.batch_size]
+                            for _ in range(n_epochs)])
+
 
 def rot_start(X, T, seed=None):
     """Re-phase each sequence to a random initial rotation angle: frames

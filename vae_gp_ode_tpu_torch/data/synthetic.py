@@ -7,7 +7,7 @@ shapes, value range and rotation structure of rot-MNIST, as sequences for
 coupled training and as flat frames for VAE pretraining. Rotation is
 scipy's (bilinear, `reshape=False`, clipped to [0, 1]); the JAX package's
 native C++ rotation matches it to 1e-5 and is not ported (ROADMAP Queue A
-item 9).
+[A9]).
 """
 
 import numpy as np

@@ -218,6 +218,7 @@ def flow_forward_adjoint(gp, sample, z0, ts, order=1, solver='euler',
     """
     from vae_gp_ode_tpu_torch.ops import df_pathwise_tiled, pathwise_tiled
     from vae_gp_ode_tpu_torch.ops.df_pathwise import pack_df_operands
+    from vae_gp_ode_tpu_torch.ops.pathwise import dimwise_block
     dev = resolve_device(device)
     check_device(z0, dev, 'z0')
     if order not in (1, 2):
@@ -229,6 +230,7 @@ def flow_forward_adjoint(gp, sample, z0, ts, order=1, solver='euler',
     lead = sample.lead
     L = lead[0] if lead else 1
     df = gp.kernel_name == 'DF'
+    dimwise = gp.kernel.dimwise
 
     def per_draw(x, nd):
         return x if x.dim() > nd else x.expand((L,) + tuple(x.shape))
@@ -236,8 +238,9 @@ def flow_forward_adjoint(gp, sample, z0, ts, order=1, solver='euler',
     shared = (gp.kernel.unconstrained_lengthscales,
               gp.kernel.unconstrained_variance, gp.inducing_loc, gp.Um,
               gp.Us_sqrt)
-    draws = ((sample.rff.omega, 3), (sample.rff.phase, 3),
-             (sample.rff.weights, 2), (sample.nu, 2 if df else 3))
+    rank = 3 if dimwise else 2       # of omega, phase and the RBF nu
+    draws = ((sample.rff.omega, rank), (sample.rff.phase, rank),
+             (sample.rff.weights, 2), (sample.nu, 2 if df else rank))
     if df:
         draws += ((sample.df_G, 2),)
     theta = tuple(x.expand((L,) + tuple(x.shape)) for x in shared) + tuple(
@@ -249,9 +252,9 @@ def flow_forward_adjoint(gp, sample, z0, ts, order=1, solver='euler',
             fz = df_pathwise_tiled.df_pathwise_eval(z, *pack_df_operands(
                 omega, phase, th[9], Z, nu, softplus(uls), softplus(uvar)))
         else:
-            fz = pathwise_tiled.pathwise_eval(z, omega, phase, weights, Z,
-                                              nu[..., 0], softplus(uls),
-                                              softplus(uvar))
+            fz = pathwise_tiled.pathwise_eval(z, *dimwise_block(
+                omega, phase, weights, Z, nu, softplus(uls), softplus(uvar),
+                dimwise))
         if order == 2:
             q = z.shape[-1] // 2
             fz = torch.cat([z[..., q:], fz], dim=-1)

@@ -4,8 +4,10 @@
 First-order euler at dense=1 (the main configuration) runs the whole
 trajectory of all the draws of a batched `FnSample` in one kernel, with
 its discrete adjoint in another, wherever that pair takes the shapes
-(`use_fused_pair`): `ops.flow_fused` for the dimwise-RBF kernel (orders 1
-and 2), `ops.df_flow_fused` for the divergence-free kernel (order 1).
+(`use_fused_pair`): `ops.flow_fused` for the RBF kernel (orders 1 and 2;
+a shared-lengthscale sample on the dimwise operands it broadcasts to,
+`ops.pathwise.rbf_fused_operands`), `ops.df_flow_fused` for the
+divergence-free kernel (order 1).
 Every other solver, dense output, and the shapes the pair refuses
 integrate with `dynamics.solvers.odeint` over `gp.svgp.fn_eval`, whose
 per-step evaluation and its VJP are, on the GPU, the kernels that the
@@ -49,11 +51,12 @@ def use_fused_pair(gp: SVGPParams, sample: FnSample, z0, T, order):
     if z0.device.type != 'cuda':
         return True
     D = z0.shape[-1]
-    S = sample.rff.omega.shape[-2]
     if gp.kernel_name == 'DF':
+        S = sample.rff.omega.shape[-2]
         from vae_gp_ode_tpu_torch.ops.df_flow_fused import df_fused_pair_fits
         return df_fused_pair_fits(D, S * D, gp.M, z0.device)
     from vae_gp_ode_tpu_torch.ops.flow_fused import fused_pair_fits
+    S = sample.rff.weights.shape[-2]
     return fused_pair_fits(D, D // order, S, gp.M, T, z0.device)
 
 

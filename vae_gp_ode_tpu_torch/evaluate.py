@@ -14,7 +14,7 @@ that metric, `sigmoid_floor_mse`; the keys of the JAX script); several
 print a comparison table and one JSON list. The --Troll x T rollout of the
 first three test sequences is written as `<run>/eval/rollout.npy` (L=1,
 (1, 3, Troll T, 1, 28, 28)) beside `rollout_original.npy`; the PNG plots
-are not ported (ROADMAP Queue A item 12).
+are not ported (ROADMAP Queue A [A12]).
 """
 
 import argparse
@@ -110,7 +110,7 @@ def evaluate_one(args, model_path, noise=None):
             test_batch.cpu().numpy())
     np.save(os.path.join(out_dir, 'rollout.npy'), Xroll.cpu().numpy())
     logger.info('rollout written to %s/rollout.npy; plots are not ported '
-                '(ROADMAP Queue A item 12; the card\'s machine has no '
+                '(ROADMAP Queue A [A12]; the card\'s machine has no '
                 'matplotlib)', out_dir)
 
     floor_mean, floor_std = sigmoid_floor_mse(testset.X.cpu().numpy())

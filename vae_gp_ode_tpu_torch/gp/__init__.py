@@ -6,4 +6,5 @@ from vae_gp_ode_tpu_torch.gp.svgp import (  # noqa: F401
     draw_fn_sample,
     fn_eval,
     svgp_kl,
+    svgp_conditional,
 )

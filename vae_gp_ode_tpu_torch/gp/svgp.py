@@ -1,12 +1,14 @@
 """Sparse variational GP with decoupled pathwise posterior sampling (port
-of `vae_gp_ode_tpu/gp/svgp.py`: the dimwise-RBF and the divergence-free
-(DF) kernel).
+of `vae_gp_ode_tpu/gp/svgp.py`: the RBF kernel with dimwise or shared
+lengthscales, and the divergence-free (DF) kernel).
 
   * whitened variational posterior q(u) = N(m, L L^T), full-Cholesky
     (packed lower-tri vectors) or diagonal,
   * `draw_fn_sample`: a pathwise posterior function sample, optionally a
     leading batch of L draws in one call,
-  * closed-form whitened KL(q(u) || N(0, I)).
+  * closed-form whitened KL(q(u) || N(0, I)),
+  * `svgp_conditional`: the exact conditional q(f(x)), for eval and
+    diagnostics.
 
 f(x) = Phi(x) w + K(x, Z) nu,  nu = K(Z,Z)^{-1}(u - f_prior(Z)).
 """
@@ -17,6 +19,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from vae_gp_ode_tpu_torch.core.linalg import cholesky, solve_triangular
+from vae_gp_ode_tpu_torch.core.settings import JITTER
 from vae_gp_ode_tpu_torch.core.transforms import (
     softplus, invsoftplus, unpack_tril, pack_tril,
 )
@@ -30,7 +34,8 @@ from vae_gp_ode_tpu_torch.ops import (
 class SVGPParams:
     """SVGP state.
 
-    kernel:        RBFParams (the DF kernel reuses the dimwise layout)
+    kernel:        RBFParams, dimwise or shared (the DF kernel reuses the
+                   dimwise layout)
     inducing_loc:  (M, D_in)
     Um:            (M, D_out) variational mean (whitened)
     Us_sqrt:       packed scale: (D_out, M(M+1)/2) full-Cholesky, or
@@ -101,9 +106,10 @@ class SVGPParams:
 @dataclasses.dataclass
 class FnSample:
     """Pathwise posterior function sample(s): RFF draw + update
-    coefficients nu, (..., D_out, M, 1) for the RBF kernel and
-    (..., M*D, 1) for DF; `...` is the batch of draws. df_G: the DF
-    kernel's per-draw ORFF contraction (..., 2S*D, D), None for RBF."""
+    coefficients nu, (..., D_out, M, 1) for the dimwise RBF kernel,
+    (..., M, D_out) for the shared one and (..., M*D, 1) for DF; `...` is
+    the batch of draws. df_G: the DF kernel's per-draw ORFF contraction
+    (..., 2S*D, D), None for RBF."""
 
     rff: rbfk.RFFState
     nu: torch.Tensor
@@ -112,23 +118,26 @@ class FnSample:
     @property
     def lead(self):
         """The batch of draws: () or (L,)."""
-        return tuple(self.rff.phase.shape[:-3])
+        return tuple(self.rff.weights.shape[:-2])
 
 
 def init_svgp_params(rng, D_in, D_out, M, kernel='RBF', q_diag=False,
-                     lengthscale=0.2, variance=0.1, dtype=torch.float32,
-                     device='cpu') -> SVGPParams:
+                     dimwise=True, lengthscale=0.2, variance=0.1,
+                     dtype=torch.float32, device='cpu') -> SVGPParams:
     """Random initialisation at the reference's scales, drawn with the
     numpy Generator `rng`: inducing_loc ~ N(0,1), Um ~ N(0,1)*0.1,
     Us_sqrt = I*1e-3 (packed), or a softplus-1e-3 diagonal for q_diag.
-    The DF kernel takes the dimwise layout and needs D_in == D_out (its
+    `dimwise` picks the RBF kernel's layout. The DF kernel takes the
+    dimwise layout whatever `dimwise` says and needs D_in == D_out (its
     gram and B(w) are square), so 2nd-order ODEs need the RBF kernel."""
     if kernel not in ('RBF', 'DF'):
         raise ValueError(f'Invalid kernel selection: {kernel!r}')
     if kernel == 'DF' and D_in != D_out:
         raise ValueError(
             f'DF kernel requires D_in == D_out, got {D_in} != {D_out}')
-    kern = rbfk.init_rbf_params(D_in, D_out, lengthscale=lengthscale,
+    kern = rbfk.init_rbf_params(D_in, D_out,
+                                dimwise=dimwise or kernel == 'DF',
+                                lengthscale=lengthscale,
                                 variance=variance, dtype=dtype,
                                 device=device)
 
@@ -178,8 +187,8 @@ def draw_fn_sample(p: SVGPParams, generator, S,
     1. RFF parameters (omega, phase, weights),
     2. u ~ q(u),
     3. nu = K(Z,Z)^{-1}(u - f_prior(Z)) via Cholesky + triangular solves
-       (one factor shared by the draws: (D_out, M, M) for RBF, one
-       (M*D, M*D) for DF).
+       (one factor shared by the draws: (D_out, M, M) for the dimwise
+       RBF kernel, one (M, M) for the shared one, one (M*D, M*D) for DF).
 
     `noise` injects the raw draws {omega, phase_u, weights, epsilon}, whose
     leading dims (if any) batch the draws. Otherwise `generator` draws
@@ -218,7 +227,9 @@ def fn_eval(p: SVGPParams, s: FnSample, x):
     `use_tiled`; for DF `ops.df_pathwise_tiled.df_pathwise_eval` between
     `csrc/df_pathwise_fwd.cu` / `df_pathwise_bwd.cu` and
     `csrc/df_pathwise_tiled_fwd.cu` / `df_pathwise_tiled_bwd.cu` by
-    `use_df_tiled`. On CPU tensors both take their plain versions.
+    `use_df_tiled`. On CPU tensors both take their plain versions. A
+    shared-lengthscale RBF sample takes the same kernels, on the dimwise
+    operand block that `ops.pathwise.rbf_fused_operands` broadcasts it to.
     """
     if p.kernel_name == 'DF':
         return df_pathwise_tiled.df_pathwise_eval(
@@ -241,3 +252,68 @@ def svgp_kl(p: SVGPParams):
     logdet_qcov = torch.sum(torch.log(Lq_diag ** 2), dim=0)
     twoKL = -logdet_qcov + mahalanobis + trace - float(p.M)
     return 0.5 * torch.sum(twoKL)
+
+
+def svgp_conditional(p: SVGPParams, x, full_cov=False):
+    """Exact conditional q(f(x)) = N(m(x), Sigma(x)) at x (N, D_in), in
+    the whitened form mean = A^T m, Sigma = Kff + A^T (S - I) A with
+    A = Lu^{-1} Kuf and S = L L^T (a diagonal q(u): diag(s^2)).
+
+    Returns (mean (N, D), var (N, D)), or with full_cov (mean, (D, N, N))
+    for the RBF kernels; the DF kernel's full_cov covariance is the full
+    (N*D, N*D) one (`_svgp_conditional_df`).
+    """
+    if p.kernel_name == 'DF':
+        return _svgp_conditional_df(p, x, full_cov)
+    dimwise = p.kernel.dimwise
+    Z = p.inducing_loc
+    Ku = rbfk.rbf_gram(p.kernel, Z)                       # (M,M) or (D,M,M)
+    eye = torch.eye(p.M, dtype=Ku.dtype, device=Ku.device)
+    Lu = cholesky(Ku + eye * JITTER)
+    A = solve_triangular(Lu, rbfk.rbf_gram(p.kernel, Z, x), lower=True)
+    if p.q_diag:
+        s = softplus(p.Us_sqrt).T                         # (D, M)
+        SK = torch.diag_embed(s * s) - eye                # (D, M, M)
+    else:
+        Ls = _scale_tril(p)                               # (D, M, M)
+        SK = Ls @ Ls.transpose(-1, -2) - eye
+    A_b = A if dimwise else A[None]                       # (D or 1, M, N)
+    B = SK @ A_b                                          # (D, M, N)
+    if full_cov:
+        Kff = rbfk.rbf_gram(p.kernel, x)
+        var = (Kff if dimwise else Kff[None]) + A_b.transpose(-1, -2) @ B
+    else:
+        # k(x, x) of the SE kernel is its variance
+        var_k = rbfk.rbf_variance(p.kernel)               # (D,) or (1,)
+        var = (var_k[:, None] + torch.sum(A_b * B, dim=1)).T
+    mean = torch.einsum('dmn,md->nd' if dimwise else 'mn,md->nd', A, p.Um)
+    return mean, var
+
+
+def _svgp_conditional_df(p: SVGPParams, x, full_cov=False):
+    """The exact conditional for the matrix-valued DF kernel: one
+    (M*D, M*D) Cholesky solve, with q(u)'s covariance block-diagonal over
+    output dims d (blocks L_d L_d^T) on the flattened inducing vector
+    u[m*D + d], the layout of `df_gram`. Returns (mean (N, D), var (N,
+    D)), the diagonal from `df_gram_diag`; with full_cov the full
+    (N*D, N*D) covariance."""
+    M, D = p.M, p.D_out
+    MD, N = M * D, x.shape[0]
+    Ku = dfk.df_gram(p.kernel, p.inducing_loc)           # (MD, MD)
+    Lu = cholesky(Ku + torch.eye(MD, dtype=Ku.dtype, device=Ku.device)
+                  * JITTER)
+    A = solve_triangular(Lu, dfk.df_gram(p.kernel, p.inducing_loc, x),
+                         lower=True)                     # (MD, N*D)
+    if p.q_diag:
+        s2 = (softplus(p.Us_sqrt) ** 2).reshape(MD)      # at m*D + d
+        B = (s2 - 1.0)[:, None] * A                      # (S - I) A
+    else:
+        Ls = _scale_tril(p)                              # (D, M, M)
+        Ad = A.reshape(M, D, -1).transpose(0, 1)         # (D, M, N*D)
+        SdA = Ls @ (Ls.transpose(-1, -2) @ Ad)           # L_d L_d^T A_d
+        B = (SdA - Ad).transpose(0, 1).reshape(MD, -1)
+    mean = (A.T @ p.Um.reshape(MD)[:, None]).reshape(N, D)
+    if full_cov:
+        return mean, dfk.df_gram(p.kernel, x) + A.T @ B  # (ND, ND)
+    var = dfk.df_gram_diag(p.kernel, x) + torch.sum(A * B, dim=0)
+    return mean, var.reshape(N, D)

@@ -14,15 +14,19 @@ pretraining), frozen -> Adam (over the GP leaves alone when frozen) ->
 epochs of train steps (L=1 for the first half of the epochs, then L=5) ->
 the per-epoch monitoring eval on the first test batch (train-mode
 BatchNorm; eval mode with a frozen VAE, whose weights are then checked
-bit for bit once per epoch) -> meters and log lines -> a checkpoint every
---plot_freq epochs and after the last, in
+bit for bit once per epoch or segment) -> meters and log lines -> a
+checkpoint every --plot_freq epochs and after the last, in
 `<save>_<timestamp>/odegpvae_mnist.ckpt`.
 
-Metrics stay on the device until a flush (every --epochs_per_fetch epochs
-and before each checkpoint), where the NaN policy reads them. Flags of
-paths the port does not have yet raise NotImplementedError naming their
-ROADMAP item when set away from their defaults. Plots are not ported.
-`run(args)` runs in-process and returns what it did.
+Epochs run as segments (`training.trainer.make_train_segment`): one
+epoch each, or with --epochs_per_dispatch E > 1, E epochs where no
+checkpoint epoch or the L switch falls inside them (`segment_length`),
+with the bits of E single epochs. Metrics stay on the device until a
+flush (once at least max(E, --epochs_per_fetch) epochs wait, and before
+each checkpoint), where the NaN policy reads them. A flag of a path the
+port does not have yet raises NotImplementedError naming its ROADMAP item
+when set away from its default. Plots are not ported. `run(args)` runs
+in-process and returns what it did.
 """
 
 import argparse
@@ -118,11 +122,7 @@ def make_parser():
 #: flags of paths not ported yet: (flag, default test, ROADMAP item)
 _NOT_PORTED = (
     ('--data_parallel', lambda a: not a.data_parallel,
-     'Queue A item 13 (data parallel)'),
-    ('--dimwise False', lambda a: a.dimwise or a.kernel == 'DF',
-     'Queue A item 2 (shared-lengthscale RBF)'),
-    ('--epochs_per_dispatch', lambda a: a.epochs_per_dispatch == 1,
-     'Queue A item 7 (multi-epoch segments)'),
+     'Queue A [A13] (data parallel)'),
 )
 
 
@@ -144,6 +144,22 @@ def check_supported(args):
             f'the GP maps latent_dim*ode -> latent_dim: expected --D_in '
             f'{args.latent_dim * args.ode} --D_out {args.latent_dim}, got '
             f'{args.D_in} {args.D_out}')
+
+
+def segment_length(ep, Nepoch, plot_freq, epochs_per_dispatch):
+    """How many epochs from `ep` on run as one segment (the JAX `main.py`'s
+    rule): E = `epochs_per_dispatch` where `ep` is no artifact epoch
+    (ep % plot_freq == 0, or the final one) and the next artifact epoch,
+    and before the switch to L=5 the switch at Nepoch // 2, is at least E
+    epochs away; else 1."""
+    E = max(epochs_per_dispatch, 1)
+    if E == 1 or ep % plot_freq == 0 or ep == Nepoch - 1:
+        return 1
+    nxt = Nepoch - 1
+    if ep < Nepoch // 2:
+        nxt = min(nxt, Nepoch // 2)
+    nxt = min(nxt, (ep // plot_freq + 1) * plot_freq)
+    return E if nxt - ep >= E else 1
 
 
 def pretrained_vae_files(vae_path):
@@ -197,8 +213,11 @@ def run(args, on_step=None):
     Returns a dict: 'state' (the final TrainState), 'save' (the run
     directory), 'ckpt' (the checkpoint path), 'epochs' (one dict of host
     numpy metrics per finished epoch: loss, nll, kl_reg, kl_u, kernel_var
-    per step and the monitoring mse) and 'bailout' (the epoch of a NaN
-    bailout, or None).
+    per step and the monitoring mse), 'segments' ((first epoch, epochs)
+    of every segment run), 'ckpt_epochs' (the epochs after which a
+    checkpoint was written), 'frozen_checks' (how often the frozen VAE's
+    weights were checked) and 'bailout' (the epoch of a NaN bailout, or
+    None).
     """
     import torch
     from vae_gp_ode_tpu_torch.core.device import resolve_device
@@ -211,8 +230,7 @@ def run(args, on_step=None):
     from vae_gp_ode_tpu_torch.training.meters import (
         CachedAverageMeter, CachedHyperparams, CachedRunningAverageMeter)
     from vae_gp_ode_tpu_torch.training.trainer import (
-        create_train_state, make_epoch_eval_step, make_eval_step,
-        make_train_step, run_epoch_with_tail)
+        create_train_state, make_train_segment)
 
     check_supported(args)
     if args.pretrained:
@@ -227,7 +245,7 @@ def run(args, on_step=None):
         json.dump(vars(args), f, indent=2, sort_keys=True)
     logger.info('device: %s%s', dev, f' ({torch.cuda.get_device_name(dev)})'
                 if dev.type == 'cuda' else '')
-    logger.info('plots are not ported (ROADMAP Queue A item 12): this run '
+    logger.info('plots are not ported (ROADMAP Queue A [A12]): this run '
                 'writes logs and checkpoints only')
     for flag in ('fast_epoch', 'profile'):
         if getattr(args, flag) != make_parser().get_default(flag):
@@ -243,9 +261,11 @@ def run(args, on_step=None):
         order=args.ode, frames=args.frames, dt=args.dt, solver=args.solver,
         dense=args.ts_dense_scale, num_features=args.num_features,
         num_inducing=args.num_inducing, kernel=args.kernel,
-        q_diag=args.q_diag, use_adjoint=args.use_adjoint, device=dev)
+        q_diag=args.q_diag, dimwise=args.dimwise,
+        use_adjoint=args.use_adjoint, device=dev)
     # kernel hyperparameters initialised twice, as the reference does
-    # (every entry: (q, q*ode) dimwise-RBF or (q, q) DF lengthscales)
+    # (every entry: (q, q*ode) dimwise-RBF, (q*ode,) shared-RBF or (q, q)
+    # DF lengthscales)
     with torch.no_grad():
         gp.kernel.unconstrained_lengthscales.fill_(
             float(invsoftplus(torch.tensor(args.lengthscale))))
@@ -275,11 +295,12 @@ def run(args, on_step=None):
         'Model parameters: num features %d | num inducing %d | num epochs '
         '%d | lr %g | ode %d | D_in %d | D_out %d | dt %g | kernel %s | '
         'latent_dim %d | variance %g | lengthscale %g | rotrand %s | '
-        'solver %s | dense %d | adjoint %s',
+        'solver %s | dense %d | adjoint %s | dimwise %s',
         args.num_features, args.num_inducing, args.Nepoch, args.lr,
         args.ode, args.D_in, args.D_out, args.dt, args.kernel,
         args.latent_dim, args.variance, args.lengthscale, args.rotrand,
-        args.solver, args.ts_dense_scale, args.use_adjoint)
+        args.solver, args.ts_dense_scale, args.use_adjoint,
+        state.gp.kernel.dimwise)
 
     ckpt_path = os.path.join(save, 'odegpvae_mnist.ckpt')
     if args.continue_training and args.model_path != 'None':
@@ -296,16 +317,16 @@ def run(args, on_step=None):
     time_m = CachedAverageMeter()
     hyp_m = CachedHyperparams()
 
-    train_step = make_train_step(num_observations=args.Ndata,
-                                 eps_guard=args.eps_guard)
-    # a frozen VAE stays in eval mode (the reference eval()s it), so its
-    # monitoring eval is the published-number protocol's
-    epoch_eval = (make_eval_step() if args.pretrained
-                  else make_epoch_eval_step())
+    # a single epoch is a segment of one: the same steps, draws and
+    # monitoring eval (eval mode for a frozen VAE, which the reference
+    # eval()s)
+    train_segment = make_train_segment(num_observations=args.Ndata,
+                                       eps_guard=args.eps_guard)
     generator = torch.Generator(device=dev)
     generator.manual_seed(args.seed)
     result = {'state': state, 'save': save, 'ckpt': ckpt_path,
-              'epochs': [], 'bailout': None}
+              'epochs': [], 'segments': [], 'ckpt_epochs': [],
+              'frozen_checks': 0, 'bailout': None}
     begin = time.time()
     global_itr = 0
     pending = []
@@ -354,35 +375,59 @@ def run(args, on_step=None):
         return True
 
     def flush():
-        """Read every queued epoch's metrics from the device, in order."""
-        rows = [{k: (v if k == 'ep' else v.cpu().numpy())
+        """Read every queued segment's metrics (the epoch axis leading)
+        from the device and run the host's bookkeeping epoch by epoch, in
+        order."""
+        rows = [{k: (v if k == 'eps' else v.cpu().numpy())
                  for k, v in r.items()} for r in pending]
         pending.clear()
-        return all(host_epoch(r) for r in rows)
+        return all(host_epoch(dict({k: v[i] for k, v in r.items()
+                                    if k != 'eps'}, ep=ep_r))
+                   for r in rows for i, ep_r in enumerate(r['eps']))
 
-    def step(st, batch, L, gen):
-        metrics = train_step(st, batch, L, gen)
-        if on_step is not None:
-            on_step(ep, L)
-        return metrics
+    def check_frozen(ep):
+        """Once per epoch or segment: weights change only through
+        updates, so the last epoch's weights speak for all of them."""
+        if args.pretrained:
+            result['frozen_checks'] += 1
+            if not vae_unchanged():
+                raise RuntimeError(f'epoch {ep}: the frozen VAE weights '
+                                   f'changed')
 
+    E = max(args.epochs_per_dispatch, 1)
+    fetch_every = max(E, args.epochs_per_fetch, 1)
+    if args.plot_freq == 1 and (E > 1 or args.epochs_per_fetch > 1):
+        # every epoch then checkpoints, and a checkpoint flushes first
+        logger.warning(
+            '--epochs_per_dispatch/--epochs_per_fetch > 1 have no effect '
+            'at --plot_freq 1 (every epoch checkpoints, forcing a '
+            'per-epoch flush); raise --plot_freq to engage them')
     logger.info('********** Started Training **********')
-    for ep in range(args.Nepoch):
+    ep = 0
+    while ep < args.Nepoch:
         L = 1 if ep < args.Nepoch // 2 else 5
-        batches, tail = trainset.epoch_batches_with_tail()
-        metrics = run_epoch_with_tail(step, state, batches, tail, L,
-                                      generator)
-        if args.pretrained and not vae_unchanged():
-            raise RuntimeError(f'epoch {ep}: the frozen VAE weights changed')
-        _, mse = epoch_eval(state, testset.first(), 1, generator)
-        pending.append(dict(metrics, mse=mse, ep=ep))
-        artifacts = ep % args.plot_freq == 0 or ep == args.Nepoch - 1
-        if artifacts or len(pending) >= max(args.epochs_per_fetch, 1):
+        n = segment_length(ep, args.Nepoch, args.plot_freq, E)
+        heads, tails = trainset.epoch_index_batches(n)
+        metrics, mses = train_segment(
+            state, trainset.X, heads, tails, testset.X,
+            testset.first_index(n), L, generator,
+            on_step=None if on_step is None else (
+                lambda e, ep0=ep, L=L: on_step(ep0 + e, L)))
+        check_frozen(ep + n - 1)
+        pending.append(dict(metrics, mse=mses, eps=list(range(ep, ep + n))))
+        if n > 1:
+            result['segments'].append((ep, n))
+        ep += n
+        last = ep - 1
+        artifacts = last % args.plot_freq == 0 or last == args.Nepoch - 1
+        waiting = sum(len(r['eps']) for r in pending)
+        if artifacts or waiting >= fetch_every:
             # before the checkpoint, so a bailout reloads the previous one
             if not flush():
                 break
         if artifacts:
             ckpt.save_checkpoint(state, ckpt_path)
+            result['ckpt_epochs'].append(last)
 
     if result['bailout'] is None:
         logger.info('********** Optimization completed **********')

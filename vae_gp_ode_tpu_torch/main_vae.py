@@ -14,7 +14,7 @@ last batch included -> meters and log lines -> the encoder and decoder in
 which `main --pretrained True --vae_path .../MNIST-VAE` reads -> the
 reconstruction MSE of the first 16 frames of a test batch (eval-mode
 BatchNorm). The plots (reconstructions, t-SNE, PCA, traces) are not
-ported (ROADMAP Queue A item 12). `run(args)` runs in-process and returns
+ported (ROADMAP Queue A [A12]). `run(args)` runs in-process and returns
 what it did.
 """
 
@@ -223,7 +223,7 @@ def run(args):
         mse = float(torch.mean((x[:16, 0] - y[:16, 0]) ** 2))
     result['test_mse'] = mse
     logger.info('VAE test reconstruction MSE: %.4f', mse)
-    logger.info('plots are not ported (ROADMAP Queue A item 12): this run '
+    logger.info('plots are not ported (ROADMAP Queue A [A12]): this run '
                 'writes logs and the encoder/decoder only')
     return result
 

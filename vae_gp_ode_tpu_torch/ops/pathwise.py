@@ -97,10 +97,39 @@ def pathwise_vjp_reference(x, omega, phase, weights, Z, nu, ls, var, g):
 def rbf_fused_operands(gp, sample):
     """The fused-RBF operand block (omega, phase, weights, Z, nu, ls, var)
     shared by the per-step eval and the whole-trajectory flow; draw
-    operands keep the sample's leading batch of draws."""
-    return (sample.rff.omega, sample.rff.phase, sample.rff.weights,
-            gp.inducing_loc, sample.nu[..., 0],
-            rbf_lengthscales(gp.kernel), rbf_variance(gp.kernel))
+    operands keep the sample's leading batch of draws. A shared-
+    lengthscale sample becomes the dimwise block here (`dimwise_block`)."""
+    return dimwise_block(
+        sample.rff.omega, sample.rff.phase, sample.rff.weights,
+        gp.inducing_loc, sample.nu, rbf_lengthscales(gp.kernel),
+        rbf_variance(gp.kernel), gp.kernel.dimwise)
+
+
+def dimwise_block(omega, phase, weights, Z, nu, ls, var, dimwise):
+    """The kernels' operand block from a sample's leaves and the
+    constrained lengthscales and variance, each with or without a leading
+    dim of draws. Dimwise leaves pass through (nu (..., K, M, 1) loses its
+    last dim). A shared-lengthscale sample is a dimwise one whose K output
+    dims share one set of frequencies, one phase row, one lengthscale
+    vector and one variance, so these are repeated over K:
+
+        omega (..., D, S) -> (..., D, S, K)    nu (..., M, K) -> (..., K, M)
+        phase (..., 1, S) -> (..., 1, S, K)    ls (..., D)    -> (..., K, D)
+        var (..., 1)      -> (..., K)
+
+    as contiguous copies (the kernels read dense operands); autograd sums
+    the copies' cotangents back over K."""
+    if dimwise:
+        return omega, phase, weights, Z, nu[..., 0], ls, var
+    K = weights.shape[-1]
+
+    def over_k(t):
+        return t[..., None].expand(t.shape + (K,)).contiguous()
+
+    return (over_k(omega), over_k(phase), weights, Z,
+            nu.transpose(-1, -2).contiguous(),
+            over_k(ls).transpose(-1, -2).contiguous(),
+            var.expand(var.shape[:-1] + (K,)).contiguous())
 
 
 # -- the kernels --------------------------------------------------------------

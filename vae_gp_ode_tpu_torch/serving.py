@@ -1,6 +1,6 @@
 """Serving: the eval-mode forecaster and a trained run's state (port of
 `make_forecast_fn` and `load_run_dir` of `vae_gp_ode_tpu/serving.py`; the
-artifact export is not ported yet, ROADMAP Queue A item 14).
+artifact export is not ported yet, ROADMAP Queue A [A14]).
 """
 
 import json
@@ -24,7 +24,7 @@ def make_forecast_fn(model, params, gp, *, L=1, T_custom=None,
 
     params: a state dict for `model` (e.g. from utils.jax_import.from_jax),
     or None to keep the model's own weights. gp: the SVGP of either kernel
-    (dimwise RBF, or DF as in a run restored by
+    (RBF with dimwise or shared lengthscales, or DF as in a run restored by
     `training.checkpoint.restore_jax_checkpoint`). The model and gp move to
     `device` (default the GPU; raises if it is absent) and the model is
     put in eval mode: BatchNorm uses its running statistics.
@@ -74,7 +74,8 @@ def make_forecast_fn(model, params, gp, *, L=1, T_custom=None,
 
 def load_run_dir(model_path, device='cuda'):
     """(model, state, args) of a training run directory: `args.json` (the
-    run's flags; `pretrained` and `fix_kernel` shape the train state) and
+    run's flags; `dimwise` shapes the GP, `pretrained` and `fix_kernel`
+    the train state) and
     `odegpvae_mnist.ckpt`, the port's own checkpoint or the JAX package's
     npz one (such as `checkpoints/df_5000ep`; the `device` its flags name
     is not read), on `device` (default the GPU; raises if it is absent).
@@ -85,16 +86,13 @@ def load_run_dir(model_path, device='cuda'):
 
     with open(os.path.join(model_path, 'args.json')) as f:
         ta = types.SimpleNamespace(**json.load(f))
-    if ta.kernel == 'RBF' and not getattr(ta, 'dimwise', True):
-        raise NotImplementedError('a run with --dimwise False: the shared-'
-                                  'lengthscale RBF is not ported yet '
-                                  '(ROADMAP Queue A item 2)')
     model, gp = init_model(
         0, latent_dim=ta.latent_dim, n_filt=ta.n_filt, order=ta.ode,
         frames=ta.frames, dt=ta.dt, solver=ta.solver,
         dense=getattr(ta, 'ts_dense_scale', 1),
         num_features=ta.num_features, num_inducing=ta.num_inducing,
         kernel=ta.kernel, q_diag=ta.q_diag,
+        dimwise=getattr(ta, 'dimwise', True),
         use_adjoint=getattr(ta, 'use_adjoint', False), device=device)
     state = create_train_state(
         model, gp, lr=ta.lr, fix_kernel=bool(getattr(ta, 'fix_kernel', False)),

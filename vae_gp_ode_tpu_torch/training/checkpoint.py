@@ -171,8 +171,9 @@ def restore_jax_checkpoint(path, like: TrainState):
     (`like.freeze_vae`) is `multi_transform`'s: Adam's count, mu and nu of
     the GP leaves alone, with an empty `MaskedNode` where the VAE would
     be. It is read with numpy (no pickle, nothing of JAX); the leaf count
-    (which tells a frozen layout from the other), the SVGP's static q_diag
-    and kernel name in the treedef, and every name and shape are checked
+    (which tells a frozen layout from the other), the SVGP's static
+    q_diag and kernel name and the kernel's dimwise flag in the treedef,
+    and every name and shape are checked
     against `like` before anything is copied.
     """
     from vae_gp_ode_tpu_torch.utils.jax_import import load_train_state
@@ -191,11 +192,14 @@ def restore_jax_checkpoint(path, like: TrainState):
     if n != want:
         raise ValueError(f'{path} holds {n} leaves; a JAX {kind}TrainState '
                          f'of this model (order {order}) has {want}')
-    tag = f"SVGPParams[({like.gp.q_diag}, '{like.gp.kernel_name}')]"
+    tag = (f"SVGPParams[({like.gp.q_diag}, '{like.gp.kernel_name}')], "
+           f"[CustomNode(RBFParams[({like.gp.kernel.dimwise},)]")
     if tag not in treedef:
         raise ValueError(f'{path} is not a checkpoint of a GP with '
-                         f'q_diag={like.gp.q_diag} and kernel '
-                         f'{like.gp.kernel_name!r} (no {tag} in its treedef)')
+                         f'q_diag={like.gp.q_diag}, kernel '
+                         f'{like.gp.kernel_name!r} and dimwise='
+                         f'{like.gp.kernel.dimwise} (no {tag} in its '
+                         f'treedef)')
     it = iter(leaves)
     state_np = {'step': next(it)}
     state_np['variables'] = {'params': _take_tree(it, order, False),

@@ -264,6 +264,52 @@ def run_epoch_with_tail(train_step, state: TrainState, batches, tail,
     return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
 
+def make_train_segment(num_observations: float, eps_guard: bool = False):
+    """Returns segment(state, X, heads, tails, Xte, test_idx, L,
+    generator=None, on_step=None) -> (metrics, mses): E whole training
+    epochs, each the train steps over X[heads[e]] (I, B, ...), the ragged
+    tail X[tails[e]] (when `tails` is not None) through
+    `run_epoch_with_tail`, then the per-epoch monitoring eval on
+    Xte[test_idx[e]] at L=1 (train-mode BatchNorm, `make_epoch_eval_step`;
+    eval mode with a frozen VAE, `make_eval_step`). heads, tails and
+    test_idx are the index tensors of `data.mnist.Loader`'s
+    `epoch_index_batches` and `first_index`, drawn from the permutation
+    streams that E per-epoch calls would draw from, and the steps and
+    evals take `generator`'s draws in the per-epoch order, so a segment
+    gives the bits of E per-epoch iterations (the JAX package's
+    `make_train_segment`, which only comes within rounding, being a
+    separate compilation). `on_step(e)` is called after each train step
+    of epoch e of the segment.
+
+    metrics: per-step device tensors stacked (E, I [+ 1]); mses (E,). No
+    value is read on the host; the frozen-VAE check stays with the
+    caller, once per segment on its final weights (weights change only
+    through updates).
+    """
+    train_step = make_train_step(num_observations, eps_guard)
+
+    def segment(state: TrainState, X, heads, tails, Xte, test_idx, L: int,
+                generator=None, on_step=None):
+        epoch_eval = (make_eval_step() if state.freeze_vae
+                      else make_epoch_eval_step())
+        rows, mses = [], []
+        for e in range(heads.shape[0]):
+            def step(st, batch, L_, gen, e=e):
+                metrics = train_step(st, batch, L_, gen)
+                if on_step is not None:
+                    on_step(e)
+                return metrics
+            rows.append(run_epoch_with_tail(
+                step, state, X[heads[e]],
+                None if tails is None else X[tails[e]], L, generator))
+            mses.append(epoch_eval(state, Xte[test_idx[e]], 1,
+                                   generator)[1])
+        return ({k: torch.stack([r[k] for r in rows]) for k in rows[0]},
+                torch.stack(mses))
+
+    return segment
+
+
 def make_eval_step(T_custom: Optional[int] = None):
     """Returns eval_step(state, batch, L=1, generator=None, noise=None) ->
     (Xrec, mse) with eval-mode BatchNorm (running statistics): the

@@ -92,9 +92,10 @@ def decoder_from_jax(params, stats, prefix):
 def gp_from_jax(gp_np, kernel='RBF'):
     """SVGPParams from a nested dict of the JAX SVGPParams leaves
     ({'kernel': {'unconstrained_lengthscales', 'unconstrained_variance'},
-    'inducing_loc', 'Um', 'Us_sqrt'}) of a GP with the dimwise layout;
-    `kernel` is its static `kernel_name` ('RBF' or 'DF'), which the
-    leaves do not carry. A full-Cholesky q(u) scale is packed as
+    'inducing_loc', 'Um', 'Us_sqrt'}); `kernel` is its static
+    `kernel_name` ('RBF' or 'DF'), which the leaves do not carry. The
+    lengthscales' rank tells the RBF layout (`RBFParams.dimwise`: (D_out,
+    D_in) dimwise, (D_in,) shared). A full-Cholesky q(u) scale is packed as
     (D_out, M(M+1)/2), a diagonal one is (M, D_out): the shape tells
     q_diag (for M > 1)."""
     kern = gp_np['kernel']

@@ -154,7 +154,26 @@ Run from the repository root on a machine with an NVIDIA H100:
    flow forward and backward (N=20, T=16) through #1/#2 on the broadcast
    operands and through the plain shared formula, in turns, device busy
    time per round (torch.profiler), median of 5;
-7. times kernels, requests and train steps with CUDA events, and traces
+6h. the serving artifact (`serving.export_forecaster`, `torch.export`):
+   the main forecaster (L=5, symbolic batch), its T=32 rollout,
+   checkpoints/df_5000ep and a dopri5 forecaster (max_steps 64, batch
+   20), each exported on the card, saved, loaded and serving three
+   requests of 20 sequences with the counts set to 0 just before each
+   (#1 once a RBF euler request, #7 once a DF one, #3 or #9 on the
+   dopri5 one, no VJP kernel), its frames against the eager forecaster
+   at the same seed (TOL_ARTIFACT) and against the same file served on
+   the CPU at the same noise; an artifact exported on the CPU served on
+   the card, a CPU trace at S=ART_REFUSED_S that the load on the card
+   refuses, a bdf forecaster whose export for the card, traced Jacobian
+   on the card and CPU trace loaded on the card raise naming bdf, and the
+   bf16 artifact against the f32 one (BF16_FRAMES); export and load
+   seconds, bytes, request ms and host ms to issue it in turns and busy
+   ms with idle share against the eager forecaster; the eager T=16 and
+   dopri5 requests through each route of the forward wrappers
+   (`eager_route`: the operators, the direct launch, `custom_op`), in
+   turns;
+7. times kernels, requests and train steps with CUDA events (#1's
+   wrapper also through each of 6h's routes, in turns), and traces
    one request, one L=5 train step, one L=5 rk4 train step, one DF
    request, DF L=5, L=1 and rk4 train steps and one wide L=5 train step
    per kernel with torch.profiler (device kernels by time, the device's
@@ -3188,6 +3207,368 @@ def shared_rbf(args, card, batch, slice_launches, vae_dir):
     return out
 
 
+# tolerance of a served artifact against the eager forecaster on the card
+# at the same seed, and of a CPU-exported artifact on the card against
+# the card-exported one: the same operations on the same inputs
+TOL_ARTIFACT = 1e-5
+#: the bf16 artifact against the f32 one at the same noise: sigmoid
+#: frames, a few bf16 ulps (2^-8) of drift through the decoder
+BF16_FRAMES = 0.05
+#: a feature count the fused euler pair refuses at q = 6 on an H100
+#: (`ops.flow_fused.pair_fits`), for an artifact traced on the CPU
+ART_REFUSED_S = 2048
+
+
+#: the bdf forecaster whose exports and loads the card refuses
+BDF_CONFIG = dict(CONFIG, latent_dim=2, num_features=16, num_inducing=8)
+#: the routes of a wrapper call where no input needs a gradient
+#: (`eager_route`)
+ROUTES = ('op', 'direct', 'custom_op')
+_CUSTOM_OPS = {}
+
+
+@contextlib.contextmanager
+def eager_route(route):
+    """Where no input needs a gradient, the forward wrappers (#1, #7 and
+    the per-step rule) call: 'op', the operators of `ops.library` (as the
+    package ships); 'direct', their `torch.autograd.Function`s, which
+    launch through ctypes with no operator between (the route before the
+    operators); 'custom_op', the operators' own CUDA implementations
+    registered again through `torch.library.custom_op` (namespace
+    `chip_smoke_ab`), whose Python autograd layer the package avoids.
+    The same kernels on the same inputs: only host time differs."""
+    from vae_gp_ode_tpu_torch.ops import library
+    names = ('flow_fused_fwd', 'df_flow_fused_fwd', 'pathwise_eval_fwd',
+             'df_pathwise_eval_fwd')
+    if route == 'op':
+        yield
+        return
+    if route == 'direct':
+        patch = {'needs_grad': lambda tensors: True}
+    else:
+        import torch
+        if not _CUSTOM_OPS:
+            impls = dict(zip(names, (library._flow_cuda,
+                                     library._df_flow_cuda,
+                                     library._pathwise_cuda,
+                                     library._df_pathwise_cuda)))
+            for name in names:
+                schema = str(getattr(library, name)._schema)
+                _CUSTOM_OPS[name] = torch.library.custom_op(
+                    f'chip_smoke_ab::{name}', impls[name], mutates_args=(),
+                    device_types='cuda', schema=schema[schema.index('('):])
+        patch = dict(_CUSTOM_OPS)
+    saved = {k: getattr(library, k) for k in patch}
+    for k, v in patch.items():
+        setattr(library, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(library, k, v)
+
+
+def routed(fn, route):
+    """fn(*args) under `eager_route(route)`."""
+    def call(*a):
+        with eager_route(route):
+            return fn(*a)
+    return call
+
+
+def serving_artifacts(args, card, launches):
+    """Phase 6h, the serving artifact: `torch.export` forecasters saved,
+    loaded and served on the card, their forward kernels running as the
+    registered operators of `ops.library`. At full width: the main
+    configuration's RBF euler forecaster (L=5, symbolic batch), its T=32
+    rollout, checkpoints/df_5000ep (L=5, symbolic batch) and a dopri5
+    forecaster (max_steps 64, batch 20), each exported on the card (export
+    seconds, bytes, load seconds), loaded there, and three requests of 20
+    sequences served with the counts set to 0 just before each: #1 once a
+    RBF euler request, #7 once a DF request, #3 or #9 on the dopri5 one,
+    no VJP kernel; the frames against the eager forecaster at the same
+    seed (TOL_ARTIFACT) and against the same file served on the CPU at the
+    same noise (TOL_FORWARD; the DF checkpoint DF_CKPT_FRAMES). An
+    artifact exported on the CPU and served on the card (#1 once a
+    request, TOL_ARTIFACT against the card-exported one), one traced on
+    the CPU at a shape the fused pair refuses (S = ART_REFUSED_S: the load
+    on the card raises naming it), a bdf forecaster that the card refuses
+    (export, traced Jacobian, load), and the bf16 artifact against the
+    f32 one (BF16_FRAMES). Request ms with CUDA events and the host's ms
+    to issue it (median of 5 rounds in turns: artifact, eager, eager,
+    artifact), the device busy time and idle share of one request of each
+    (torch.profiler), and the eager T=16 and dopri5 requests through each
+    of ROUTES in turns."""
+    import numpy as np
+    import torch
+    from vae_gp_ode_tpu_torch import serving
+    from vae_gp_ode_tpu_torch.models.odegpvae import init_model
+    dev = torch.device('cuda')
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, 'build', 'chip_smoke', 'serving')
+    os.makedirs(work, exist_ok=True)
+    rng = np.random.default_rng(args.seed + 70)
+    raw = [rng.random((BATCH, T, 1, 28, 28)).astype(np.float32)
+           for _ in range(3)]
+    model, gp = init_model(args.seed, device='cuda', random_bn=True,
+                           **CONFIG)
+    dmodel, dgp = init_model(args.seed, device='cuda', random_bn=True,
+                             solver='dopri5', max_steps=64, **CONFIG)
+    cmodel, cst, _ = serving.load_run_dir(
+        os.path.join(root, 'checkpoints', 'df_5000ep'), device='cuda')
+    rbf_k, df_k = ('flow_fused_fwd',), ('df_flow_fused_fwd',)
+    cases = (  # key, what, model, gp, T_custom, batch, kernels, per request
+        ('rbf', f'RBF euler T={T}', model, gp, None, None, rbf_k, 1),
+        ('rbf_roll', f'RBF euler T={T * TROLL} rollout', model, gp,
+         T * TROLL, None, rbf_k, 1),
+        ('df', 'DF euler, checkpoints/df_5000ep', cmodel, cst.gp, None,
+         None, df_k, 1),
+        ('dopri5', 'RBF dopri5, max_steps 64', dmodel, dgp, None, BATCH,
+         ('pathwise_fwd', 'pathwise_tiled_fwd'), None))
+
+    def noise_for(fc, seed):
+        return serving.draw_noise(
+            fc.meta['noise_spec'], BATCH,
+            torch.Generator(device=dev).manual_seed(seed), dev)
+
+    def serve(what, art, kernels, per_request, Tout):
+        """Three requests with the counts at 0 just before each; returns
+        their frames."""
+        frames = []
+        for i in range(3):
+            Xa, d = count_path(lambda: art(raw[i], args.seed + i), launches)
+            n = sum(d[k] for k in kernels)
+            require(n == per_request if per_request else n > 0,
+                    f'{what}: request {i} launched {d}')
+            require(not any(v for k, v in d.items()
+                            if k not in kernels), f'{what}: request {i} '
+                    f'launched kernels besides {kernels}: {d}')
+            require(Xa.shape == (L, BATCH, Tout, 1, 28, 28) and bool(
+                torch.isfinite(Xa).all()), f'{what}: request {i} frames')
+            frames.append(Xa)
+        return frames, d
+
+    def turns(fns, X, seed, rounds=5, host=None):
+        """Median request ms (CUDA events) of each fn, in turns; with a
+        dict `host`, also each fn's median host ms: from the call to its
+        return, the card idle before it (the time the host takes to issue
+        the request, which the card's queue may hide)."""
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ms = {k: [] for k in fns}
+        issue = {k: [] for k in fns}
+        order = list(fns) + list(fns)[::-1]
+        for _ in range(rounds):
+            for k in order:
+                torch.cuda.synchronize()
+                ev0.record()
+                t0 = time.perf_counter()
+                fns[k](X, seed)
+                issue[k].append((time.perf_counter() - t0) * 1e3)
+                ev1.record()
+                torch.cuda.synchronize()
+                ms[k].append(ev0.elapsed_time(ev1))
+        if host is not None:
+            host.update({k: statistics.median(v) for k, v in issue.items()})
+        return {k: statistics.median(v) for k, v in ms.items()}
+
+    out = {}
+    for key, what, m, g, T_custom, batch, kernels, per_request in cases:
+        Tout = T_custom or T
+        t0 = time.perf_counter()
+        fc = serving.export_forecaster(
+            m, None, g, T=T, batch=batch, L=L, T_custom=T_custom,
+            normalize_input=True, platforms=('cuda', 'cpu'), device='cuda')
+        export_s = time.perf_counter() - t0
+        path = os.path.join(work, f'{key}.pt2')
+        nbytes = serving.save_forecaster(fc, path)
+        t0 = time.perf_counter()
+        art = serving.load_forecaster(path)
+        load_s = time.perf_counter() - t0
+        require(art.input_shape[0] == ('b' if batch is None else batch),
+                f'{what}: input shape {art.input_shape}')
+        eager = serving.make_forecast_fn(m, None, g, L=L, T_custom=T_custom,
+                                         normalize_input=True, device='cuda')
+        art(raw[0], 0)
+        eager(raw[0], 0)
+        frames, d = serve(what, art, kernels, per_request, Tout)
+        err_eager = max(float((Xa - eager(raw[i], args.seed + i)).abs().max())
+                        for i, Xa in enumerate(frames))
+        require(err_eager <= TOL_ARTIFACT, f'{what}: artifact vs eager '
+                f'{err_eager:.3e}')
+        cpu_art = serving.load_forecaster(path, device='cpu')
+        noise = noise_for(art, args.seed + 5)
+        Xa = art.call(raw[1], noise)
+        Xc = cpu_art.call(raw[1], {k: v.cpu() for k, v in noise.items()})
+        err_cpu = float((Xa.cpu() - Xc).abs().max())
+        tol_cpu = DF_CKPT_FRAMES if key == 'df' else TOL_FORWARD
+        require(err_cpu <= tol_cpu, f'{what}: card vs CPU {err_cpu:.3e}')
+        host = {}
+        ms = turns({'artifact': art, 'eager': eager}, raw[1], args.seed,
+                   host=host)
+        nodes = collections.Counter(n.op for n in art._module.graph.nodes)
+        if key in ('rbf', 'dopri5'):
+            # the eager request through each route of the wrappers, in
+            # turns: the same kernels, counted as before
+            for route in ROUTES[1:]:
+                _, dr = count_path(lambda: routed(eager, route)(
+                    raw[0], args.seed), launches)
+                require(sum(dr[k] for k in kernels) > 0, f'{what}: the '
+                        f'eager request through {route} launched {dr}')
+            ms_routes = turns({r: routed(eager, r) for r in ROUTES},
+                              raw[1], args.seed)
+            log(f'eager {what} request by route (CUDA events, median of '
+                f'5 in turns): ' + ', '.join(
+                    f'{r} {v:.4f} ms' for r, v in ms_routes.items())
+                + f'; card {card}')
+        busy = {k: profile(lambda f=f: f(raw[1], args.seed),
+                           f'one {what} request, {k}')
+                for k, f in (('artifact', art), ('eager', eager))}
+        out[key] = dict(export_s=export_s, nbytes=nbytes, load_s=load_s,
+                        err_eager=err_eager, err_cpu=err_cpu, ms=ms,
+                        busy=busy, launches=d, host=host,
+                        ms_routes=ms_routes if key in ('rbf', 'dopri5')
+                        else None)
+        log(f'artifact {what}: exported on the card in {export_s:.2f} s, '
+            f'{nbytes} bytes, loaded in {load_s:.2f} s, batch '
+            f'{art.input_shape[0]} (at most {art.meta["max_batch"]}); 3 '
+            f'requests of '
+            f'{BATCH} sequences, launches per request {d}; frames against '
+            f'the eager forecaster {err_eager:.3e} (tol {TOL_ARTIFACT:g}), '
+            f'against the file served on the CPU {err_cpu:.3e} (tol '
+            f'{tol_cpu:g}); request ms (CUDA events, median of 5 in turns) '
+            f'artifact {ms["artifact"]:.4f}, eager {ms["eager"]:.4f}; host '
+            f'ms to issue a request (median of 5 in turns) artifact '
+            f'{host["artifact"]:.4f}, eager {host["eager"]:.4f}, the graph '
+            f'{nodes["call_function"]} calls and {nodes["get_attr"]} '
+            f'attribute reads; busy '
+            + ', '.join(f'{k} {v[0]:.4f} ms (idle share {v[1]:.3f})'
+                        for k, v in busy.items() if v)
+            + f'; card {card}')
+        if key == 'rbf':
+            primary = (m, g, fc, art, eager)
+
+    # the main configuration exported on the CPU, served on the card
+    m, g, fc, art, eager = primary
+    t0 = time.perf_counter()
+    cfc = serving.export_forecaster(
+        copy.deepcopy(m).to('cpu'), None, g.to('cpu'), T=T, L=L,
+        normalize_input=True, platforms=('cpu', 'cuda'), device='cpu')
+    cexport_s = time.perf_counter() - t0
+    cpath = os.path.join(work, 'rbf_cpu.pt2')
+    serving.save_forecaster(cfc, cpath)
+    cart = serving.load_forecaster(cpath)
+    cart(raw[0], 0)
+    frames, d = serve('CPU-exported RBF euler', cart, rbf_k, 1, T)
+    noise = noise_for(cart, args.seed + 6)
+    err_moved = float((cart.call(raw[2], noise)
+                       - art.call(raw[2], noise)).abs().max())
+    require(err_moved <= TOL_ARTIFACT, f'the CPU-exported artifact on the '
+            f'card vs the card-exported one: {err_moved:.3e}')
+    log(f'artifact RBF euler T={T} exported on the CPU ({cexport_s:.2f} s) '
+        f'and served on the card: launches per request {d}; frames against '
+        f'the card-exported artifact at the same noise {err_moved:.3e} '
+        f'(tol {TOL_ARTIFACT:g}); card {card}')
+
+    # a CPU trace at a shape the fused pair refuses on the card
+    wm, wg = init_model(args.seed, device='cpu',
+                        **dict(CONFIG, num_features=ART_REFUSED_S))
+    wfc = serving.export_forecaster(wm, None, wg, T=T, L=L, device='cpu',
+                                    platforms=('cpu', 'cuda'))
+    wpath = os.path.join(work, 'refused.pt2')
+    serving.save_forecaster(wfc, wpath)
+    try:
+        serving.load_forecaster(wpath)
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f'an artifact traced on the CPU at S='
+                             f'{ART_REFUSED_S} loaded on the card')
+    require(f'S={ART_REFUSED_S}' in refused, f'refusal: {refused}')
+    log(f'artifact traced on the CPU at S={ART_REFUSED_S}: the load on the '
+        f'card refuses it: {refused}')
+
+    # bdf: its traced Newton Jacobians take the plain per-step evals, so
+    # it exports for the CPU only: an export for the card, a traced
+    # Jacobian on the card and a CPU trace loaded on the card all raise
+    # naming it (at BDF_CONFIG: the refusals read no width, and the CPU
+    # trace of bdf at the main widths takes half a minute)
+    from vae_gp_ode_tpu_torch.dynamics import solvers
+
+    class RowJacobian(torch.nn.Module):
+        def forward(self, z):
+            return solvers.row_jacobian(torch.tanh, z)
+
+    bm, bg = init_model(args.seed, device='cpu', solver='bdf',
+                        **BDF_CONFIG)
+    refusals = []
+    for what, fn in (
+            ('export on the card', lambda: serving.export_forecaster(
+                copy.deepcopy(bm), None, copy.deepcopy(bg), T=3, batch=2,
+                device='cuda')),
+            ('export for the card', lambda: serving.export_forecaster(
+                bm, None, bg, T=3, batch=2, platforms=('cpu', 'cuda'),
+                device='cpu')),
+            ('traced Jacobian on the card', lambda: torch.export.export(
+                RowJacobian(), (torch.zeros((2, 3), device=dev),)))):
+        try:
+            fn()
+        except (ValueError, RuntimeError) as e:
+            refusals.append(f'{what}: {e}')
+        else:
+            raise AssertionError(f'bdf: the {what} did not raise')
+        require('bdf' in refusals[-1], f'bdf refusal: {refusals[-1]}')
+    bpath = os.path.join(work, 'bdf_cpu.pt2')
+    serving.save_forecaster(serving.export_forecaster(
+        bm, None, bg, T=3, batch=2, device='cpu'), bpath)
+    for check in (True, False):
+        try:
+            serving.load_forecaster(bpath, check_platform=check)
+        except RuntimeError as e:
+            refusals.append(f'load on the card (check_platform={check}): '
+                            f'{e}')
+        else:
+            raise AssertionError('a bdf artifact traced on the CPU loaded '
+                                 'on the card')
+    require('bdf' in refusals[-1] and '--platforms' in refusals[-2],
+            f'bdf load refusals: {refusals[-2:]}')
+    log('bdf forecaster: ' + '; '.join(refusals))
+
+    # bf16 against f32
+    t0 = time.perf_counter()
+    bfc = serving.export_forecaster(m, None, g, T=T, L=L,
+                                    normalize_input=True, dtype='bf16',
+                                    device='cuda')
+    bexport_s = time.perf_counter() - t0
+    bpath = os.path.join(work, 'rbf_bf16.pt2')
+    bbytes = serving.save_forecaster(bfc, bpath)
+    bart = serving.load_forecaster(bpath)
+    bart(raw[0], 0)
+    bframes, bd = serve('bf16 RBF euler', bart, rbf_k, 1, T)
+    noise = noise_for(bart, args.seed + 7)
+    yb = bart.call(raw[1], noise)
+    diff = float((yb - art.call(raw[1], noise)).abs().max())
+    require(yb.dtype == torch.float32 and 0.0 < diff < BF16_FRAMES,
+            f'bf16 against f32 artifact: {diff:.3e}')
+    bms = turns({'bf16 artifact': bart, 'f32 artifact': art}, raw[1],
+                args.seed)
+    bbusy = {k: profile(lambda f=f: f(raw[1], args.seed),
+                        f'one RBF euler request, {k}')
+             for k, f in (('bf16 artifact', bart), ('f32 artifact', art))}
+    out['bf16'] = dict(export_s=bexport_s, nbytes=bbytes, diff=diff, ms=bms,
+                       busy=bbusy)
+    log(f'artifact bf16 RBF euler T={T}: exported in {bexport_s:.2f} s, '
+        f'{bbytes} bytes; launches per request {bd}; frames against the '
+        f'f32 artifact at the same noise {diff:.3e} (0 < diff < '
+        f'{BF16_FRAMES:g}); request ms (median of 5 in turns) '
+        + ', '.join(f'{k} {v:.4f}' for k, v in bms.items()) + '; busy '
+        + ', '.join(f'{k} {v[0]:.4f} ms (idle share {v[1]:.3f})'
+                    for k, v in bbusy.items() if v) + f'; card {card}')
+    log(f'phase 6h launches on its paths (counts set to 0 before each): '
+        f'{ {k: v for k, v in launches.items() if v} }')
+    return out
+
+
 def train_args(save, *extra):
     """The training CLI's arguments at the defaults of main.py, for
     TRAIN_EPOCHS epochs, writing under `save`, with `extra` flags."""
@@ -3572,12 +3953,27 @@ def main():
     shared_launches = {k: 0 for k in ops.LAUNCHES}
     shared = shared_rbf(args, card, batch, shared_launches, vae_dir)
 
+    # -- 6h. the serving artifact: torch.export forecasters on the card ----
+    art_launches = {k: 0 for k in ops.LAUNCHES}
+    serving_artifacts(args, card, art_launches)
+
     # -- 7. timings --------------------------------------------------------
     with torch.no_grad():
         ms_kernel = cuda_ms(
             lambda: flow_fused.packed_euler_flow(*main_operands), 200)
         ms_plain = cuda_ms(
             lambda: flow_fused.packed_flow_reference(*main_operands), 50)
+        # #1's wrapper by route (`eager_route`), in turns, medians of 5
+        ms_route = {r: [] for r in ROUTES}
+        for _ in range(5):
+            for r in ROUTES + ROUTES[::-1]:
+                ms_route[r].append(cuda_ms(routed(
+                    lambda: flow_fused.packed_euler_flow(*main_operands),
+                    r), 100))
+    log('flow_fused_fwd wrapper by route (mean of 100 calls, median of 5 '
+        'in turns): ' + ', '.join(f'{r} {statistics.median(v):.4f} ms'
+                                  for r, v in ms_route.items())
+        + f'; card {card}')
     bound_ms, bound_by = flow_bound(L, BATCH, q, q, S,
                                     CONFIG['num_inducing'], T)
     log(f'flow_fused_fwd at the main path shapes: kernel {ms_kernel:.4f} ms, '
@@ -3624,7 +4020,8 @@ def main():
     kf, pf, bf, kb, pb, bb = path['pathwise_ms'][L]
     # launches: each path run's, counts set to 0 just before it
     runs = (serve_launches, train_launches, slice_launches, df_launches,
-            wide_launches, dfw_launches, pre_launches, shared_launches)
+            wide_launches, dfw_launches, pre_launches, shared_launches,
+            art_launches)
     total = {k: sum(d[k] for d in runs) for k in ops.LAUNCHES}
     # #3-#6: the largest error of phases 6b/6c and of 6d's sweep shapes
     errs = kern['errs']

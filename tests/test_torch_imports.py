@@ -63,7 +63,7 @@ def test_every_module_imports_with_jax_blocked():
                 'ops.pathwise_tiled', 'ops.df_pathwise_tiled',
                 'kernels.divfree', 'dynamics.solvers', 'dynamics.adjoint',
                 'utils.jax_import', 'utils.torch_import', 'evaluate',
-                'main_vae'):
+                'main_vae', 'serving', 'serve_http', 'ops.library'):
         assert f'vae_gp_ode_tpu_torch.{mod}' in _port_modules()
     code = (
         'import sys\n'

@@ -32,10 +32,12 @@ integrate from ts[0] through ts[-1], returning the states at each
 requested time (the first row is z0).
 """
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 from torch.utils.checkpoint import checkpoint
 
 from vae_gp_ode_tpu_torch.core import linalg
@@ -44,6 +46,10 @@ FIXED_STEP_SOLVERS = (
     'euler', 'midpoint', 'rk4', 'explicit_adams', 'fixed_adams', 'bdf',
 )
 ADAPTIVE_SOLVERS = ('dopri5', 'adams')
+#: the solvers whose steps take per-row Jacobians (`row_jacobian`): a
+#: traced program differentiates their per-step evals' plain versions, so
+#: it is traced, and served, on the CPU only
+JACOBIAN_SOLVERS = ('bdf',)
 SOLVERS = FIXED_STEP_SOLVERS + ADAPTIVE_SOLVERS
 
 #: candidate steps between the adaptive loops' host checks that every
@@ -59,6 +65,16 @@ class ODESolution(NamedTuple):
 def _f32(x):
     """A constant as the f32 value JAX's f32 arrays hold."""
     return float(np.float32(x))
+
+
+def _no_grad():
+    """`torch.no_grad()`, or no context where grad mode is off already: a
+    program traced under no_grad (`torch.export`, the serving artifact)
+    then holds no grad-mode switches, each of which the export splits its
+    graph at."""
+    if torch.is_grad_enabled():
+        return torch.no_grad()
+    return contextlib.nullcontext()
 
 
 def _remat(fn, remat):
@@ -117,9 +133,30 @@ def row_jacobian(g, z):
     """Per-row Jacobians (..., D, D) of a function g that maps each row of
     z (..., D) on its own: D vector-Jacobian products, the j-th with a
     one-hot cotangent on every row at once, give row j of every row's
-    Jacobian. Not differentiated further (the result is detached)."""
+    Jacobian. Not differentiated further (the result is detached).
+
+    While `torch.export` traces it, D forward-mode products give the
+    columns instead (the same matrix): a traced reverse pass loses the
+    outputs that exp and tanh save. No operator of `ops.library` takes a
+    tangent, so the trace differentiates the per-step evals' plain
+    versions, and only a trace on the CPU can: on the card it raises
+    (`JACOBIAN_SOLVERS`)."""
     D = z.shape[-1]
     eye = torch.eye(D, dtype=z.dtype, device=z.device)
+    if torch.compiler.is_exporting():
+        if z.device.type != 'cpu':
+            raise RuntimeError(
+                f'a traced per-row Jacobian (the Newton iterations of '
+                f'{", ".join(JACOBIAN_SOLVERS)}) differentiates the per-step '
+                f'evals in forward mode, which the kernels do not take: '
+                f'such a program is traced and served on the CPU only')
+        cols = []
+        for j in range(D):
+            with fwAD.dual_level():
+                r = g(fwAD.make_dual(z.detach(),
+                                     eye[j].expand_as(z).contiguous()))
+                cols.append(fwAD.unpack_dual(r).tangent)
+        return torch.stack(cols, dim=-1)
     # identity saved-tensor hooks: inside a checkpointed step this small
     # graph keeps its own tensors instead of the checkpoint's placeholders
     with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(
@@ -323,30 +360,33 @@ def _dp_stages(f, t, z, dt, k1):
     return ks
 
 
-@torch.no_grad()
 def _hairer_initial_step(f, t0, z0, f0, rtol, atol, order=4):
     """Per-problem automatic initial step (Hairer, Norsett & Wanner I,
     sec. II.4; scipy's _select_initial_step). One extra RHS eval; no
     gradient flows through it."""
-    scale = atol + torch.abs(z0) * rtol
-    d0 = _rms(z0, scale)
-    d1 = _rms(f0, scale)
-    h0 = torch.where((d0 < 1e-5) | (d1 < 1e-5),
-                     torch.full_like(d0, 1e-6), 0.01 * d0 / d1)
-    f1 = f(t0 + h0, z0 + _bc(h0, z0) * f0)
-    d2 = _rms(f1 - f0, scale) / h0
-    dmax = torch.maximum(d1, d2)
-    h1 = torch.where(dmax <= 1e-15,
-                     torch.clamp(h0 * 1e-3, min=1e-6),
-                     (0.01 / dmax) ** (1.0 / (order + 1.0)))
-    return torch.minimum(100.0 * h0, h1)
+    with _no_grad():
+        scale = atol + torch.abs(z0) * rtol
+        d0 = _rms(z0, scale)
+        d1 = _rms(f0, scale)
+        h0 = torch.where((d0 < 1e-5) | (d1 < 1e-5),
+                         torch.full_like(d0, 1e-6), 0.01 * d0 / d1)
+        f1 = f(t0 + h0, z0 + _bc(h0, z0) * f0)
+        d2 = _rms(f1 - f0, scale) / h0
+        dmax = torch.maximum(d1, d2)
+        h1 = torch.where(dmax <= 1e-15,
+                         torch.clamp(h0 * 1e-3, min=1e-6),
+                         (0.01 / dmax) ** (1.0 / (order + 1.0)))
+        return torch.minimum(100.0 * h0, h1)
 
 
 def _bounded_loop(step, carry, done_at, max_steps, remat, early_stop):
     """Run `step` over `carry` for max_steps candidate steps, or until
     every problem is done (checked on the host every DONE_CHECK_EVERY
-    steps when `early_stop`)."""
+    steps when `early_stop`). While `torch.export` traces the loop there
+    is no value to check: the trace takes all max_steps steps, which give
+    the same values, as the JAX package's bounded loop does."""
     step = _remat(step, remat)
+    early_stop = early_stop and not torch.compiler.is_exporting()
     for i in range(max_steps):
         if early_stop and i and i % DONE_CHECK_EVERY == 0 and bool(
                 carry[done_at].all()):
@@ -375,7 +415,7 @@ def _dopri5(f, z0, ts, rtol, atol, max_steps, remat, early_stop):
     def step(t, z, k1, dt, facold, zs, filled, nfe, done):
         ks = _dp_stages(f, t, z, dt, k1)
         z5 = z + _bc(dt, z) * sum(b * k for b, k in zip(_DP_B5, ks))
-        with torch.no_grad():
+        with _no_grad():
             # step-size control is a discrete decision: no gradient
             z4 = z + _bc(dt, z) * sum(b * k for b, k in zip(_DP_B4, ks))
             scale = atol + rtol * torch.maximum(torch.abs(z), torch.abs(z5))
@@ -392,7 +432,7 @@ def _dopri5(f, z0, ts, rtol, atol, max_steps, remat, early_stop):
         interp = (z[None] + _bc(dt, z)[None] * torch.bmm(
             w.transpose(0, 1), kst).transpose(0, 1).reshape(zs.shape))
         zs = torch.where(_bc(in_window, zs), interp, zs)
-        with torch.no_grad():
+        with _no_grad():
             filled = filled | in_window
             fac11 = (err_norm + 1e-30) ** _PI_EXPO1
             fac_acc = torch.clamp(fac11 / (facold ** _PI_BETA) / _PI_SAFE,
@@ -522,7 +562,7 @@ def _vcabm(f, z0, ts, rtol, atol, max_steps, remat, early_stop):
         phi_next = torch.cat([f_c[:, None], f_c[:, None] - cs[:, :-1]],
                              dim=1)
 
-        with torch.no_grad():
+        with _no_grad():
             scale = atol + rtol * torch.maximum(torch.abs(y), torch.abs(p))
             g0, g1, g2, g3 = (_take(g, order + o) for o in (0, -1, -2, -3))
             err_k = _rms(_bc(dt * (g0 - g1), y) * _take(phi_p, order)
@@ -558,7 +598,7 @@ def _vcabm(f, z0, ts, rtol, atol, max_steps, remat, early_stop):
         zs = torch.where(_bc(at, zs), y_next[None], zs)
         y = torch.where(_bc(acc, y), y_next, y)
         phi = torch.where(_bc(acc, phi), phi_next, phi)
-        with torch.no_grad():
+        with _no_grad():
             prev_t = torch.where(acc[:, None], torch.cat(
                 [t_next[:, None], prev_t[:, :-1]], dim=1), prev_t)
             order = torch.where(acc, next_order, order)

@@ -14,6 +14,7 @@ Sequences are (N, T, 1, d, d), NCHW frames. Randomness comes from a
 GP draws with a leading dim of L.
 """
 
+import copy
 from typing import Optional
 
 import numpy as np
@@ -34,12 +35,19 @@ _GP_NOISE = ('omega', 'phase_u', 'weights', 'epsilon')
 
 class ODEGPVAE(nn.Module):
     """The VAE is this module's parameters; the GP parameters are a
-    separate `SVGPParams` passed to `forward`."""
+    separate `SVGPParams` passed to `forward`.
+
+    `dtype`: the VAE's compute type (JAX `models/odegpvae.py`
+    `ODEGPVAE.dtype`): None computes in float32; torch.bfloat16 runs the
+    encoders and the decoder in bf16 (the weights stay float32), while
+    `encode` upcasts the latent statistics to float32 before the
+    reparameterisation, so z0, the GP, the ODE and the trajectories stay
+    float32, and the frames come out in bf16."""
 
     def __init__(self, latent_dim=6, n_filt=8, order=1, frames=5, dt=0.1,
                  solver='euler', dense=1, rtol=1e-6, atol=1e-6,
                  max_steps=256, num_features=256, use_adjoint=False,
-                 remat=True, device='cuda'):
+                 remat=True, dtype=None, device='cuda'):
         super().__init__()
         dev = resolve_device(device)
         if order not in (1, 2):
@@ -60,15 +68,34 @@ class ODEGPVAE(nn.Module):
         self.num_features = num_features
         self.use_adjoint = use_adjoint    # continuous adjoint vs backprop
         self.remat = remat                # rematerialise solver steps
-        self.encoder = Encoder(latent_dim, n_filt, frames=1)
-        self.decoder = Decoder(latent_dim, n_filt)
+        self.dtype = dtype
+        self.encoder = Encoder(latent_dim, n_filt, frames=1, dtype=dtype)
+        self.decoder = Decoder(latent_dim, n_filt, dtype=dtype)
         if order == 2:
-            self.encoder_v = Encoder(latent_dim, n_filt, frames=frames)
+            self.encoder_v = Encoder(latent_dim, n_filt, frames=frames,
+                                     dtype=dtype)
         self.to(dev)
 
     @property
     def device(self):
         return self.decoder.fc.weight.device
+
+    def with_dtype(self, dtype):
+        """A copy of the model whose VAE computes in `dtype` (flax's
+        `clone(dtype=)`); its weights are copies of this model's."""
+        twin = copy.deepcopy(self)
+        twin.dtype = dtype
+        for vae in (twin.encoder, twin.decoder,
+                    getattr(twin, 'encoder_v', None)):
+            if vae is not None:
+                vae.dtype = dtype
+        return twin
+
+    def _dynamics_type(self, stats):
+        """Latent statistics in float32 where the VAE computes in another
+        type (`dtype`), as they come otherwise."""
+        return stats if self.dtype is None else tuple(t.float()
+                                                      for t in stats)
 
     def encode(self, X, generator=None, reparam_noise=None):
         """Encode sequences (N, T, 1, d, d) into z0 (N, q or 2q).
@@ -76,14 +103,15 @@ class ODEGPVAE(nn.Module):
         `reparam_noise` = (noise_s, noise_v) injects the standard-normal
         reparameterisation draws (noise_v only for order 2).
         """
-        s0_mu, s0_logv = self.encoder(X[:, 0])
+        s0_mu, s0_logv = self._dynamics_type(self.encoder(X[:, 0]))
         noise_s, noise_v = (reparam_noise if reparam_noise is not None
                             else (None, None))
         z0 = reparam_sample(generator, s0_mu, s0_logv, noise_s)
         v0_mu = v0_logv = None
         if self.order == 2:
             # first `frames` frames stacked as channels
-            v0_mu, v0_logv = self.encoder_v(X[:, :self.frames, 0])
+            v0_mu, v0_logv = self._dynamics_type(
+                self.encoder_v(X[:, :self.frames, 0]))
             v0 = reparam_sample(generator, v0_mu, v0_logv, noise_v)
             z0 = torch.cat([z0, v0], dim=1)
         return z0, (s0_mu, s0_logv), (v0_mu, v0_logv)

@@ -51,10 +51,44 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
+def _layer(mod, x, dtype):
+    """One layer of the VAE computing in `dtype` as flax's `dtype=` does:
+    a convolution or linear layer casts its input, weight and bias to
+    `dtype` at use and computes in it (the weights stay float32);
+    BatchNorm normalises in float32, its statistics' type, and rounds its
+    output to `dtype`; activations and reshapes keep their input's type."""
+    if isinstance(mod, nn.Conv2d):
+        return mod._conv_forward(x.to(dtype), mod.weight.to(dtype),
+                                 mod.bias.to(dtype))
+    if isinstance(mod, nn.ConvTranspose2d):
+        return F.conv_transpose2d(
+            x.to(dtype), mod.weight.to(dtype), mod.bias.to(dtype),
+            mod.stride, mod.padding, mod.output_padding, mod.groups,
+            mod.dilation)
+    if isinstance(mod, nn.Linear):
+        return F.linear(x.to(dtype), mod.weight.to(dtype),
+                        mod.bias.to(dtype))
+    if isinstance(mod, nn.BatchNorm2d):
+        return mod(x.float()).to(dtype)
+    return mod(x)
+
+
+def _run(layers, x, dtype):
+    """`layers` in turn on x, computing in `dtype` (None: the weights'
+    own type, float32, as the modules compute by themselves)."""
+    for mod in layers:
+        x = mod(x) if dtype is None else _layer(mod, x, dtype)
+    return x
+
+
 class Encoder(nn.Module):
-    def __init__(self, latent_dim=16, n_filt=8, frames=1):
+    """`dtype`: the compute type of the layers (None for float32; JAX
+    `models/vae.py` `Encoder.dtype`); the outputs are in it."""
+
+    def __init__(self, latent_dim=16, n_filt=8, frames=1, dtype=None):
         super().__init__()
         nf = n_filt
+        self.dtype = dtype
         self.cnn = nn.Sequential(
             nn.Conv2d(frames, nf, 5, 2, 2), BatchNorm2d(nf), nn.ReLU(),
             nn.Conv2d(nf, nf * 2, 5, 2, 2), BatchNorm2d(nf * 2),
@@ -64,14 +98,19 @@ class Encoder(nn.Module):
 
     def forward(self, x):
         """x: (N, frames, 28, 28) -> (mu, logvar), each (N, latent_dim)."""
-        mu, logvar = self.fc(self.cnn(x)).chunk(2, dim=-1)
+        h = _run(list(self.cnn) + [self.fc], x, self.dtype)
+        mu, logvar = h.chunk(2, dim=-1)
         return mu, logvar
 
 
 class Decoder(nn.Module):
-    def __init__(self, latent_dim=16, n_filt=8):
+    """`dtype`: the compute type of the layers, as `Encoder`'s; the
+    frames are in it."""
+
+    def __init__(self, latent_dim=16, n_filt=8, dtype=None):
         super().__init__()
         nf = n_filt
+        self.dtype = dtype
         self.fc = nn.Linear(latent_dim, nf * 4 ** 3)
         self.decnn = nn.Sequential(
             nn.Unflatten(1, (nf * 4, 4, 4)),
@@ -85,7 +124,7 @@ class Decoder(nn.Module):
 
     def forward(self, z):
         """z: (B, latent_dim) -> (B, 1, 28, 28) sigmoid images."""
-        return self.decnn(self.fc(z))
+        return _run([self.fc] + list(self.decnn), z, self.dtype)
 
 
 def bernoulli_log_prob(x, xrec, eps_guard: bool = False):

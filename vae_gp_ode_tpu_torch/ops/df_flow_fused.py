@@ -33,7 +33,7 @@ import math
 import torch
 
 from vae_gp_ode_tpu_torch import ops
-from vae_gp_ode_tpu_torch.ops import _build
+from vae_gp_ode_tpu_torch.ops import _build, library
 from vae_gp_ode_tpu_torch.ops.df_pathwise import (
     BASE_DIMS, MAX_D, NAMES, check_operands, df_pathwise_reference,
 )
@@ -168,6 +168,19 @@ def _num_draws(z0, operands):
     return leads.pop() if leads else 1
 
 
+def pair_refusal(z0, omf, phf, G, Z, nur, ls2, var, dts, T, *, device):
+    """The shapes of a trajectory over the DF operands (tensors or their
+    fake values) as text where `df_fused_pair_fits` refuses them on CUDA
+    `device`, else None."""
+    operands = (omf, phf, G, Z, nur, ls2, var)
+    D = z0.shape[-1]
+    SD, M, _ = check_operands(_num_draws(z0, operands), D, operands,
+                              max_d=None)
+    if df_fused_pair_fits(D, SD, M, device):
+        return None
+    return f'D={D} S*D={SD} M={M}'
+
+
 def _launch(z0, operands, dts, T):
     """Launch the trajectory kernel; returns zs (L, T, N, D)."""
     _check_tensors(z0.device, zip(('z0',) + NAMES + ('dts',),
@@ -268,9 +281,18 @@ def packed_df_euler_flow(z0, omf, phf, G, Z, nur, ls2, var, dts, T):
 
     CUDA tensors launch the trajectory kernel, and reverse mode launches
     the adjoint kernel; CPU tensors take the plain version and autograd
-    through it. Anything else raises.
+    through it. Anything else raises. Where no input needs a gradient the
+    call is the registered operator `vae_gp_ode_torch::df_flow_fused_fwd`
+    (`ops.library`), which a traced program keeps.
     """
     tensors = (z0, omf, phf, G, Z, nur, ls2, var, dts)
+    if not library.needs_grad(tensors):
+        library.check_devices(tensors)
+        zs = library.df_flow_fused_fwd(*(t.contiguous() for t in tensors),
+                                       T)
+        lead = z0.dim() == 3 or any(
+            t.dim() == nd + 1 for t, nd in zip(tensors[1:-1], BASE_DIMS))
+        return zs if lead else zs[0]
     if all(t.device.type == 'cpu' for t in tensors):
         return df_euler_flow_reference(*tensors, T)
     if z0.device.type != 'cuda':

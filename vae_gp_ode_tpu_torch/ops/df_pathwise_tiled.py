@@ -40,14 +40,14 @@ import math
 import torch
 
 from vae_gp_ode_tpu_torch import ops
-from vae_gp_ode_tpu_torch.ops import _build
+from vae_gp_ode_tpu_torch.ops import _build, library
 from vae_gp_ode_tpu_torch.ops import df_pathwise
 from vae_gp_ode_tpu_torch.ops.df_pathwise import (
     BASE_DIMS, MAX_D, NAMES, _check_x, check_operands,
     df_pathwise_reference,
 )
 from vae_gp_ode_tpu_torch.ops.pathwise import (
-    _check_tensors, _draws, _flat, apply_routed,
+    _check_tensors, _draws, _flat, apply_routed, library_eval,
 )
 
 KERNEL = 'df_pathwise_tiled_fwd'
@@ -279,8 +279,14 @@ def df_pathwise_eval(x, omf, phf, G, Z, nur, ls2, var):
     draws. CPU tensors take the plain version (and autograd through it);
     CUDA tensors launch the forward kernel that `use_df_tiled` names for
     the shapes and, in reverse mode, the VJP kernel it names, at any state
-    dim."""
+    dim. Where no input needs a gradient the call is the registered
+    operator `vae_gp_ode_torch::df_pathwise_eval_fwd` (`ops.library`),
+    which applies the rule's forward choice on the shapes it is called
+    with."""
     operands = (omf, phf, G, Z, nur, ls2, var)
+    if not library.needs_grad((x,) + operands):
+        return library_eval(library.df_pathwise_eval_fwd, x, operands,
+                            BASE_DIMS)
     if all(t.device.type == 'cpu' for t in (x,) + operands):
         return df_pathwise_reference(x, *operands)
     if x.device.type != 'cuda':

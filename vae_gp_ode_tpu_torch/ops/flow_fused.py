@@ -37,7 +37,7 @@ import math
 import torch
 
 from vae_gp_ode_tpu_torch import ops
-from vae_gp_ode_tpu_torch.ops import _build
+from vae_gp_ode_tpu_torch.ops import _build, library
 from vae_gp_ode_tpu_torch.ops.pathwise import pathwise_eval_reference
 
 KERNEL = 'flow_fused_fwd'
@@ -262,6 +262,18 @@ def fused_pair_fits(D, K, S, M, T, device):
                      lib.flow_fused_bwd_smem_optin(ops.device_index(device)))
 
 
+def pair_refusal(z0, omf, phf, ws, Zb, zn, il2, nus, dts, T, order, *,
+                 device):
+    """The shapes of a trajectory over packed operands (tensors or their
+    fake values) as text where `fused_pair_fits` refuses them on CUDA
+    `device`, else None."""
+    L, N, D, K, S, M, _ = _check(z0.shape, (omf, phf, ws, Zb, zn, il2, nus),
+                                 dts, T, order)
+    if fused_pair_fits(D, K, S, M, T, device):
+        return None
+    return f'D={D} S={S} M={M} T={T} order={order}'
+
+
 def _plan(lib, export, L, N, D, K, S, M, order, device):
     out = (ctypes.c_int * 3)()
     rc = getattr(lib, export)(L, N, D, K, S, M, order,
@@ -395,9 +407,16 @@ def packed_euler_flow(z0, omf, phf, ws, Zb, zn, il2, nus, dts, T, order=1):
 
     CUDA tensors launch the trajectory kernel, and reverse mode launches
     the adjoint kernel; CPU tensors take the plain version and autograd
-    through it. Anything else raises.
+    through it. Anything else raises. Where no input needs a gradient the
+    call is the registered operator `vae_gp_ode_torch::flow_fused_fwd`
+    (`ops.library`), which a traced program keeps.
     """
     tensors = (z0, omf, phf, ws, Zb, zn, il2, nus, dts)
+    if not library.needs_grad(tensors):
+        library.check_devices(tensors)
+        zs = library.flow_fused_fwd(*tensors, T, order)
+        lead = any(x.dim() == 3 for x in tensors[:-1])
+        return zs if lead else zs[0]
     if all(x.device.type == 'cpu' for x in tensors):
         return packed_flow_reference(z0, omf, phf, ws, Zb, zn, il2, nus,
                                      dts, T, order)

@@ -28,7 +28,7 @@ import math
 import torch
 
 from vae_gp_ode_tpu_torch import ops
-from vae_gp_ode_tpu_torch.ops import _build
+from vae_gp_ode_tpu_torch.ops import _build, library
 from vae_gp_ode_tpu_torch.kernels.rbf import rbf_lengthscales, rbf_variance
 
 KERNEL = 'pathwise_fwd'
@@ -303,6 +303,17 @@ class RoutedEval(torch.autograd.Function):
         return (None, None) + tuple(
             gr if need else None
             for gr, need in zip(grads, ctx.needs_input_grad[2:]))
+
+
+def library_eval(op, x, operands, base_dims):
+    """The forward-only operator `op` of `ops.library` (a per-step eval)
+    on x (..., N, D) and operands with at most one leading dim of L draws,
+    broadcast and dropped as `apply_routed` does."""
+    library.check_devices((x,) + tuple(operands))
+    L = _draws(x, operands, base_dims)
+    x3 = x.expand((L or 1,) + tuple(x.shape[-2:])).contiguous()
+    out = op(x3, *(t.contiguous() for t in operands))
+    return out if L is not None else out[0]
 
 
 def apply_routed(launch, launch_bwd, x, operands, base_dims):

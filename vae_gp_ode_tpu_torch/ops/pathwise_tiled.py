@@ -40,11 +40,12 @@ import ctypes
 import torch
 
 from vae_gp_ode_tpu_torch import ops
-from vae_gp_ode_tpu_torch.ops import _build
+from vae_gp_ode_tpu_torch.ops import _build, library
 from vae_gp_ode_tpu_torch.ops import pathwise
 from vae_gp_ode_tpu_torch.ops.pathwise import (
     NAMES, VJP_ARGTYPES, VJP_WORKSPACE_ARGTYPES, _check, _check_tensors,
-    _draws, _flat, apply_routed, launch_vjp, pathwise_eval_reference,
+    _draws, _flat, apply_routed, launch_vjp, library_eval,
+    pathwise_eval_reference,
 )
 
 KERNEL = 'pathwise_tiled_fwd'
@@ -212,8 +213,14 @@ def pathwise_eval(x, omega, phase, weights, Z, nu, ls, var):
     result as :func:`pathwise_eval_reference` with at most one leading dim
     of L draws. CPU tensors take the plain version (and autograd through
     it); CUDA tensors launch the forward kernel that `use_tiled` names for
-    the shapes and, in reverse mode, the VJP kernel it names."""
+    the shapes and, in reverse mode, the VJP kernel it names. Where no
+    input needs a gradient the call is the registered operator
+    `vae_gp_ode_torch::pathwise_eval_fwd` (`ops.library`), which applies
+    the rule's forward choice on the shapes it is called with."""
     operands = (omega, phase, weights, Z, nu, ls, var)
+    if not library.needs_grad((x,) + operands):
+        return library_eval(library.pathwise_eval_fwd, x, operands,
+                            pathwise._BASE_DIMS)
     if all(t.device.type == 'cpu' for t in (x,) + operands):
         return pathwise_eval_reference(x, *operands)
     if x.device.type != 'cuda':

@@ -172,6 +172,23 @@ Run from the repository root on a machine with an NVIDIA H100:
    dopri5 requests through each route of the forward wrappers
    (`eager_route`: the operators, the direct launch, `custom_op`), in
    turns;
+6i. plots, summaries, the native rotation and data parallelism: the run
+   directory of step 6's run() (its figures, written where matplotlib
+   imports and else named in one log line; the loss-trace .npy files;
+   the model summaries in its log; final_plots' arrays), final_plots'
+   latent trajectories and T=32 rollout on the card against the CPU path
+   at the same noise (#1 once each), main_vae for 1 epoch at its
+   defaults and evaluate on step 6's run with their figures, the native
+   rotation library built with g++ and held to scipy (1e-5), and the
+   per-rank data-parallel step (`parallel.shard_dp`) of RBF and DF models
+   at main.py's defaults: at world size 1 over NCCL in this process and
+   on 2 ranks of gloo on cuda:0 (subprocesses of this script,
+   --dp-worker), every rank's loss and averaged gradients against the
+   single-device step at the same noise on the single-device run's ReLU
+   branches (TOL_GRAD, RELU_FLIP) and #1/#2 (#7/#8 for DF) launched once
+   on every rank; the per-rank and single-device L=5 step times, busy ms
+   and idle share; then main.py --data_parallel True at world size 1 (the
+   single-device path, #1/#2 once a step);
 7. times kernels, requests and train steps with CUDA events (#1's
    wrapper also through each of 6h's routes, in turns), and traces
    one request, one L=5 train step, one L=5 rk4 train step, one DF
@@ -199,6 +216,7 @@ import dataclasses
 import faulthandler
 import functools
 import json
+import logging
 import os
 import shutil
 import statistics
@@ -3569,6 +3587,452 @@ def serving_artifacts(args, card, launches):
     return out
 
 
+# -- 6i: plots, summaries, the native rotation, data parallelism ------------
+
+#: what main.py writes beside its figures (final_plots' loss traces)
+TRACE_NPY = ['elbo.npy', 'inducingkl.npy', 'nll.npy', 'zkl.npy']
+#: the figures of main.py's run directory (order 1), main_vae's and
+#: evaluate's (JAX main.py, main_vae.py and evaluate.py)
+RUN_PNG = ['plots/data.png', 'plots/dynamics_test_state.png',
+           'plots/dynamics_train_state.png', 'plots/hyperparams.png',
+           'plots/optimization_trace.png', 'plots/rollout.png',
+           'plots/rollout_original.png', 'plots/rot_mnist.png']
+VAE_PNG = ['plots/vae_trace.png', 'vae_embeddings_pca.png',
+           'vae_embeddings_tsne.png', 'vae_reconstructions.png']
+EVAL_PNG = ['eval/rollout.png', 'eval/rollout_original.png']
+#: the ranks of the data-parallel check on one card (gloo)
+DP_WORLD = 2
+
+
+def run_files(root):
+    """(PNG, .npy) files under `root`, relative paths, sorted."""
+    found = {'.png': [], '.npy': []}
+    for d, _, fs in os.walk(root):
+        for f in fs:
+            ext = os.path.splitext(f)[1]
+            if ext in found:
+                found[ext].append(os.path.relpath(os.path.join(d, f), root))
+    return sorted(found['.png']), sorted(found['.npy'])
+
+
+def left_out_line(log_path):
+    """The run log's line naming the figures left out, or None."""
+    with open(log_path) as f:
+        lines = [ln.strip() for ln in f if 'figures left out' in ln]
+    require(len(lines) <= 1, f'{log_path}: {len(lines)} left-out lines')
+    return lines[0] if lines else None
+
+
+def check_figures(what, root, pngs, log_path):
+    """The figures `pngs` under `root` were written where matplotlib
+    imports; else none was and the log names them in one line."""
+    from vae_gp_ode_tpu_torch.utils import plotting
+    got, npys = run_files(root)
+    got = [f for f in got if f in pngs]
+    line = left_out_line(log_path)
+    if plotting.available():
+        require(got == sorted(pngs) and line is None,
+                f'{what}: PNGs {got}, left-out line {line}')
+    else:
+        require(got == [] and line is not None and all(
+            os.path.basename(f) in line for f in pngs),
+            f'{what}: PNGs {got}, left-out line {line}')
+    log(f'  {what}: PNGs written {got or "none"}; .npy files {npys}'
+        + (f'; log: {line[line.index("matplotlib"):]}' if line else ''))
+    return npys
+
+
+def relu_rows(ref, lo, hi, L_, N):
+    """A single-device step's ReLU inputs (by module name) at the rows of
+    a rank that trains on sequences lo:hi: the encoder's rows, and the
+    decoder's frames (L, N, T) of those sequences."""
+    out = {}
+    for name, x in ref.items():
+        if name.startswith('decoder'):
+            y = x.reshape((L_, N, -1) + tuple(x.shape[1:]))[:, lo:hi]
+            out[name] = y.reshape((-1,) + tuple(x.shape[1:]))
+        else:
+            out[name] = x[lo:hi]
+    return out
+
+
+def dp_model(seed, kernel):
+    """The data-parallel check's model and GP: main.py's defaults
+    (CONFIG) with `kernel`, drawn from the numpy seed, on the card."""
+    from vae_gp_ode_tpu_torch.models.odegpvae import init_model
+    return init_model(seed, device='cuda', kernel=kernel, **CONFIG)
+
+
+def dp_step(model, gp, batch, noise_np, L_, relu_ref, ndata):
+    """One per-rank train step (`parallel.shard_dp`) of copies of model
+    and gp over `batch` (this rank's rows of it) with the global noise,
+    each ReLU on the branch of the single-device reference run whose
+    inputs `relu_ref` holds (RELU_FLIP). Returns (loss, the averaged
+    gradients by name as f32 on the CPU, the step's launches, the ReLU
+    units on which this run's own inputs take the other branch and the
+    largest relative |reference input| among them)."""
+    import torch
+    from torch import nn
+    from vae_gp_ode_tpu_torch import ops
+    from vae_gp_ode_tpu_torch.parallel import make_shardmap_train_step
+    from vae_gp_ode_tpu_torch.parallel.shard_dp import rank_rows
+    from vae_gp_ode_tpu_torch.training import trainer
+    lo, hi = rank_rows(batch.shape[0])
+    pin = relu_rows(relu_ref, lo, hi, L_, batch.shape[0])
+    own = {}
+    state = trainer.create_train_state(copy.deepcopy(model),
+                                       copy.deepcopy(gp))
+
+    def hook(name, x):
+        own[name] = x.detach().to('cpu', torch.float64)
+        return x * (pin[name] > 0).to(x.device, x.dtype)
+
+    for name, mod in state.model.named_modules():
+        if isinstance(mod, nn.ReLU):
+            mod.register_forward_hook(
+                lambda mod, inp, out, name=name: hook(name, inp[0]))
+    noise = {k: torch.as_tensor(v, dtype=torch.float32, device=batch.device)
+             for k, v in noise_np.items()}
+    step = make_shardmap_train_step(ndata, eps_guard=True)
+    torch.cuda.synchronize()
+    before = dict(ops.LAUNCHES)
+    m = step(state, batch, L_, noise=noise)
+    torch.cuda.synchronize()
+    launched = deltas(before, dict(ops.LAUNCHES))
+    grads = {n: p.grad.float().cpu() for n, p in zip(state.param_names(),
+                                                    state.params())}
+    return (float(m['loss']), grads, launched) + relu_flips(own, pin)
+
+
+def dp_jobs(args, batch, ndata):
+    """The data-parallel check's cases: per kernel, the single-device
+    step's loss, gradients and ReLU inputs on the card (the reference),
+    and what a rank needs to rebuild the same step."""
+    import numpy as np
+    q, S, M = CONFIG['latent_dim'], CONFIG['num_features'], \
+        CONFIG['num_inducing']
+    jobs = []
+    for i, kernel in enumerate(('RBF', 'DF')):
+        seed = args.seed + 60 + i
+        model, gp = dp_model(seed, kernel)
+        noise = step_noise(seed, q, S, M, L_=1, batch=batch.shape[0],
+                           df=kernel == 'DF')
+        relu = {}
+        loss, _, _, grads = step_grads(model, gp, batch, noise, ndata, True,
+                                       'cuda', 1, relu_in=relu)
+        jobs.append({'kernel': kernel, 'seed': seed, 'noise': noise,
+                     'batch': batch.cpu().numpy(), 'ndata': ndata,
+                     'relu': {k: v.numpy() for k, v in relu.items()},
+                     'ref': (float(loss), grads), 'model': model, 'gp': gp})
+    return jobs
+
+
+def hold_dp(what, job, loss, grads, launched, flips, flip_at):
+    """Hold one rank's step against the single-device step: loss 1e-4
+    relative, every averaged gradient within TOL_GRAD of its leaf's
+    largest (biases before a BatchNorm: of their weight's), every ReLU
+    unit on the other branch within RELU_FLIP of 0, and the fused pair of
+    the kernel (#1/#2 or #7/#8) launched once each and nothing else."""
+    import torch
+    from vae_gp_ode_tpu_torch.ops import df_flow_fused, flow_fused
+    ref_loss, ref_grads = job['ref']
+    mod = flow_fused if job['kernel'] == 'RBF' else df_flow_fused
+    worst, name = worst_grad_error(
+        {k: torch.as_tensor(v) for k, v in grads.items()}, ref_grads,
+        job['model'])
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    others = {k: v for k, v in launched.items()
+              if v and k not in (mod.KERNEL, mod.BWD_KERNEL)}
+    log(f'  {what} ({job["kernel"]}): loss {loss:.6f} vs {ref_loss:.6f} '
+        f'(rel {rel:.2e}); gradients max |err| / max |ref| {worst:.3e} at '
+        f'{name} (tol {TOL_GRAD:g}); ReLU units on the other branch {flips}, '
+        f'largest |input| {flip_at:.2e} (tol {RELU_FLIP:g}); launches '
+        f'{ {k: v for k, v in launched.items() if v} }')
+    require(rel <= 1e-4 and worst <= TOL_GRAD and flip_at <= RELU_FLIP,
+            f'{what} ({job["kernel"]}): the step disagrees with the '
+            f'single-device one')
+    require(launched[mod.KERNEL] == 1 and launched[mod.BWD_KERNEL] == 1
+            and not others, f'{what} ({job["kernel"]}) launched {launched}')
+
+
+def dp_worker(init, world, rank, job_path):
+    """One rank of phase 6i's gloo check on cuda:0 (chip_smoke.py
+    --dp-worker INIT WORLD RANK JOBS): the per-rank step of each job, held
+    by the parent, and the step's wall ms (median of 5, host clock around
+    the step and a synchronize: gloo's all-reduces pass through the
+    host)."""
+    import pickle
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from vae_gp_ode_tpu_torch.parallel import make_shardmap_train_step
+    from vae_gp_ode_tpu_torch.training import trainer
+    torch.cuda.set_device(0)
+    dist.init_process_group('gloo', init_method=init, world_size=world,
+                            rank=rank)
+    with open(job_path, 'rb') as f:
+        jobs = pickle.load(f)
+    out = []
+    try:
+        for job in jobs:
+            model, gp = dp_model(job['seed'], job['kernel'])
+            batch = torch.as_tensor(job['batch'], device='cuda')
+            relu = {k: torch.as_tensor(v) for k, v in job['relu'].items()}
+            loss, grads, launched, flips, flip_at = dp_step(
+                model, gp, batch, job['noise'], 1, relu, job['ndata'])
+            state = trainer.create_train_state(model, gp)
+            step = make_shardmap_train_step(job['ndata'], eps_guard=True)
+            gen = torch.Generator(device='cuda').manual_seed(job['seed'])
+            times = []
+            for i in range(7):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(state, batch, L, gen)
+                torch.cuda.synchronize()
+                if i >= 2:
+                    times.append((time.perf_counter() - t0) * 1e3)
+            out.append({'loss': loss, 'grads': {k: v.numpy() for k, v in
+                                                grads.items()},
+                        'launched': launched, 'flips': (flips, flip_at),
+                        'ms': statistics.median(times)})
+    finally:
+        dist.destroy_process_group()
+    with open(f'{job_path}.rank{rank}', 'wb') as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def plots_native_parallel(args, card, batch, run6, launches):
+    """Phase 6i (the last slice): the run directory of phase 6's run()
+    (main.py for 2 epochs with its figures), final_plots' trajectories and
+    rollout on the card against the CPU path at the same noise, main_vae
+    and evaluate with their figures, the native rotation library built and
+    held to scipy, the model summaries, and the per-rank data-parallel
+    step on the card: at world size 1 over NCCL in this process and over
+    DP_WORLD ranks of gloo on cuda:0 in subprocesses, each against the
+    single-device step at the same noise, then main.py --data_parallel
+    True at world size 1. Each path's launches are counted with the
+    counts set to 0 just before it."""
+    import pickle
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from vae_gp_ode_tpu_torch import evaluate, main as train_cli, main_vae
+    from vae_gp_ode_tpu_torch import native
+    from vae_gp_ode_tpu_torch.ops import flow_fused
+    from vae_gp_ode_tpu_torch.parallel import make_shardmap_train_step
+    from vae_gp_ode_tpu_torch.training import trainer
+    from vae_gp_ode_tpu_torch.utils.summary import param_count, summarize
+    run_path = functools.partial(count_path, launches=launches)
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
+                        'chip_smoke', '6i')
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    q, S, M = CONFIG['latent_dim'], CONFIG['num_features'], \
+        CONFIG['num_inducing']
+    log('phase 6i: plots, the native rotation and data parallelism')
+
+    # -- the training run's figures (phase 6's run of main.py) ------------
+    save = run6['save']
+    npys = check_figures('main.py, 2 epochs', save, RUN_PNG,
+                         os.path.join(save, 'logs'))
+    require(all(f in npys for f in TRACE_NPY), f'main.py .npy: {npys}')
+    for f in TRACE_NPY:
+        vals = np.load(os.path.join(save, f))
+        require(vals.shape == (36,) and np.isfinite(vals).all(),
+                f'{f}: {vals.shape}')
+    plots = run6['plots']
+    require(plots['dynamics_train'].shape == (1, BATCH, T, q) and
+            plots['rollout'].shape == (1, 3, TROLL * T, 1, 28, 28) and all(
+                np.isfinite(v).all() for v in plots.values()),
+            f'final_plots {[v.shape for v in plots.values()]}')
+    with open(os.path.join(save, 'logs')) as f:
+        text = f.read()
+    require('--- vae params ---' in text and '--- gp params ---' in text,
+            'main.py logged no model summary')
+    state = run6['state']
+    log(f'  summaries: VAE {param_count(state.model)} parameters, GP '
+        f'{param_count(state.gp)}; ' + summarize(state.gp, 'gp params')
+        .splitlines()[-1].split()[-1] + ' GP total in the table')
+
+    # final_plots' latent trajectories and rollout, card vs CPU
+    cpu = dataclasses.replace(state, model=copy.deepcopy(state.model).cpu(),
+                              gp=state.gp.to('cpu'))
+    noise = step_noise(args.seed + 50, q, S, M, L_=1, batch=BATCH)
+    roll_noise = dict(noise, z0=noise['z0'][:3])
+    roll = trainer.make_eval_step(T_custom=TROLL * T)
+    errs = []
+    for what, fn in (
+            ('latent trajectories', lambda st, X, nz: train_cli
+             .latent_trajectories(st, X, noise=nz)),
+            (f'T={TROLL * T} rollout', lambda st, X, nz: roll(
+                st, X[:3], 1, noise=nz)[0])):
+        nz_np = noise if what.startswith('latent') else roll_noise
+        got, d = run_path(lambda: fn(state, batch, {
+            k: torch.as_tensor(v, dtype=torch.float32, device=batch.device)
+            for k, v in nz_np.items()}))
+        ref = fn(cpu, batch.cpu(), {k: torch.as_tensor(
+            v, dtype=torch.float32) for k, v in nz_np.items()})
+        err = float((got.cpu() - ref).abs().max())
+        errs.append(err)
+        require(d[flow_fused.KERNEL] == 1 and sum(d.values()) == 1,
+                f'final_plots {what} launched {d}')
+        log(f'  final_plots {what} {tuple(got.shape)}: card vs CPU with the '
+            f'same noise, max abs err {err:.3e} (tol {TOL_FORWARD:g}); '
+            f'launched {flow_fused.KERNEL} once')
+        require(err <= TOL_FORWARD, f'final_plots {what}: card vs CPU')
+    del cpu
+
+    # -- main_vae and evaluate with their figures --------------------------
+    vargs = main_vae.make_parser().parse_args([
+        '--vae_epochs', '1', '--output_path', os.path.join(work, 'vae'),
+        '--save', os.path.join(work, 'frames')])
+    t0 = time.perf_counter()
+    res, d = run_path(lambda: main_vae.run(vargs))
+    require(np.isfinite(res['test_mse']) and not any(d.values()),
+            f'main_vae: mse {res["test_mse"]}, launches {d}')
+    require(res['embeddings'][0].shape == (1024, q),
+            f'embeddings {res["embeddings"][0].shape}')
+    log(f'  main_vae, 1 epoch at its defaults: {time.perf_counter() - t0:.1f}'
+        f' s, reconstruction MSE {res["test_mse"]:.4f}, embeddings of '
+        f'{res["embeddings"][0].shape[0]} test frames')
+    check_figures('main_vae', res['output_path'], VAE_PNG,
+                  os.path.join(res['output_path'], 'logs'))
+    eval_log = os.path.join(work, 'evaluate.log')
+    handler = logging.FileHandler(eval_log)
+    logging.getLogger(evaluate.logger.name).addHandler(handler)
+    try:
+        res, d = run_path(lambda: evaluate.evaluate_one(
+            evaluate.make_parser().parse_args(['--model_path', save]), save))
+    finally:
+        logging.getLogger(evaluate.logger.name).removeHandler(handler)
+        handler.close()
+    require(np.isfinite(res['mse_mean']) and d[flow_fused.KERNEL] == 3,
+            f'evaluate: {res}, launches {d}')
+    npys = check_figures('evaluate', save, EVAL_PNG, eval_log)
+    require('eval/rollout.npy' in npys and 'eval/rollout_original.npy' in
+            npys, f'evaluate .npy: {npys}')
+
+    # -- the native rotation library ----------------------------------------
+    from scipy.ndimage import rotate as nd_rotate
+    t0 = time.perf_counter()
+    require(native.native_available(), 'the native rotation library did '
+            'not build on the card\'s machine')
+    built = time.perf_counter() - t0
+    img = np.random.default_rng(args.seed).random((28, 28)).astype(
+        np.float32)
+    angles = (0.0, 22.5, 90.0, 135.7, 270.0, -60.0)
+    rot_err = max(float(np.abs(native.rotate_bilinear(img, a) - np.clip(
+        nd_rotate(img, a, reshape=False, order=1), 0, 1)).max())
+        for a in angles)
+    seqs = native.make_rot_sequences(img[None], 8)
+    seq_err = max(float(np.abs(seqs[0, t] - np.clip(nd_rotate(
+        img, 45.0 * t, reshape=False, order=1), 0, 1)).max())
+        for t in range(8))
+    log(f'  native rotation: built and loaded in {built:.2f} s '
+        f'({os.path.basename(native.build.library_path())}); against scipy '
+        f'max abs err {rot_err:.2e} at {len(angles)} angles, {seq_err:.2e} '
+        f'over an 8-frame sequence (tol 1e-5)')
+    require(rot_err <= 1e-5 and seq_err <= 1e-5, 'native rotation vs scipy')
+
+    # -- data parallelism ----------------------------------------------------
+    jobs = dp_jobs(args, batch, 360.0)
+    dist.init_process_group('nccl', init_method='file://' + os.path.join(
+        work, 'nccl'), world_size=1, rank=0,
+        device_id=torch.device('cuda', 0))
+    dp_ms = {}
+    try:
+        for job in jobs:
+            res, d = run_path(lambda: dp_step(
+                job['model'], job['gp'], batch, job['noise'], 1,
+                {k: torch.as_tensor(v) for k, v in job['relu'].items()},
+                job['ndata']))
+            hold_dp('world size 1, NCCL', job, *res)
+        model, gp = dp_model(args.seed + 60, 'RBF')
+        st = trainer.create_train_state(model, gp)
+        step = make_shardmap_train_step(360.0, eps_guard=True)
+        single = trainer.make_train_step(360.0, eps_guard=True)
+        st1 = trainer.create_train_state(*dp_model(args.seed + 60, 'RBF'))
+        gen = torch.Generator(device='cuda').manual_seed(args.seed)
+        for name, fn in (('per-rank (NCCL, world size 1)',
+                          lambda: step(st, batch, L, gen)),
+                         ('single-device', lambda: single(st1, batch, L,
+                                                          gen))):
+            ms = cuda_ms(fn, 20)
+            prof = profile(fn, f'one {name} L={L} train step')
+            dp_ms[name] = f'{ms:.3f} ms, ' + (
+                f'busy {prof[0]:.3f} ms, idle share {prof[1]:.3f}' if prof
+                else 'busy not measured')
+    finally:
+        dist.destroy_process_group()
+    log(f'  train step, L={L}, batch {BATCH} (CUDA events over 20 steps; '
+        f'busy ms and idle share from torch.profiler): ' + '; '.join(
+            f'{k} {v}' for k, v in dp_ms.items()) + f'; card {card}')
+
+    job_path = os.path.join(work, 'dp_jobs.pkl')
+    with open(job_path, 'wb') as f:
+        pickle.dump([{k: v for k, v in j.items()
+                      if k not in ('ref', 'model', 'gp')} for j in jobs], f)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), '--dp-worker',
+         'file://' + os.path.join(work, 'gloo'), str(DP_WORLD), str(r),
+         job_path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(DP_WORLD)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0, f'data-parallel rank {r} failed:\n'
+                f'{out[-3000:]}')
+    log(f'  {DP_WORLD} ranks of gloo on cuda:0 (subprocesses): '
+        f'{time.perf_counter() - t0:.1f} s wall, start-up included')
+    for r in range(DP_WORLD):
+        with open(f'{job_path}.rank{r}', 'rb') as f:
+            res = pickle.load(f)
+        for job, out in zip(jobs, res):
+            hold_dp(f'rank {r} of {DP_WORLD}, gloo', job, out['loss'],
+                    out['grads'], out['launched'], *out['flips'])
+            for k, v in out['launched'].items():
+                launches[k] += v
+            log(f'    rank {r} ({job["kernel"]}): L={L} step {out["ms"]:.3f}'
+                f' ms wall (median of 5, host clock); card {card}')
+
+    # main.py --data_parallel True at world size 1: the single-device path
+    steps, seen = [], {}
+
+    def on_step(ep, L_):
+        from vae_gp_ode_tpu_torch import ops
+        now = dict(ops.LAUNCHES)
+        steps.append((ep, L_, deltas(seen, now)))
+        seen.update(now)
+
+    t0 = time.perf_counter()
+    res, d = run_path(lambda: train_cli.run(train_args(
+        os.path.join(work, 'dp1'), '--data_parallel', 'True'),
+        on_step=on_step))
+    require(res['bailout'] is None and res['parallel'] == (1, 0, None) and
+            len(steps) == 36, f'--data_parallel True: {res["parallel"]}, '
+            f'{len(steps)} steps')
+    for i, (ep, L_, dd) in enumerate(steps):
+        evals = 1 if i % 18 == 0 and ep > 0 else 0
+        require(dd[flow_fused.BWD_KERNEL] == 1 and dd[flow_fused.KERNEL] ==
+                1 + evals and not any(v for k, v in dd.items()
+                                      if not k.startswith('flow_fused')),
+                f'--data_parallel True step {i} launched {dd}')
+    log(f'  main.py --data_parallel True at world size 1: the single-device '
+        f'path, {len(steps)} steps in {time.perf_counter() - t0:.1f} s, '
+        f'every step launched {flow_fused.KERNEL} and '
+        f'{flow_fused.BWD_KERNEL} once; launches {d}')
+    log(f'phase 6i launches on its paths (counts set to 0 before each): '
+        f'{ {k: v for k, v in launches.items() if v} }')
+    return dp_ms
+
+
 def train_args(save, *extra):
     """The training CLI's arguments at the defaults of main.py, for
     TRAIN_EPOCHS epochs, writing under `save`, with `extra` flags."""
@@ -3582,7 +4046,13 @@ def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0)
+    ap.add_argument('--dp-worker', nargs=4, default=None,
+                    metavar=('INIT', 'WORLD', 'RANK', 'JOBS'),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.dp_worker:
+        init, world, rank, jobs = args.dp_worker
+        return dp_worker(init, int(world), int(rank), jobs)
 
     import numpy as np
     import torch
@@ -3875,6 +4345,10 @@ def main():
         steps) and np.isfinite(losses).all(), f'losses {losses}')
     mses = [float(e['mse']) for e in result['epochs']]
     require(np.isfinite(mses).all(), f'monitoring mse {mses}')
+    # after the steps and evals, final_plots' two latent trajectories and
+    # rollout launch the trajectory kernel once each
+    require(train_launches[flow_fused.KERNEL] == len(steps) + TRAIN_EPOCHS
+            + 3, f'run() launched {train_launches}')
     log(f'  {len(steps)} train steps + {TRAIN_EPOCHS} monitoring evals in '
         f'{train_s:.1f} s (data, model and first-call set-up included); '
         f'every step launched {flow_fused.KERNEL} and '
@@ -3957,6 +4431,10 @@ def main():
     art_launches = {k: 0 for k in ops.LAUNCHES}
     serving_artifacts(args, card, art_launches)
 
+    # -- 6i. plots, the native rotation and data parallelism ---------------
+    dp_launches = {k: 0 for k in ops.LAUNCHES}
+    plots_native_parallel(args, card, batch, result, dp_launches)
+
     # -- 7. timings --------------------------------------------------------
     with torch.no_grad():
         ms_kernel = cuda_ms(
@@ -4021,7 +4499,7 @@ def main():
     # launches: each path run's, counts set to 0 just before it
     runs = (serve_launches, train_launches, slice_launches, df_launches,
             wide_launches, dfw_launches, pre_launches, shared_launches,
-            art_launches)
+            art_launches, dp_launches)
     total = {k: sum(d[k] for d in runs) for k in ops.LAUNCHES}
     # #3-#6: the largest error of phases 6b/6c and of 6d's sweep shapes
     errs = kern['errs']

@@ -27,6 +27,7 @@ from vae_gp_ode_tpu_torch.dynamics import adjoint as tadj
 from vae_gp_ode_tpu_torch.dynamics import flow as tflow
 from vae_gp_ode_tpu_torch.gp import svgp as tsvgp
 from vae_gp_ode_tpu_torch.utils.jax_import import gp_from_jax
+import torch_threads  # noqa: F401
 
 Q, S, M, N, T, L = 3, 16, 8, 4, 5, 2
 GRAD_REL = 1e-4

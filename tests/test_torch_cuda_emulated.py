@@ -32,6 +32,7 @@ import torch
 
 from vae_gp_ode_tpu_torch.ops import _build, df_pathwise
 from vae_gp_ode_tpu_torch.ops import df_pathwise_tiled as tdpt
+import torch_threads  # noqa: F401
 
 SHIM = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                     'cuda_emulation')

@@ -33,6 +33,7 @@ from vae_gp_ode_tpu_torch.ops import df_pathwise
 from emulated_df_common import (
     DEV0, _assert_cotangents, _fwd_plan, _operands, emulated)  # noqa: F401
 from test_torch_cuda_emulated import TOL, build_emulated
+import torch_threads  # noqa: F401
 
 NAMES = ('df_pathwise_fwd', 'df_pathwise_bwd')
 

@@ -26,6 +26,7 @@ from emulated_df_common import (
     DEV0, VJP_PLANS, _assert_cotangents, _fwd_plan, _operands,
     emulated)  # noqa: F401
 from test_torch_cuda_emulated import TOL, build_emulated
+import torch_threads  # noqa: F401
 
 NAMES = ('df_pathwise_fwd', 'df_pathwise_bwd', 'df_flow_fused',
          'df_flow_fused_bwd')

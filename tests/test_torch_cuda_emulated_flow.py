@@ -34,6 +34,7 @@ from vae_gp_ode_tpu_torch.ops import _build, flow_fused
 
 from test_torch_cuda_emulated import TOL, build_emulated
 from test_torch_flow import H100_SMEM_OPTIN, _bwd_smem_bytes
+import torch_threads  # noqa: F401
 
 NAMES = ('flow_fused', 'flow_fused_bwd')
 DEV0 = types.SimpleNamespace(index=0, type='cuda')

@@ -17,6 +17,7 @@ from vae_gp_ode_tpu_torch.ops import flow_fused
 from test_torch_cuda_emulated import TOL
 from test_torch_cuda_emulated_flow import (  # noqa: F401
     CASES, DEV0, _case, emulated, libs, optin)
+import torch_threads  # noqa: F401
 
 
 def _assert_cotangents(bars, refs):

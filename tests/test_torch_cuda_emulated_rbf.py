@@ -28,6 +28,7 @@ from vae_gp_ode_tpu_torch.ops import pathwise as tpw
 from vae_gp_ode_tpu_torch.ops import pathwise_tiled as tpt
 
 from test_torch_cuda_emulated import TOL, build_emulated
+import torch_threads  # noqa: F401
 
 NAMES = ('pathwise_fwd', 'pathwise_tiled_bwd')
 

@@ -36,6 +36,7 @@ from vae_gp_ode_tpu_torch.ops import pathwise_tiled as tpt
 
 from test_torch_cuda_emulated import build_emulated
 from test_torch_cuda_emulated_rbf import TOL, _assert_close, _operands
+import torch_threads  # noqa: F401
 
 NAMES = ('pathwise_bwd', 'pathwise_tiled_fwd')
 

@@ -19,6 +19,7 @@ from vae_gp_ode_tpu.data import synthetic as jsynthetic
 
 from vae_gp_ode_tpu_torch.data import mnist as tmnist
 from vae_gp_ode_tpu_torch.data import synthetic as tsynthetic
+import torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize('kw', [

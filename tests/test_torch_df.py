@@ -51,6 +51,7 @@ from vae_gp_ode_tpu_torch.utils.jax_import import (
 )
 
 import test_torch_train as ttr
+import torch_threads  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 VJP_REL = 1e-5

@@ -31,6 +31,7 @@ from vae_gp_ode_tpu.ops.df_pathwise_tiled import (
 
 from vae_gp_ode_tpu_torch.ops import df_pathwise
 from vae_gp_ode_tpu_torch.ops import df_pathwise_tiled as tdpt
+import torch_threads  # noqa: F401
 
 FWD_TOL = dict(rtol=2e-4, atol=2e-5)
 VJP_TOL = dict(rtol=2e-3, atol=1e-5)

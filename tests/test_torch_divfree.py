@@ -26,6 +26,7 @@ from vae_gp_ode_tpu.kernels import rbf as jrbf
 from vae_gp_ode_tpu_torch.core.transforms import invsoftplus
 from vae_gp_ode_tpu_torch.kernels import divfree as tdf
 from vae_gp_ode_tpu_torch.kernels import rbf as trbf
+import torch_threads  # noqa: F401
 
 D, S, M, N, L = 3, 16, 8, 5, 2
 TIGHT = dict(rtol=1e-6, atol=1e-6)

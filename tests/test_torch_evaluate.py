@@ -31,6 +31,7 @@ from vae_gp_ode_tpu_torch.training import checkpoint, trainer
 
 from test_torch_train import (
     L, M, NF, Q, S, _X, _jax_noise, _jax_state, _port_state)
+import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DF_RUN = os.path.join(ROOT, 'checkpoints', 'df_5000ep')
@@ -170,7 +171,8 @@ def test_pretrained_workflow_end_to_end(tmp_path, capsys):
     (row,) = json.loads(lines[2])
     assert list(row) == _jax_keys() and np.isfinite(row['mse_mean'])
     assert sorted(os.listdir(os.path.join(result['save'], 'eval'))) == [
-        'rollout.npy', 'rollout_original.npy']
+        'rollout.npy', 'rollout.png', 'rollout_original.npy',
+        'rollout_original.png']
 
 
 def test_evaluate_needs_a_run():

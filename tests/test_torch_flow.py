@@ -26,6 +26,7 @@ from vae_gp_ode_tpu_torch.gp import svgp as tsvgp
 from vae_gp_ode_tpu_torch.kernels.rbf import RBFParams
 from vae_gp_ode_tpu_torch.ops import flow_fused as tff
 from vae_gp_ode_tpu_torch.utils.jax_import import gp_from_jax
+import torch_threads  # noqa: F401
 
 Q, S, M, N, T, L = 3, 32, 16, 5, 8, 2
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -25,6 +25,7 @@ from vae_gp_ode_tpu_torch.gp import svgp as tsvgp
 from vae_gp_ode_tpu_torch.kernels import rbf as trbf
 from vae_gp_ode_tpu_torch.dynamics import flow as tflow
 from vae_gp_ode_tpu_torch.utils.jax_import import gp_from_jax
+import torch_threads  # noqa: F401
 
 Q, S, M, N, L = 3, 32, 16, 5, 2
 TIGHT = dict(rtol=1e-6, atol=1e-6)    # elementwise and small reductions

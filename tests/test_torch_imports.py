@@ -9,6 +9,7 @@ import sys
 
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, 'vae_gp_ode_tpu_torch')
@@ -63,7 +64,11 @@ def test_every_module_imports_with_jax_blocked():
                 'ops.pathwise_tiled', 'ops.df_pathwise_tiled',
                 'kernels.divfree', 'dynamics.solvers', 'dynamics.adjoint',
                 'utils.jax_import', 'utils.torch_import', 'evaluate',
-                'main_vae', 'serving', 'serve_http', 'ops.library'):
+                'main_vae', 'serving', 'serve_http', 'ops.library',
+                'utils.io', 'utils.summary', 'utils.plotting', 'native',
+                'native.build', 'parallel', 'parallel.shard_dp',
+                'parallel.data_parallel', 'parallel.feature_parallel',
+                'core.collectives'):
         assert f'vae_gp_ode_tpu_torch.{mod}' in _port_modules()
     code = (
         'import sys\n'

@@ -36,6 +36,7 @@ from vae_gp_ode_tpu_torch.training.objectives import (
     compute_loss, compute_test_error, elbo_terms,
 )
 from vae_gp_ode_tpu_torch.utils.jax_import import from_jax
+import torch_threads  # noqa: F401
 
 Q, NF, S, M, N, T, L = 3, 4, 32, 16, 5, 8, 2
 TOL = dict(rtol=1e-5, atol=1e-5)

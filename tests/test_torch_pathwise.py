@@ -21,6 +21,7 @@ from vae_gp_ode_tpu.ops import pathwise as jpw
 from vae_gp_ode_tpu_torch import ops
 from vae_gp_ode_tpu_torch.gp import svgp as tsvgp
 from vae_gp_ode_tpu_torch.ops import pathwise as tpw
+import torch_threads  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 VJP_REL = 1e-5

@@ -62,6 +62,7 @@ from test_torch_import import (
 from test_torch_train import (
     L, M, NDATA, NF, Q, S, _X, _bn_named, _gp_np, _jax_noise,
     _jax_state, _named)
+import torch_threads  # noqa: F401
 
 ROT = 1e-5          # scipy's rotation against the JAX package's native one
 OUT = 1e-5          # eval outputs from imported weights

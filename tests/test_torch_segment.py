@@ -22,6 +22,7 @@ from vae_gp_ode_tpu_torch.models.odegpvae import init_model
 from vae_gp_ode_tpu_torch.training import checkpoint
 
 from test_torch_train import _cli_args
+import torch_threads  # noqa: F401
 
 Q, NF = 3, 4
 

@@ -32,6 +32,7 @@ from vae_gp_ode_tpu.training.trainer import (
 
 from vae_gp_ode_tpu_torch import ops, serving
 from vae_gp_ode_tpu_torch.ops import library
+import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

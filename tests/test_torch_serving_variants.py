@@ -17,6 +17,7 @@ import jax
 
 from serving_common import N, T, TOL, jax_noise, live, models, raw
 from vae_gp_ode_tpu_torch import serving
+import torch_threads  # noqa: F401
 
 BF16_TOL = 0.05
 

@@ -50,6 +50,7 @@ from vae_gp_ode_tpu_torch.utils.jax_import import gp_from_jax
 from test_torch_train import (
     NDATA, NF, _X, _cli_args, _grad_scales, _named, _np_state, _port_state,
 )
+import torch_threads  # noqa: F401
 
 Q, S, M, N, T, L = 3, 32, 16, 5, 6, 2
 TIGHT = dict(rtol=1e-6, atol=1e-6)

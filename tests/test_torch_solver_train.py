@@ -21,6 +21,7 @@ from vae_gp_ode_tpu_torch.training import trainer
 from vae_gp_ode_tpu_torch.utils.jax_import import train_state_from_jax
 
 import test_torch_train as ttr
+import torch_threads  # noqa: F401
 
 GRAD_REL = 1e-4
 

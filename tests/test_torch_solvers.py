@@ -35,6 +35,7 @@ from vae_gp_ode_tpu_torch.dynamics import solvers as tsolvers
 from vae_gp_ode_tpu_torch.gp import svgp as tsvgp
 from vae_gp_ode_tpu_torch.ops import pathwise as tpw
 from vae_gp_ode_tpu_torch.utils.jax_import import gp_from_jax
+import torch_threads  # noqa: F401
 
 Q, S, M, N, T = 3, 16, 8, 4, 6
 FIXED_TOL = dict(rtol=1e-5, atol=1e-6)

@@ -40,7 +40,6 @@ from vae_gp_ode_tpu.ops.df_pathwise_tiled import (
 from vae_gp_ode_tpu.ops.pathwise_tiled import (
     tiled_pathwise_eval as jax_tiled_rbf)
 from vae_gp_ode_tpu.training import trainer as jtrainer
-from vae_gp_ode_tpu.training.objectives import compute_loss as jcompute_loss
 
 from vae_gp_ode_tpu_torch import ops
 from vae_gp_ode_tpu_torch.dynamics import flow as tflow
@@ -54,6 +53,7 @@ from vae_gp_ode_tpu_torch.utils.jax_import import train_state_from_jax
 
 import test_torch_train as ttr
 from emulated_df_common import VJP_PLANS
+import torch_threads  # noqa: F401
 
 FWD_TOL = dict(rtol=2e-4, atol=2e-5)
 RBF_VJP_TOL = dict(rtol=1e-3, atol=1e-5)
@@ -476,19 +476,11 @@ def _jax_wide_noise(key, L_, kernel, q=Q, s=S, m=M):
 
 def _jax_step(model, jstate, X, key, L_):
     """JAX's train step from `jstate` on X (L_ draws from `key`): loss,
-    (nll, kl_reg, kl_u), nfe and the gradients by the port's names."""
-    def jloss(params):
-        vae_params, gp = params
-        (Xrec, s_, v, nfe), _ = model.apply(
-            {'params': vae_params, 'batch_stats': jstate.batch_stats},
-            jnp.asarray(X), gp, key, L=L_, train=True,
-            mutable=['batch_stats'])
-        loss, nll, kl_reg, kl_u = jcompute_loss(
-            jnp.asarray(X), Xrec, s_, v, gp, ttr.NDATA, eps_guard=True)
-        return loss, (nll, kl_reg, kl_u, nfe)
-
-    (jl, jterms), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
-        (jstate.vae_params, jstate.gp))
+    (nll, kl_reg, kl_u), nfe and the gradients by the port's names
+    (`ttr.jax_loss_and_grads`, compiled once per shape and dtype)."""
+    (jl, jterms), jg = ttr.jax_loss_and_grads(
+        model, (jstate.vae_params, jstate.gp), jstate.batch_stats,
+        jnp.asarray(X), key, ttr.NDATA, L_)
     return (float(jl), [float(t) for t in jterms[:3]], int(jterms[3]),
             ttr._named(*jg))
 

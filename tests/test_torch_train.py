@@ -18,6 +18,7 @@ arithmetic is optax's, op for op). Forward outputs 1e-5, ELBO terms 1e-4
 relative.
 """
 
+import functools
 import os
 
 import numpy as np
@@ -44,6 +45,7 @@ from vae_gp_ode_tpu_torch.training.objectives import compute_test_error
 from vae_gp_ode_tpu_torch.utils.jax_import import (
     _vae_from_jax, gp_from_jax, train_state_from_jax,
 )
+import torch_threads  # noqa: F401
 
 Q, NF, S, M, N, T, L = 3, 4, 32, 16, 5, 8, 2
 NDATA = 360.0
@@ -155,6 +157,25 @@ def _jax_noise(key, order, n=N):
     for name in draws[0]:
         noise[name] = jnp.stack([d[name] for d in draws])
     return {k: torch.as_tensor(np.array(v)) for k, v in noise.items()}
+
+
+@functools.partial(jax.jit, static_argnums=(0, 5, 6))
+def jax_loss_and_grads(model, params, batch_stats, X, key, ndata, L_):
+    """jax.value_and_grad of the JAX train step's loss_fn at `params`
+    (vae params, SVGP): (loss, (nll, kl_reg, kl_u, nfe, new batch_stats)),
+    grads. One compilation per model, batch shape, dtype and L, whatever
+    the state, data and key (tests/test_torch_tiled.py calls it for eight
+    states of one shape, in f32 and in float64)."""
+    def jloss(params):
+        vae_params, gp = params
+        (Xrec, s, v, nfe), upd = model.apply(
+            {'params': vae_params, 'batch_stats': batch_stats}, X, gp, key,
+            L=L_, train=True, mutable=['batch_stats'])
+        loss, nll, kl_reg, kl_u = jcompute_loss(X, Xrec, s, v, gp, ndata,
+                                                eps_guard=True)
+        return loss, (nll, kl_reg, kl_u, nfe, upd['batch_stats'])
+
+    return jax.value_and_grad(jloss, has_aux=True)(params)
 
 
 def _X(seed, n=N):
@@ -546,6 +567,16 @@ def _cli_args(tmp_path, *extra):
         '--save', str(tmp_path / 'run'), *extra])
 
 
+#: what JAX main.py writes into its run directory (main(), final_plots),
+#: for an order-1 run
+RUN_FILES = ['args.json', 'elbo.npy', 'inducingkl.npy', 'logs', 'nll.npy',
+             'odegpvae_mnist.ckpt', 'plots', 'zkl.npy']
+RUN_PLOTS = ['data.png', 'dynamics_test_state.png',
+             'dynamics_train_state.png', 'hyperparams.png',
+             'optimization_trace.png', 'rollout.png', 'rollout_original.png',
+             'rot_mnist.png']
+
+
 def test_cli_run_trains_and_checkpoints(tmp_path):
     """run() at a tiny size on the CPU: two epochs (L=1, then L=5) of 3
     steps each (two batches of 4 and a tail of 2), finite metrics, a
@@ -561,8 +592,9 @@ def test_cli_run_trains_and_checkpoints(tmp_path):
         assert row['loss'].shape == (3,) and np.isfinite(row['loss']).all()
         assert np.isfinite(row['mse'])
     assert int(result['state'].step) == 6
-    assert sorted(os.listdir(result['save'])) == [
-        'args.json', 'logs', 'odegpvae_mnist.ckpt']
+    assert sorted(os.listdir(result['save'])) == RUN_FILES
+    assert sorted(os.listdir(os.path.join(result['save'], 'plots'))) == \
+        RUN_PLOTS
     restored = checkpoint.restore_checkpoint(
         result['ckpt'], trainer.create_train_state(*init_model(
             0, latent_dim=Q, n_filt=NF, num_features=S, num_inducing=M,
@@ -572,13 +604,21 @@ def test_cli_run_trains_and_checkpoints(tmp_path):
 
 @pytest.mark.parametrize('flag', [['--data_parallel', 'True']])
 def test_cli_refuses_paths_not_ported(tmp_path, flag):
-    """Paths not ported yet raise (the solver flags, --kernel DF,
-    --pretrained, --dimwise False and --epochs_per_dispatch are ported:
+    """No path is refused any more (the solver flags, --kernel DF,
+    --pretrained, --dimwise False and --epochs_per_dispatch:
     test_cli_runs_the_solver_flags, test_cli_trains_from_a_pretrained_vae,
-    tests/test_torch_shared_rbf.py, tests/test_torch_segment.py)."""
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tmain.run(_cli_args(tmp_path, *flag))
-    assert not os.path.exists(tmp_path / 'run')
+    tests/test_torch_shared_rbf.py, tests/test_torch_segment.py; the last,
+    --data_parallel, here): --data_parallel True at world size 1 runs the
+    single-device path, bit for bit (2 ranks under torchrun:
+    tests/test_torch_parallel.py)."""
+    ran = tmain.run(_cli_args(tmp_path, *flag))
+    ref = tmain.run(_cli_args(tmp_path / 'ref'))
+    assert ran['parallel'] == (1, 0, None)
+    for a, b in zip(ran['epochs'], ref['epochs']):
+        for k in ('loss', 'nll', 'kl_reg', 'kl_u', 'mse'):
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    for a, b in zip(ran['state'].params(), ref['state'].params()):
+        assert torch.equal(a, b)
 
 
 def test_cli_trains_from_a_pretrained_vae(tmp_path):

@@ -5,12 +5,17 @@ Without `rot-mnist.mat` in the repository, both packages train on
 procedurally drawn '3'-like glyphs rotated through T uniform angles: the
 shapes, value range and rotation structure of rot-MNIST, as sequences for
 coupled training and as flat frames for VAE pretraining. Rotation is
-scipy's (bilinear, `reshape=False`, clipped to [0, 1]); the JAX package's
-native C++ rotation matches it to 1e-5 and is not ported (ROADMAP Queue A
-[A9]).
+bilinear about the image centre (`reshape=False`, zero fill), by the
+port's native C++ library (`native`, built with g++ at first use) where
+it builds, else by scipy.ndimage.rotate clipped to [0, 1], which agrees
+with it to 1e-5; the generators log when they fall back to scipy.
 """
 
+import logging
+
 import numpy as np
+
+logger = logging.getLogger(__name__)
 
 
 def _draw_digit3(rng, size=28):
@@ -36,11 +41,26 @@ def _draw_digit3(rng, size=28):
     return img
 
 
-def rotate_image(img, angle_deg):
-    """Rotate one (H, W) image by `angle_deg` (scipy.ndimage.rotate,
-    bilinear, reshape=False), clipped to [0, 1]."""
+def rotate_image(img, angle_deg, prefer_native=True):
+    """Rotate one (H, W) image by `angle_deg` (scipy.ndimage.rotate
+    conventions, bilinear, reshape=False): by the native library where
+    `prefer_native` and it builds, else by scipy, clipped to [0, 1]."""
+    if prefer_native:
+        from vae_gp_ode_tpu_torch import native
+        if native.native_available():
+            return native.rotate_bilinear(img, angle_deg)
     from scipy.ndimage import rotate
     return np.clip(rotate(img, angle_deg, reshape=False, order=1), 0.0, 1.0)
+
+
+def _native_or_log():
+    """Whether the native library is there; logs the fall back to scipy
+    where it is not."""
+    from vae_gp_ode_tpu_torch import native
+    if native.native_available():
+        return True
+    logger.info('native rotation library unavailable: rotating with scipy')
+    return False
 
 
 def make_rotating_sequences(n_sequences, T=16, size=28, seed=0,
@@ -62,12 +82,16 @@ def make_rotating_sequences(n_sequences, T=16, size=28, seed=0,
     else:
         offsets = rng.uniform(0, 360, n_sequences).astype(np.float32)
 
+    if _native_or_log():
+        from vae_gp_ode_tpu_torch import native
+        X = native.make_rot_sequences(bases, T, offsets)
+        return X.reshape(n_sequences, T, size * size)
     X = np.zeros((n_sequences, T, size * size), np.float32)
     angles = np.arange(T) * (360.0 / T)
     for n in range(n_sequences):
         for t in range(T):
-            X[n, t] = rotate_image(bases[n],
-                                   angles[t] + offsets[n]).reshape(-1)
+            X[n, t] = rotate_image(bases[n], angles[t] + offsets[n],
+                                   prefer_native=False).reshape(-1)
     return X
 
 
@@ -79,9 +103,10 @@ def make_rotating_frames(n_digits, n_angles=16, size=28, seed=0):
     rng = np.random.RandomState(seed)
     angles = np.rad2deg(np.linspace(0, 2 * np.pi, n_angles)[1:])
     out = np.zeros((n_digits, n_angles, 1, size, size), np.float32)
+    native = _native_or_log()
     for n in range(n_digits):
         base = _draw_digit3(rng, size)
         out[n, 0, 0] = base
         for i, a in enumerate(angles):
-            out[n, i + 1, 0] = rotate_image(base, a)
+            out[n, i + 1, 0] = rotate_image(base, a, prefer_native=native)
     return out

@@ -20,7 +20,7 @@ import torch
 
 from vae_gp_ode_tpu_torch.core.device import check_device, resolve_device
 from vae_gp_ode_tpu_torch.dynamics.solvers import SOLVERS, odeint
-from vae_gp_ode_tpu_torch.gp.svgp import SVGPParams, FnSample, fn_eval
+from vae_gp_ode_tpu_torch.gp.svgp import SVGPParams, FnSample, fn_eval, svgp_kl
 
 
 def make_ode_rhs(gp: SVGPParams, sample: FnSample, order: int):
@@ -105,3 +105,8 @@ def flow_forward(gp: SVGPParams, sample: FnSample, z0, ts, order=1,
                  dense=dense, rtol=rtol, atol=atol, max_steps=max_steps,
                  remat=remat, batched=bool(lead))
     return sol.zs.movedim(0, -2), sol.nfe
+
+
+def flow_kl(gp: SVGPParams):
+    """Inducing-posterior KL, KL(q(u) || p(u)) (JAX `dynamics.flow_kl`)."""
+    return svgp_kl(gp)

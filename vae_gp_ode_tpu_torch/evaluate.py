@@ -13,8 +13,10 @@ reconstruction error, `compute_mse_std`; `mse_floor`, the data's floor of
 that metric, `sigmoid_floor_mse`; the keys of the JAX script); several
 print a comparison table and one JSON list. The --Troll x T rollout of the
 first three test sequences is written as `<run>/eval/rollout.npy` (L=1,
-(1, 3, Troll T, 1, 28, 28)) beside `rollout_original.npy`; the PNG plots
-are not ported (ROADMAP Queue A [A12]).
+(1, 3, Troll T, 1, 28, 28)) beside `rollout_original.npy`, and drawn as
+JAX `evaluate.py` draws it, `rollout.png` and `rollout_original.png`
+(left out, with one log line naming them, where matplotlib does not
+import).
 """
 
 import argparse
@@ -90,6 +92,7 @@ def evaluate_one(args, model_path, noise=None):
     from vae_gp_ode_tpu_torch.data.mnist import load_data
     from vae_gp_ode_tpu_torch.serving import load_run_dir
     from vae_gp_ode_tpu_torch.training.trainer import make_eval_step
+    from vae_gp_ode_tpu_torch.utils import plotting
 
     model, state, ta = load_run_dir(model_path, device=args.device)
     _, testset = load_data(ta, device=state.step.device)
@@ -106,12 +109,15 @@ def evaluate_one(args, model_path, noise=None):
     Xroll, _ = roll(state, test_batch, 1, generator)
     out_dir = os.path.join(model_path, 'eval')
     os.makedirs(out_dir, exist_ok=True)
-    np.save(os.path.join(out_dir, 'rollout_original.npy'),
-            test_batch.cpu().numpy())
-    np.save(os.path.join(out_dir, 'rollout.npy'), Xroll.cpu().numpy())
-    logger.info('rollout written to %s/rollout.npy; plots are not ported '
-                '(ROADMAP Queue A [A12]; the card\'s machine has no '
-                'matplotlib)', out_dir)
+    original, rollout = test_batch.cpu().numpy(), Xroll.cpu().numpy()
+    np.save(os.path.join(out_dir, 'rollout_original.npy'), original)
+    np.save(os.path.join(out_dir, 'rollout.npy'), rollout)
+    figures = [os.path.join(out_dir, f) for f in ('rollout_original.png',
+                                                  'rollout.png')]
+    plotting.plot_data(original, fname=figures[0], size=3)
+    plotting.plot_rollout(rollout, fname=figures[1])
+    logger.info('rollout written to %s/rollout.npy', out_dir)
+    plotting.log_left_out(logger, figures)
 
     floor_mean, floor_std = sigmoid_floor_mse(testset.X.cpu().numpy())
     return {

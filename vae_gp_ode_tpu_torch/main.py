@@ -23,15 +23,31 @@ epoch each, or with --epochs_per_dispatch E > 1, E epochs where no
 checkpoint epoch or the L switch falls inside them (`segment_length`),
 with the bits of E single epochs. Metrics stay on the device until a
 flush (once at least max(E, --epochs_per_fetch) epochs wait, and before
-each checkpoint), where the NaN policy reads them. A flag of a path the
-port does not have yet raises NotImplementedError naming its ROADMAP item
-when set away from its default. Plots are not ported. `run(args)` runs
-in-process and returns what it did.
+each checkpoint), where the NaN policy reads them.
+
+The run directory holds JAX `main.py`'s files: `args.json`, `logs`, the
+checkpoint, `plots/data.png` (the first training batch),
+`plots/rot_mnist.png` (the monitoring eval's reconstructions, at every
+checkpoint), and at the end (`final_plots`, also after a NaN bailout) the
+loss traces `elbo.npy`, `nll.npy`, `zkl.npy`, `inducingkl.npy` with
+`plots/optimization_trace.png`, `plots/hyperparams.png`, the latent PCA
+`plots/dynamics_{train,test}_state.png` (and `_velocity` for order 2) and
+the --Troll x T rollout of three test sequences,
+`plots/rollout_original.png` and `plots/rollout.png`. Where matplotlib
+does not import, the PNGs are left out, the rest is written, and the log
+names the figures left out in one line.
+
+--data_parallel True under `torchrun --nproc_per_node R` (world size R >
+1) trains with the per-rank step of `parallel.shard_dp`: every rank loads
+the same data and state, trains on its share of each batch and applies
+the same update; rank 0 writes the run directory. The process group is
+NCCL where each rank has a GPU of its own, else gloo (ranks sharing one
+GPU, or the CPU). At world size 1 the flag runs the single-device path,
+as JAX's does on one device. `run(args)` runs in-process and returns what
+it did.
 """
 
 import argparse
-import json
-import logging
 import os
 import sys
 import time
@@ -104,10 +120,12 @@ def make_parser():
     a('--nan_policy', type=str, default='bailout',
       choices=['bailout', 'skip'])
     a('--plot_freq', type=int, default=10,
-      help='epochs between checkpoints (plots are not ported)')
+      help='epochs between checkpoints and reconstruction plots')
     a('--data_parallel', type=eval, default=False)
     a('--dp_impl', type=str, default='auto',
-      choices=['auto', 'shardmap', 'gspmd'])
+      choices=['auto', 'shardmap', 'gspmd'],
+      help='JAX main.py\'s choice of data-parallel step; the port has one '
+           '(parallel.shard_dp), which every value runs')
     a('--fast_epoch', type=eval, default=True,
       help='a dispatch knob of the JAX main.py; no counterpart here')
     a('--epochs_per_dispatch', type=int, default=1)
@@ -119,21 +137,8 @@ def make_parser():
     return p
 
 
-#: flags of paths not ported yet: (flag, default test, ROADMAP item)
-_NOT_PORTED = (
-    ('--data_parallel', lambda a: not a.data_parallel,
-     'Queue A [A13] (data parallel)'),
-)
-
-
 def check_supported(args):
-    """Raise NotImplementedError for a flag of a path the port does not
-    have, set away from its default, and ValueError for flags that do not
-    fit together."""
-    for flag, is_default, item in _NOT_PORTED:
-        if not is_default(args):
-            raise NotImplementedError(
-                f'{flag} is not ported yet (ROADMAP {item})')
+    """Raise ValueError for flags that do not fit together."""
     if args.kernel == 'DF' and (args.ode != 1 or args.D_in != args.D_out):
         raise ValueError(
             f'DF kernel requires D_in == D_out (a first-order ODE), got '
@@ -194,16 +199,84 @@ def load_pretrained_vae(model, vae_path):
     return torch_import.vae_from_torch(model, *sds)
 
 
-def run_logger(logpath):
-    logger = logging.getLogger('vae_gp_ode_tpu_torch')
-    logger.setLevel(logging.INFO)
-    logger.handlers.clear()
-    fmt = logging.Formatter('%(asctime)s %(message)s')
-    for h in (logging.FileHandler(logpath), logging.StreamHandler()):
-        h.setFormatter(fmt)
-        logger.addHandler(h)
-    logger.propagate = False
-    return logger
+def data_parallel_group(args, dev):
+    """With --data_parallel True under torchrun (WORLD_SIZE > 1): join the
+    process group (NCCL where every rank has a GPU of its own, else gloo)
+    and return (world size, rank, this rank's device, backend); else
+    (1, 0, dev, None). A rank on the GPU takes cuda:<LOCAL_RANK modulo the
+    GPUs>."""
+    import torch
+    import torch.distributed as dist
+    world = int(os.environ.get('WORLD_SIZE', '1'))
+    if not args.data_parallel or world == 1:
+        return 1, 0, dev, None
+    if dev.type == 'cuda':
+        n_gpu = torch.cuda.device_count()
+        dev = torch.device('cuda', int(os.environ.get('LOCAL_RANK', '0'))
+                           % n_gpu)
+        torch.cuda.set_device(dev)
+        backend = 'nccl' if n_gpu >= world else 'gloo'
+    else:
+        backend = 'gloo'
+    if not dist.is_initialized():
+        dist.init_process_group(backend, device_id=(
+            dev if backend == 'nccl' else None))
+    return dist.get_world_size(), dist.get_rank(), dev, dist.get_backend()
+
+
+def latent_trajectories(state, batch, generator=None, noise=None):
+    """Encode with eval-mode BatchNorm and integrate one GP draw, no
+    decode: the latent trajectories (1, N, T, D) of the latent-dynamics
+    plots. `noise` (the model's raw draws) or `generator` gives the
+    draws."""
+    import torch
+    model = state.model.eval()
+    with torch.no_grad():
+        reparam = None if noise is None else (noise['z0'], noise.get('v0'))
+        z0, _, _ = model.encode(batch, generator, reparam_noise=reparam)
+        ztL, _ = model.sample_trajectories(state.gp, z0, batch.shape[1], 1,
+                                           generator, noise=noise)
+    return ztL
+
+
+def final_plots(logger, args, save, state, trainset, testset, meters,
+                generator):
+    """The end-of-run figures of JAX `main.py`: the loss traces (and
+    their .npy dumps), the GP variance trace, the latent PCA of the first
+    train and test batch, and the --Troll x T rollout of three test
+    sequences (L=1). Returns the arrays it plotted: 'dynamics_train',
+    'dynamics_test' (1, N, T, D), 'rollout_original' (3, T, 1, d, d) and
+    'rollout' (1, 3, Troll T, 1, d, d), as host numpy, and 'figures', the
+    PNG paths it asked for."""
+    from vae_gp_ode_tpu_torch.training.trainer import make_eval_step
+    from vae_gp_ode_tpu_torch.utils import plotting
+    elbo_m, nll_m, zkl_m, ukl_m, hyp_m = meters
+    plots = os.path.join(save, 'plots')
+    plotting.plot_trace(elbo_m, nll_m, zkl_m, ukl_m, save)
+    plotting.plot_params(hyp_m, save)
+    out = {'figures': [os.path.join(plots, 'optimization_trace.png'),
+                       os.path.join(plots, 'hyperparams.png')]}
+    parts = ['state'] + (['velocity'] if args.ode == 2 else [])
+    for name, loader in (('train', trainset), ('test', testset)):
+        ztL = latent_trajectories(state, loader.first(), generator)
+        out[f'dynamics_{name}'] = ztL.cpu().numpy()
+        fname = os.path.join(plots, f'dynamics_{name}')
+        plotting.plot_latent_dynamics(out[f'dynamics_{name}'], order=args.ode,
+                                      fname=fname)
+        out['figures'] += [f'{fname}_{p}.png' for p in parts]
+    test_batch = testset.first()[:3]
+    out['rollout_original'] = test_batch.cpu().numpy()
+    plotting.plot_data(out['rollout_original'], size=3,
+                       fname=os.path.join(plots, 'rollout_original.png'))
+    Xroll, _ = make_eval_step(T_custom=args.Troll * args.T)(
+        state, test_batch, 1, generator)
+    out['rollout'] = Xroll.cpu().numpy()
+    plotting.plot_rollout(out['rollout'],
+                          fname=os.path.join(plots, 'rollout.png'))
+    out['figures'] += [os.path.join(plots, f) for f in (
+        'rollout_original.png', 'rollout.png')]
+    logger.info('Final plots written to %s', plots)
+    return out
 
 
 def run(args, on_step=None):
@@ -216,8 +289,11 @@ def run(args, on_step=None):
     per step and the monitoring mse), 'segments' ((first epoch, epochs)
     of every segment run), 'ckpt_epochs' (the epochs after which a
     checkpoint was written), 'frozen_checks' (how often the frozen VAE's
-    weights were checked) and 'bailout' (the epoch of a NaN bailout, or
-    None).
+    weights were checked), 'bailout' (the epoch of a NaN bailout, or
+    None), 'plots' (what `final_plots` returned), 'figures' (every PNG
+    path the run asked for) and 'parallel' ((world size, rank, backend);
+    backend None at world size 1). Under data parallelism every rank
+    trains, and only rank 0 writes the run directory.
     """
     import torch
     from vae_gp_ode_tpu_torch.core.device import resolve_device
@@ -229,24 +305,47 @@ def run(args, on_step=None):
     from vae_gp_ode_tpu_torch.training import checkpoint as ckpt
     from vae_gp_ode_tpu_torch.training.meters import (
         CachedAverageMeter, CachedHyperparams, CachedRunningAverageMeter)
+    from vae_gp_ode_tpu_torch.parallel import (
+        make_shardmap_train_segment, replicate)
     from vae_gp_ode_tpu_torch.training.trainer import (
         create_train_state, make_train_segment)
+    from vae_gp_ode_tpu_torch.utils import io as io_utils
+    from vae_gp_ode_tpu_torch.utils import plotting
+    from vae_gp_ode_tpu_torch.utils.summary import param_count, summarize
 
     check_supported(args)
     if args.pretrained:
         pretrained_vae_files(args.vae_path)    # before the run directory
     dev = resolve_device(args.device)
+    world, rank, dev, backend = data_parallel_group(args, dev)
+    if world > 1 and args.batch % world:
+        raise ValueError(f'--data_parallel: --batch {args.batch} does not '
+                         f'split evenly over {world} ranks')
     stamp = datetime.now().strftime('_%d_%m_%Y-%H:%M:%S')
     save = os.path.abspath(args.save + stamp)
-    os.makedirs(save, exist_ok=True)
-    logger = run_logger(os.path.join(save, 'logs'))
+    writer = rank == 0
+    if world > 1:
+        import torch.distributed as dist
+        box = [save]
+        dist.broadcast_object_list(box, src=0)     # rank 0's stamp
+        save = box[0]
+    if writer:
+        io_utils.makedirs(os.path.join(save, 'plots'))
+    logger = io_utils.get_logger(os.path.join(save, 'logs'),
+                                 displaying=writer, saving=writer)
     logger.info('Results stored in %s', save)
-    with open(os.path.join(save, 'args.json'), 'w') as f:
-        json.dump(vars(args), f, indent=2, sort_keys=True)
+    if writer:
+        io_utils.save_args(args, os.path.join(save, 'args.json'))
     logger.info('device: %s%s', dev, f' ({torch.cuda.get_device_name(dev)})'
                 if dev.type == 'cuda' else '')
-    logger.info('plots are not ported (ROADMAP Queue A [A12]): this run '
-                'writes logs and checkpoints only')
+    if world > 1:
+        logger.info('Data-parallel over %d ranks (rank %d, %s backend): '
+                    'the per-rank step of parallel.shard_dp (--dp_impl %s; '
+                    'the port has one implementation)', world, rank, backend,
+                    args.dp_impl)
+    elif args.data_parallel:
+        logger.info('--data_parallel True at world size 1: the '
+                    'single-device path')
     for flag in ('fast_epoch', 'profile'):
         if getattr(args, flag) != make_parser().get_default(flag):
             logger.info('--%s is a knob of the JAX main.py and has no '
@@ -255,6 +354,10 @@ def run(args, on_step=None):
     trainset, testset = load_data(args, device=dev)
     logger.info('Data source: %s | train %s | test %s', trainset.source,
                 tuple(trainset.X.shape), tuple(testset.X.shape))
+    figures = [os.path.join(save, 'plots', 'data.png')]
+    first = trainset.first().cpu().numpy()    # draws a permutation, as JAX
+    if writer:
+        plotting.plot_data(first, fname=figures[0])
 
     model, gp = init_model(
         args.seed, latent_dim=args.latent_dim, n_filt=args.n_filt,
@@ -278,10 +381,12 @@ def run(args, on_step=None):
     state = create_train_state(model, gp, lr=args.lr,
                                fix_kernel=args.fix_kernel,
                                freeze_vae=args.pretrained)
-    logger.info('VAE parameters %d%s | GP leaves %d',
-                sum(p.numel() for p in model.parameters()),
-                ' (frozen)' if args.pretrained else '',
-                sum(p.numel() for p in gp.parameters()))
+    if world > 1:
+        replicate(state)
+    logger.info('\n%s\n%s', summarize(model, 'vae params'),
+                summarize(gp, 'gp params'))
+    logger.info('VAE parameters %d%s | GP leaves %d', param_count(model),
+                ' (frozen)' if args.pretrained else '', param_count(gp))
     if args.pretrained:
         frozen = [p.detach().clone() for p in model.parameters()]
 
@@ -320,13 +425,21 @@ def run(args, on_step=None):
     # a single epoch is a segment of one: the same steps, draws and
     # monitoring eval (eval mode for a frozen VAE, which the reference
     # eval()s)
-    train_segment = make_train_segment(num_observations=args.Ndata,
-                                       eps_guard=args.eps_guard)
+    if world > 1:
+        train_segment = make_shardmap_train_segment(
+            num_observations=args.Ndata, eps_guard=args.eps_guard)
+    else:
+        train_segment = make_train_segment(num_observations=args.Ndata,
+                                           eps_guard=args.eps_guard)
     generator = torch.Generator(device=dev)
     generator.manual_seed(args.seed)
     result = {'state': state, 'save': save, 'ckpt': ckpt_path,
               'epochs': [], 'segments': [], 'ckpt_epochs': [],
-              'frozen_checks': 0, 'bailout': None}
+              'frozen_checks': 0, 'bailout': None, 'figures': figures,
+              'parallel': (world, rank, backend)}
+    rot_mnist = os.path.join(save, 'plots', 'rot_mnist.png')
+    evals = {}                 # the last monitoring eval's reconstructions
+    tail_dropped = False
     begin = time.time()
     global_itr = 0
     pending = []
@@ -408,11 +521,21 @@ def run(args, on_step=None):
         L = 1 if ep < args.Nepoch // 2 else 5
         n = segment_length(ep, args.Nepoch, args.plot_freq, E)
         heads, tails = trainset.epoch_index_batches(n)
+        if tails is not None and tails.shape[1] % world:
+            if not tail_dropped:
+                logger.warning('data-parallel: dropping the ragged tail '
+                               'batch of %d sequences (not divisible by %d '
+                               'ranks), as JAX main.py does', tails.shape[1],
+                               world)
+            tail_dropped = True
+            tails = None
+        test_idx = testset.first_index(n)
         metrics, mses = train_segment(
-            state, trainset.X, heads, tails, testset.X,
-            testset.first_index(n), L, generator,
+            state, trainset.X, heads, tails, testset.X, test_idx, L,
+            generator,
             on_step=None if on_step is None else (
-                lambda e, ep0=ep, L=L: on_step(ep0 + e, L)))
+                lambda e, ep0=ep, L=L: on_step(ep0 + e, L)),
+            on_eval=lambda e, Xrec: evals.update(Xrec=Xrec))
         check_frozen(ep + n - 1)
         pending.append(dict(metrics, mse=mses, eps=list(range(ep, ep + n))))
         if n > 1:
@@ -426,7 +549,12 @@ def run(args, on_step=None):
             if not flush():
                 break
         if artifacts:
-            ckpt.save_checkpoint(state, ckpt_path)
+            if writer:
+                plotting.plot_rot_mnist(
+                    testset.X[test_idx[-1]].cpu().numpy(),
+                    evals['Xrec'][0].cpu().numpy(), False, fname=rot_mnist)
+                ckpt.save_checkpoint(state, ckpt_path)
+            figures.append(rot_mnist)
             result['ckpt_epochs'].append(last)
 
     if result['bailout'] is None:
@@ -435,6 +563,12 @@ def run(args, on_step=None):
                 rbf_lengthscales(state.gp.kernel).detach().cpu().numpy())
     logger.info('Kernel variance %s',
                 rbf_variance(state.gp.kernel).detach().cpu().numpy())
+    if writer:
+        result['plots'] = final_plots(
+            logger, args, save, state, trainset, testset,
+            (elbo_m, nll_m, reg_kl_m, kl_u_m, hyp_m), generator)
+        figures += result['plots'].pop('figures')
+        plotting.log_left_out(logger, figures)
     return result
 
 

@@ -13,13 +13,15 @@ last batch included -> meters and log lines -> the encoder and decoder in
 `<output_path>_<timestamp>/MNIST-VAE/encoder.ckpt` and `decoder.ckpt`,
 which `main --pretrained True --vae_path .../MNIST-VAE` reads -> the
 reconstruction MSE of the first 16 frames of a test batch (eval-mode
-BatchNorm). The plots (reconstructions, t-SNE, PCA, traces) are not
-ported (ROADMAP Queue A [A12]). `run(args)` runs in-process and returns
-what it did.
+BatchNorm), with JAX `main_vae.py`'s figures in the run directory:
+`vae_reconstructions.png`, the encoder means of up to 1000 test frames as
+`vae_embeddings_tsne.png` (PCA where sklearn does not import) and
+`vae_embeddings_pca.png`, and `plots/vae_trace.png`. Without matplotlib
+the PNGs are left out and the log names them in one line. `run(args)`
+runs in-process and returns what it did.
 """
 
 import argparse
-import json
 import os
 import sys
 import time
@@ -60,15 +62,13 @@ def make_parser():
 
 
 def make_vae(latent_dim=6, n_filt=8, seed=0, device='cuda'):
-    """`nn.ModuleDict` of an encoder and a decoder of `models.vae` (frames
-    -> q(z) -> frames; `vae.encoder`, `vae.decoder`) with flax-default
-    weights drawn from the numpy seed `seed`, on `device`."""
-    from torch import nn
+    """The standalone `models.vae.VAE` (frames -> q(z) -> frames;
+    `vae.encoder`, `vae.decoder`) with flax-default weights drawn from the
+    numpy seed `seed`, on `device`."""
     from vae_gp_ode_tpu_torch.core.device import resolve_device
     from vae_gp_ode_tpu_torch.models.odegpvae import init_weights
-    from vae_gp_ode_tpu_torch.models.vae import Decoder, Encoder
-    vae = nn.ModuleDict({'encoder': Encoder(latent_dim, n_filt),
-                         'decoder': Decoder(latent_dim, n_filt)})
+    from vae_gp_ode_tpu_torch.models.vae import VAE
+    vae = VAE(latent_dim, n_filt)
     init_weights(vae, np.random.default_rng(seed))
     return vae.to(resolve_device(device))
 
@@ -82,10 +82,8 @@ def vae_loss(vae, x, eps_guard=True, generator=None, noise=None):
     `generator` draws them."""
     import torch
     from vae_gp_ode_tpu_torch.models.vae import (
-        bernoulli_log_prob, gaussian_kl_standard, reparam_sample)
-    mu, logv = vae.encoder(x)
-    z = reparam_sample(generator, mu, logv, noise)
-    y = vae.decoder(z)
+        bernoulli_log_prob, gaussian_kl_standard)
+    y, mu, logv = vae(x, generator, noise)
     kl_reg = torch.mean(gaussian_kl_standard(mu, logv))
     lhood = torch.mean(torch.sum(bernoulli_log_prob(x, y, eps_guard),
                                  dim=(1, 2, 3)))
@@ -124,27 +122,28 @@ def frame_paths(args):
 def run(args):
     """Pretrain as the flags say. Returns a dict: 'output_path' (the run
     directory), 'model_dir' (its MNIST-VAE directory), 'vae' (the trained
-    `make_vae` modules), 'epochs' (per epoch: 'rows', its steps' (loss,
+    `make_vae` model), 'epochs' (per epoch: 'rows', its steps' (loss,
     lhood, kl_reg) as host numpy, and 'seconds', from its first step to
-    its metrics on the host) and 'test_mse' (the reconstruction MSE)."""
+    its metrics on the host), 'test_mse' (the reconstruction MSE),
+    'embeddings' ((encoder means, labels) of up to 1000 test frames, host
+    numpy) and 'figures' (the PNG paths it asked for)."""
     import torch
     from vae_gp_ode_tpu_torch.core.device import resolve_device
     from vae_gp_ode_tpu_torch.data import mnist as dm
-    from vae_gp_ode_tpu_torch.main import run_logger
-    from vae_gp_ode_tpu_torch.models.vae import reparam_sample
     from vae_gp_ode_tpu_torch.training.checkpoint import save_vae_weights
     from vae_gp_ode_tpu_torch.training.meters import (
         CachedAverageMeter, CachedRunningAverageMeter)
     from vae_gp_ode_tpu_torch.training.trainer import Adam
+    from vae_gp_ode_tpu_torch.utils import io as io_utils
+    from vae_gp_ode_tpu_torch.utils import plotting
 
     dev = resolve_device(args.device)
     stamp = datetime.now().strftime('_%d_%m_%Y-%H:%M:%S')
     output_path = os.path.abspath(args.output_path + stamp)
-    os.makedirs(output_path, exist_ok=True)
-    logger = run_logger(os.path.join(output_path, 'logs'))
+    io_utils.makedirs(os.path.join(output_path, 'plots'))
+    logger = io_utils.get_logger(os.path.join(output_path, 'logs'))
     logger.info('Results stored in %s', output_path)
-    with open(os.path.join(output_path, 'args.json'), 'w') as f:
-        json.dump(vars(args), f, indent=2, sort_keys=True)
+    io_utils.save_args(args, os.path.join(output_path, 'args.json'))
     logger.info('device: %s%s', dev, f' ({torch.cuda.get_device_name(dev)})'
                 if dev.type == 'cuda' else '')
     if args.fast_epoch != make_parser().get_default('fast_epoch'):
@@ -216,15 +215,33 @@ def run(args):
     test_loader = dm.load_rotating_mnist_data(
         test_path, args.n_angle, args.batch, seed=args.seed, device=dev)
     x, _ = test_loader.first()
-    vae.eval()
     with torch.no_grad():
-        mu, logv = vae.encoder(x)
-        y = vae.decoder(reparam_sample(generator, mu, logv))
-        mse = float(torch.mean((x[:16, 0] - y[:16, 0]) ** 2))
+        y = vae.test(x, generator)
+    mse = plotting.visualize_output(x[:16, 0].cpu().numpy(),
+                                    y[:16, 0].cpu().numpy(), output_path)
     result['test_mse'] = mse
     logger.info('VAE test reconstruction MSE: %.4f', mse)
-    logger.info('plots are not ported (ROADMAP Queue A [A12]): this run '
-                'writes logs and the encoder/decoder only')
+
+    # the encoder means of up to 1000 test frames (eval-mode BatchNorm)
+    vae.eval()
+    mus, labs, count = [], [], 0
+    with torch.no_grad():
+        for xb, lb in test_loader:
+            mus.append(vae.encoder(xb)[0].cpu().numpy())
+            labs.append(lb.cpu().numpy())
+            count += xb.shape[0]
+            if count >= 1000:
+                break
+    mus, labs = np.concatenate(mus), np.concatenate(labs)
+    result['embeddings'] = (mus, labs)
+    plotting.visualize_embeddings(mus, labs, args.n_angle, output_path)
+    plotting.plot_vae_embeddings(mus, labs, args.n_angle, output_path)
+    plotting.plot_trace_vae(elbo_m, nll_m, reg_kl_m, output_path)
+    result['figures'] = [os.path.join(output_path, f) for f in (
+        'vae_reconstructions.png', 'vae_embeddings_tsne.png',
+        'vae_embeddings_pca.png', os.path.join('plots', 'vae_trace.png'))]
+    plotting.log_left_out(logger, result['figures'])
+    logger.info('Done.')
     return result
 
 

@@ -1,5 +1,5 @@
 from vae_gp_ode_tpu_torch.models.vae import (  # noqa: F401
-    Encoder, Decoder, bernoulli_log_prob,
+    Encoder, Decoder, VAE, bernoulli_log_prob,
 )
 from vae_gp_ode_tpu_torch.models.odegpvae import (  # noqa: F401
     ODEGPVAE, init_model,

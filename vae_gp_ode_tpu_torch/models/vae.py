@@ -1,4 +1,5 @@
-"""Convolutional VAE encoder/decoder (port of `vae_gp_ode_tpu/models/vae.py`).
+"""Convolutional VAE encoder/decoder and the standalone `VAE` pair (port of
+`vae_gp_ode_tpu/models/vae.py`).
 
 The topology and parameter names are the reference's PyTorch ones
 (`cnn.*`, `decnn.*`, `fc`), NCHW:
@@ -22,9 +23,11 @@ statistics.
 """
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn import functional as F
 
+from vae_gp_ode_tpu_torch.core.collectives import all_reduce_sum
 from vae_gp_ode_tpu_torch.core.settings import BERNOULLI_EPS
 
 
@@ -34,18 +37,42 @@ class BatchNorm2d(nn.BatchNorm2d):
     flax does. The update runs in place under no_grad, also for
     `torch.no_grad()` callers (the per-epoch monitoring eval).
     `num_batches_tracked` stays 0: with a fixed momentum nothing reads it,
-    and flax keeps no such count."""
+    and flax keeps no such count.
+
+    `group`: a `torch.distributed` process group whose ranks each hold an
+    equal share of the batch (None: the batch is all here). In train mode
+    the statistics are then the global batch's, summed over the group
+    through a differentiable all-reduce (flax's `BatchNorm(axis_name=)`),
+    so every rank normalises and updates its running statistics as one
+    device with the whole batch would. `nn.SyncBatchNorm` is not used: it
+    takes CUDA tensors only, and the data-parallel step runs on the CPU
+    too."""
 
     def __init__(self, num_features):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.group = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.group is not None:
+            return self._group_forward(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+        return y
+
+    def _group_forward(self, x):
+        n = x.numel() // x.shape[1] * dist.get_world_size(self.group)
+        mean = all_reduce_sum(x.sum(dim=(0, 2, 3)), self.group) / n
+        xc = x - mean[:, None, None]
+        var = all_reduce_sum((xc * xc).sum(dim=(0, 2, 3)), self.group) / n
+        y = (xc * torch.rsqrt(var + self.eps)[:, None, None]
+             * self.weight[:, None, None] + self.bias[:, None, None])
+        with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
         return y
@@ -148,3 +175,49 @@ def reparam_sample(generator, mu, logvar, noise=None):
         noise = torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
                             device=mu.device)
     return mu + torch.exp(0.5 * logvar) * noise
+
+
+class VAE(nn.Module):
+    """Standalone encoder/decoder pair (JAX `models/vae.py` `VAE`): the
+    pretraining workflow's model (`main_vae.make_vae`), with the
+    reference's `test` convenience. `order=2` adds the velocity encoder
+    `encoder_v` over `frames` stacked frames; pretraining never trains it
+    and `training.checkpoint.save_vae_weights` leaves it out (the trained
+    velocity encoder lives in `ODEGPVAE`). BatchNorm follows the module's
+    mode (train() or eval()), JAX's `train` flag."""
+
+    def __init__(self, latent_dim=8, n_filt=8, frames=1, order=1):
+        super().__init__()
+        self.latent_dim = latent_dim
+        self.order = order
+        self.encoder = Encoder(latent_dim, n_filt, frames=1)
+        self.decoder = Decoder(latent_dim, n_filt)
+        if order == 2:
+            self.encoder_v = Encoder(latent_dim, n_filt, frames=frames)
+
+    def forward(self, x, generator=None, noise=None):
+        """Encode frames x (N, 1, 28, 28) -> sample -> decode; returns
+        (xrec, mu, logvar). `noise` injects the standard-normal draws
+        (N, latent_dim), else `generator` draws them."""
+        mu, logvar = self.encoder(x)
+        z = reparam_sample(generator, mu, logvar, noise)
+        return self.decoder(z), mu, logvar
+
+    def encode_velocity(self, xv):
+        """Velocity-encoder statistics (mu, logvar) over `frames` stacked
+        frames (N, frames, 28, 28); order 2 only."""
+        if self.order != 2:
+            raise ValueError('encode_velocity requires order=2')
+        return self.encoder_v(xv)
+
+    def test(self, x, generator=None, noise=None):
+        """Eval-mode encode, one latent sample, decode: the
+        reconstruction of x (N, 1, 28, 28). The module's mode is restored
+        afterwards."""
+        was = self.training
+        self.eval()
+        try:
+            xrec, _, _ = self(x, generator, noise)
+        finally:
+            self.train(was)
+        return xrec

@@ -266,7 +266,8 @@ def run_epoch_with_tail(train_step, state: TrainState, batches, tail,
 
 def make_train_segment(num_observations: float, eps_guard: bool = False):
     """Returns segment(state, X, heads, tails, Xte, test_idx, L,
-    generator=None, on_step=None) -> (metrics, mses): E whole training
+    generator=None, on_step=None, on_eval=None) -> (metrics, mses): E
+    whole training
     epochs, each the train steps over X[heads[e]] (I, B, ...), the ragged
     tail X[tails[e]] (when `tails` is not None) through
     `run_epoch_with_tail`, then the per-epoch monitoring eval on
@@ -279,17 +280,25 @@ def make_train_segment(num_observations: float, eps_guard: bool = False):
     gives the bits of E per-epoch iterations (the JAX package's
     `make_train_segment`, which only comes within rounding, being a
     separate compilation). `on_step(e)` is called after each train step
-    of epoch e of the segment.
+    of epoch e of the segment, `on_eval(e, Xrec)` after its monitoring
+    eval with the reconstructions (1, B, T, ...).
 
     metrics: per-step device tensors stacked (E, I [+ 1]); mses (E,). No
     value is read on the host; the frozen-VAE check stays with the
     caller, once per segment on its final weights (weights change only
     through updates).
     """
-    train_step = make_train_step(num_observations, eps_guard)
+    return segment_of(make_train_step(num_observations, eps_guard))
+
+
+def segment_of(train_step):
+    """`make_train_segment`'s segment over the steps of `train_step`
+    (train_step(state, batch, L, generator) -> metrics; the data-parallel
+    step of `parallel.shard_dp` too: the monitoring eval then runs on
+    every rank, on the whole test batch)."""
 
     def segment(state: TrainState, X, heads, tails, Xte, test_idx, L: int,
-                generator=None, on_step=None):
+                generator=None, on_step=None, on_eval=None):
         epoch_eval = (make_eval_step() if state.freeze_vae
                       else make_epoch_eval_step())
         rows, mses = [], []
@@ -302,8 +311,10 @@ def make_train_segment(num_observations: float, eps_guard: bool = False):
             rows.append(run_epoch_with_tail(
                 step, state, X[heads[e]],
                 None if tails is None else X[tails[e]], L, generator))
-            mses.append(epoch_eval(state, Xte[test_idx[e]], 1,
-                                   generator)[1])
+            Xrec, mse = epoch_eval(state, Xte[test_idx[e]], 1, generator)
+            if on_eval is not None:
+                on_eval(e, Xrec)
+            mses.append(mse)
         return ({k: torch.stack([r[k] for r in rows]) for k in rows[0]},
                 torch.stack(mses))
 

@@ -122,6 +122,15 @@ def _vae_from_jax(params, stats):
     return sd
 
 
+def vae_from_jax(variables_np):
+    """The state dict of the standalone `models.vae.VAE` from the JAX
+    `VAE`'s `variables` (params, and batch_stats where present) as nested
+    dicts of numpy arrays: its encoder, decoder and, for order 2,
+    encoder_v (CPU tensors out)."""
+    return _vae_from_jax(variables_np['params'],
+                         variables_np.get('batch_stats'))
+
+
 def from_jax(variables_np, gp_np, kernel='RBF'):
     """(model_state_dict, gp) for `models.odegpvae.ODEGPVAE` from the JAX
     ODEGPVAE `variables` and SVGP leaves, as nested dicts of numpy

@@ -164,8 +164,15 @@ Run from the repository root on a machine with an NVIDIA H100:
    at the same seed (TOL_ARTIFACT) and against the same file served on
    the CPU at the same noise; an artifact exported on the CPU served on
    the card, a CPU trace at S=ART_REFUSED_S that the load on the card
-   refuses, a bdf forecaster whose export for the card, traced Jacobian
-   on the card and CPU trace loaded on the card raise naming bdf, and the
+   refuses; the Jacobian operators against their plain versions (main
+   widths and q=12, S=1024: the rule's VJP kernel and each of #4, #10,
+   #6, #12 through `launch_jacobian`) and a bdf forecaster exported on
+   the card with a symbolic batch (no plain per-step eval in its graph),
+   serving 1, 20 and 400 sequences (a VJP kernel NEWTON_ITERS times a
+   substep) against the eager bdf forecaster at the same noise
+   (TOL_ARTIFACT), its export s, bytes, max_batch and request and busy
+   ms in turns, and the eager request's VJP launches through the
+   Jacobian operator against `row_jacobian`'s; and the
    bf16 artifact against the f32 one (BF16_FRAMES); export and load
    seconds, bytes, request ms and host ms to issue it in turns and busy
    ms with idle share against the eager forecaster; the eager T=16 and
@@ -3237,8 +3244,14 @@ BF16_FRAMES = 0.05
 ART_REFUSED_S = 2048
 
 
-#: the bdf forecaster whose exports and loads the card refuses
-BDF_CONFIG = dict(CONFIG, latent_dim=2, num_features=16, num_inducing=8)
+#: the input horizon of 6h's bdf forecaster: 8, since its export at T=16
+#: took 82 s on an H100 (over a minute; PERF.md section 6), as the
+#: trace unrolls every Newton iteration of every substep
+BDF_T = 8
+#: the sequences of 6h's bdf requests
+BDF_BATCHES = (1, BATCH, 400)
+#: bdf's Newton iterations per substep (`dynamics.solvers._fixed_bdf2`)
+NEWTON_ITERS = 6
 #: the routes of a wrapper call where no input needs a gradient
 #: (`eager_route`)
 ROUTES = ('op', 'direct', 'custom_op')
@@ -3294,6 +3307,285 @@ def routed(fn, route):
     return call
 
 
+def turns(fns, X, seed, rounds=5, host=None):
+    """Median request ms (CUDA events) of each fn, in turns; with a
+    dict `host`, also each fn's median host ms: from the call to its
+    return, the card idle before it (the time the host takes to issue
+    the request, which the card's queue may hide)."""
+    import torch
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ms = {k: [] for k in fns}
+    issue = {k: [] for k in fns}
+    order = list(fns) + list(fns)[::-1]
+    for _ in range(rounds):
+        for k in order:
+            torch.cuda.synchronize()
+            ev0.record()
+            t0 = time.perf_counter()
+            fns[k](X, seed)
+            issue[k].append((time.perf_counter() - t0) * 1e3)
+            ev1.record()
+            torch.cuda.synchronize()
+            ms[k].append(ev0.elapsed_time(ev1))
+    if host is not None:
+        host.update({k: statistics.median(v) for k, v in issue.items()})
+    return {k: statistics.median(v) for k, v in ms.items()}
+
+
+@contextlib.contextmanager
+def row_jacobian_route():
+    """bdf's Newton Jacobians through `dynamics.solvers.row_jacobian` (D
+    reverse-mode products, each a VJP kernel launch), the route before
+    the Jacobian operators: the flows' right-hand sides without their
+    `jacobian`."""
+    from vae_gp_ode_tpu_torch.dynamics import flow
+    make = flow.make_ode_rhs
+
+    def without(*a):
+        rhs = make(*a)
+        return lambda t, z: rhs(t, z)
+
+    flow.make_ode_rhs = without
+    try:
+        yield
+    finally:
+        flow.make_ode_rhs = make
+
+
+def plain_eval_nodes(program):
+    """The nodes of a traced program that compute a per-step eval's plain
+    version: cos or sin of a tensor with the symbolic batch in its shape
+    (the GP draw's cos runs at the inducing points, and the VAE computes
+    neither)."""
+    import torch
+    trig = (torch.ops.aten.cos.default, torch.ops.aten.sin.default)
+    return [n for n in program.graph.nodes if n.target in trig and any(
+        not isinstance(d, int) for d in n.meta['val'].shape)]
+
+
+def jacobian_operators(args, card):
+    """6h: the Jacobian operators (`ops.library` `pathwise_eval_jac`,
+    `df_pathwise_eval_jac`) against their plain versions on the card at
+    the main widths (q=6, S=256, M=100, L=5, N=20) and a wide shape (q=12,
+    S=1024, N=100): the operator (one launch of the VJP kernel its rule
+    names for the N*q rows) and each VJP kernel of its family through
+    `ops.pathwise.launch_jacobian` (#4 and #10, #6 and #12), TOL_ABS +
+    TOL_REL. Returns the largest error."""
+    import numpy as np
+    import torch
+    from vae_gp_ode_tpu_torch import ops
+    from vae_gp_ode_tpu_torch.gp.svgp import draw_fn_sample, init_svgp_params
+    from vae_gp_ode_tpu_torch.ops import (
+        df_pathwise, df_pathwise_tiled, library, pathwise, pathwise_tiled)
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 71)
+    rng = np.random.default_rng(args.seed + 71)
+    M = CONFIG['num_inducing']
+    errs = []
+    for kernel in ('RBF', 'DF'):
+        df = kernel == 'DF'
+        op = library.df_pathwise_eval_jac if df else library.pathwise_eval_jac
+        plain = (df_pathwise.df_pathwise_jacobian_reference if df
+                 else pathwise.pathwise_jacobian_reference)
+        kernels = ((df_pathwise, df_pathwise_tiled) if df
+                   else (pathwise, pathwise_tiled))
+        for D_, S_, N_ in ((CONFIG['latent_dim'], CONFIG['num_features'],
+                            BATCH), (12, 1024, 100)):
+            g = init_svgp_params(rng, D_, D_, M, kernel=kernel,
+                                 lengthscale=2.0 if df else
+                                 rbf_lengthscale(D_), variance=0.7,
+                                 device='cuda')
+            with torch.no_grad():
+                operands = tuple(t.contiguous() for t in (
+                    df_pathwise.df_fused_operands if df else
+                    pathwise.rbf_fused_operands)(
+                        g, draw_fn_sample(g, gen, S_, L=L)))
+            x = torch.randn((L, N_, D_), generator=gen, device=dev)
+            ref = plain(x, *operands)
+            what = f'{kernel} L={L} N={N_} q={D_} S={S_}'
+            ops.reset_launches()
+            J = op(x, *operands)
+            torch.cuda.synchronize()
+            ran = {k: v for k, v in ops.LAUNCHES.items() if v}
+            require(len(ran) == 1 and sum(ran.values()) == 1 and next(
+                iter(ran)) in [m.BWD_KERNEL for m in kernels],
+                f'Jacobian operator {what}: launched {ran}')
+            require(J.shape == (L, N_, D_, D_), f'{what}: {tuple(J.shape)}')
+            errs.append(compare(J, ref, f'{op} {what} through '
+                                        f'{next(iter(ran))} (the rule)'))
+            for m in kernels:
+                J = pathwise.launch_jacobian(m._launch_bwd, x, operands, D_)
+                errs.append(compare(J, ref, f'Jacobian {what} through '
+                                            f'{m.BWD_KERNEL}'))
+    log(f'Jacobian operators against their plain versions: largest error '
+        f'{max(errs):.3e} (tol abs {TOL_ABS:g} + rel {TOL_REL:g}); card '
+        f'{card}')
+    return max(errs)
+
+
+def bdf_forecaster(args, card, launches, work, model, gp, euler_max_batch):
+    """6h: a bdf forecaster at the main widths exported on the card with a
+    symbolic batch (BDF_T frames), its Newton Jacobians the Jacobian
+    operator: no plain per-step eval in its graph (`plain_eval_nodes`),
+    NEWTON_ITERS Jacobian calls a substep; saved, loaded and serving
+    BDF_BATCHES sequences with the counts at 0 just before each request
+    (a VJP kernel, #10 or #4, NEWTON_ITERS times a substep, the per-step
+    forward kernels, nothing else), its frames against the eager bdf
+    forecaster at the same noise (TOL_ARTIFACT). Export s, bytes,
+    max_batch, load s; the request ms and busy ms of the artifact and the
+    eager forecaster in turns (median of 5); the eager request's VJP
+    launches through the Jacobian operator and through `row_jacobian`
+    (`row_jacobian_route`: q per Newton iteration), and its frames both
+    ways; an eager DF bdf request (random weights) both ways, #6 or #12
+    once per Newton iteration through the operator; one Jacobian at the request's rows, device µs by kernel, and the
+    share of its VJP's work that the dropped operand cotangents take."""
+    import numpy as np
+    import torch
+    from vae_gp_ode_tpu_torch import serving
+    from vae_gp_ode_tpu_torch.gp.svgp import draw_fn_sample, fn_jacobian
+    from vae_gp_ode_tpu_torch.models.odegpvae import init_model
+    from vae_gp_ode_tpu_torch.ops import (
+        df_pathwise, df_pathwise_tiled, pathwise, pathwise_tiled)
+    dev = torch.device('cuda')
+    q = CONFIG['latent_dim']
+    bm = copy.deepcopy(model)
+    bm.solver = 'bdf'
+    t0 = time.perf_counter()
+    fc = serving.export_forecaster(bm, None, gp, T=BDF_T, L=L,
+                                   normalize_input=True, device='cuda')
+    export_s = time.perf_counter() - t0
+    targets = collections.Counter(str(n.target)
+                                  for n in fc.program.graph.nodes)
+    n_jac = targets['vae_gp_ode_torch.pathwise_eval_jac.default']
+    plain = plain_eval_nodes(fc.program)
+    require(fc.input_shape[0] == 'b' and not fc.meta['plain_evals'],
+            f'bdf artifact: input {fc.input_shape}, meta {fc.meta}')
+    require(n_jac == NEWTON_ITERS * (BDF_T - 1) and not plain,
+            f'bdf artifact: {n_jac} Jacobian operator calls, plain evals '
+            f'{[n.name for n in plain[:5]]}')
+    path = os.path.join(work, 'bdf.pt2')
+    nbytes = serving.save_forecaster(fc, path)
+    t0 = time.perf_counter()
+    art = serving.load_forecaster(path)
+    load_s = time.perf_counter() - t0
+    log(f'bdf artifact T={BDF_T}: exported on the card in {export_s:.2f} s, '
+        f'{nbytes} bytes, loaded in {load_s:.2f} s')
+    eager = serving.make_forecast_fn(bm, None, gp, L=L, normalize_input=True,
+                                     device='cuda')
+    vjp = (pathwise.BWD_KERNEL, pathwise_tiled.BWD_KERNEL)
+    fwd = (pathwise.KERNEL, pathwise_tiled.KERNEL)
+    per_request = NEWTON_ITERS * (BDF_T - 1)
+    rng = np.random.default_rng(args.seed + 72)
+    inputs = {}
+    for n in BDF_BATCHES:
+        X = rng.random((n, BDF_T, 1, 28, 28)).astype(np.float32)
+        noise = serving.draw_noise(
+            fc.meta['noise_spec'], n,
+            torch.Generator(device=dev).manual_seed(args.seed + n), dev)
+        inputs[n] = (X, noise)
+        art.call(X, noise)
+        Xa, d = count_path(lambda: art.call(X, noise), launches)
+        require(sum(d[k] for k in vjp) == per_request and sum(
+            d[k] for k in fwd) > 0 and not any(
+                v for k, v in d.items() if k not in vjp + fwd),
+            f'bdf artifact, {n} sequences: launched {d}')
+        require(Xa.shape == (L, n, BDF_T, 1, 28, 28) and bool(
+            torch.isfinite(Xa).all()), f'bdf artifact, {n} sequences: '
+            f'frames {tuple(Xa.shape)}')
+        err = float((Xa - eager(X, 0, noise=noise)).abs().max())
+        require(err <= TOL_ARTIFACT, f'bdf artifact, {n} sequences: against '
+                f'the eager forecaster {err:.3e}')
+        log(f'bdf artifact, {n} sequences: launches {d}; frames against '
+            f'the eager bdf forecaster at the same noise {err:.3e} (tol '
+            f'{TOL_ARTIFACT:g})')
+    X, noise = inputs[BATCH]
+    after, d_after = count_path(lambda: eager(X, 0, noise=noise), launches)
+    with row_jacobian_route():
+        before, d_before = count_path(lambda: eager(X, 0, noise=noise),
+                                      launches)
+    n_after = sum(d_after[k] for k in vjp)
+    n_before = sum(d_before[k] for k in vjp)
+    require(n_after == per_request and n_before == q * per_request,
+            f'eager bdf request: VJP launches {n_after} through the '
+            f'operator, {n_before} through row_jacobian')
+    routes_err = float((after - before).abs().max())
+    # the DF kernel's Jacobian operator on the eager bdf path: a request of
+    # BATCH sequences with random weights, against the row_jacobian route
+    dm, dg = init_model(args.seed, device='cuda', random_bn=True,
+                        kernel='DF', solver='bdf', **CONFIG)
+    deager = serving.make_forecast_fn(dm, None, dg, L=L,
+                                      normalize_input=True, device='cuda')
+    dnoise = serving.forecast_noise(
+        dg, dm, BATCH, L, torch.Generator(device=dev).manual_seed(args.seed))
+    dvjp = (df_pathwise.BWD_KERNEL, df_pathwise_tiled.BWD_KERNEL)
+    dafter, dd = count_path(lambda: deager(X, 0, noise=dnoise), launches)
+    with row_jacobian_route():
+        dbefore, ddb = count_path(lambda: deager(X, 0, noise=dnoise),
+                                  launches)
+    df_err = float((dafter - dbefore).abs().max())
+    require(sum(dd[k] for k in dvjp) == per_request and sum(
+        ddb[k] for k in dvjp) == q * per_request and bool(
+            torch.isfinite(dafter).all()) and df_err <= TOL_ARTIFACT,
+        f'eager DF bdf request: VJP launches {dd} through the operator, '
+        f'{ddb} through row_jacobian, frames both ways {df_err:.3e}')
+    log(f'eager DF bdf request of {BATCH}: launches {dd} through the '
+        f'Jacobian operator, VJP {sum(ddb[k] for k in dvjp)} through '
+        f'row_jacobian; frames both ways {df_err:.3e} (tol '
+        f'{TOL_ARTIFACT:g})')
+    ms = turns({'artifact': art, 'eager': eager}, X, args.seed)
+    busy = {'artifact': [], 'eager': []}
+    for _ in range(5):
+        for k, f in (('artifact', art), ('eager', eager)):
+            busy[k].append(busy_ms(lambda f=f: f(X, args.seed))[0])
+    busy = {k: statistics.median(v) for k, v in busy.items()}
+    idle = {k: profile(lambda f=f: f(X, args.seed),
+                       f'one bdf request of {BATCH}, {k}')
+            for k, f in (('artifact', art), ('eager', eager))}
+    # one Jacobian at the request's rows: its VJP kernel's device time, the
+    # kernel that sums the operands' cotangents (which the Jacobian drops)
+    # apart, and the share of the VJP's operations and bytes written that
+    # those cotangents take (`pathwise_bound`'s counts: per row K S (6D +
+    # 10) + K M (12D + 10) for the VJP, K S (2D + 4) + K M (4D + 4) for
+    # dx alone, an eval's)
+    S, M = CONFIG['num_features'], CONFIG['num_inducing']
+    name = pathwise_tiled.rule_kernels(L, BATCH * q, q, q, S, M, dev)[1]
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 73)
+    with torch.no_grad():
+        sample = draw_fn_sample(gp, gen, S, L=L)
+    z = torch.randn((L, BATCH, q), generator=gen, device=dev)
+    jac_us = device_us(lambda: fn_jacobian(gp, sample, z), [name])
+    operands = pathwise.rbf_fused_operands(gp, sample)
+    param_bytes = sum(4 * t.numel() for t in operands)
+    dx_bytes = 4 * L * BATCH * q * q
+    ops_share = 1 - (q * S * (2 * q + 4) + q * M * (4 * q + 4)) / (
+        q * S * (6 * q + 10) + q * M * (12 * q + 10))
+    log(f'one Jacobian of the bdf request ({L} draws x {BATCH * q} rows, '
+        f'{name}; torch.profiler over 10 calls): '
+        + ', '.join(f'{k} {per_launch(v)}' for k, v in jac_us.items())
+        + f'; the operands\' cotangents it drops: {param_bytes} of '
+        f'{param_bytes + dx_bytes} bytes written and {ops_share:.3f} of '
+        f'its operations (counted from the shapes); card {card}')
+    log(f'artifact RBF bdf T={BDF_T}: exported on the card in '
+        f'{export_s:.2f} s (symbolic batch, {n_jac} Jacobian operator '
+        f'calls, no plain per-step eval), {nbytes} bytes, loaded in '
+        f'{load_s:.2f} s, at most {art.meta["max_batch"]} sequences (the '
+        f'euler artifact: {euler_max_batch}); request of {BATCH} '
+        f'sequences (CUDA events, median of 5 in turns) artifact '
+        f'{ms["artifact"]:.4f} ms, eager {ms["eager"]:.4f} ms; busy '
+        f'(torch.profiler, median of 5 in turns) artifact '
+        f'{busy["artifact"]:.4f} ms, eager {busy["eager"]:.4f} ms'
+        + ''.join(f'; {k} idle share {v[1]:.3f}' for k, v in idle.items()
+                  if v)
+        + f'; the eager request\'s VJP launches {n_before} through '
+        f'row_jacobian ({q} per Newton iteration), {n_after} through the '
+        f'Jacobian operator (1), frames both ways {routes_err:.3e}; card '
+        f'{card}')
+    return dict(export_s=export_s, nbytes=nbytes, load_s=load_s, ms=ms,
+                busy=busy, vjp_before=n_before, vjp_after=n_after,
+                max_batch=art.meta['max_batch'], jac_us=jac_us)
+
+
 def serving_artifacts(args, card, launches):
     """Phase 6h, the serving artifact: `torch.export` forecasters saved,
     loaded and served on the card, their forward kernels running as the
@@ -3310,9 +3602,10 @@ def serving_artifacts(args, card, launches):
     artifact exported on the CPU and served on the card (#1 once a
     request, TOL_ARTIFACT against the card-exported one), one traced on
     the CPU at a shape the fused pair refuses (S = ART_REFUSED_S: the load
-    on the card raises naming it), a bdf forecaster that the card refuses
-    (export, traced Jacobian, load), and the bf16 artifact against the
-    f32 one (BF16_FRAMES). Request ms with CUDA events and the host's ms
+    on the card raises naming it), the Jacobian operators
+    (`jacobian_operators`) and a bdf forecaster with a symbolic batch
+    (`bdf_forecaster`), and the bf16 artifact against the f32 one
+    (BF16_FRAMES). Request ms with CUDA events and the host's ms
     to issue it (median of 5 rounds in turns: artifact, eager, eager,
     artifact), the device busy time and idle share of one request of each
     (torch.profiler), and the eager T=16 and dopri5 requests through each
@@ -3365,30 +3658,6 @@ def serving_artifacts(args, card, launches):
                 torch.isfinite(Xa).all()), f'{what}: request {i} frames')
             frames.append(Xa)
         return frames, d
-
-    def turns(fns, X, seed, rounds=5, host=None):
-        """Median request ms (CUDA events) of each fn, in turns; with a
-        dict `host`, also each fn's median host ms: from the call to its
-        return, the card idle before it (the time the host takes to issue
-        the request, which the card's queue may hide)."""
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        ms = {k: [] for k in fns}
-        issue = {k: [] for k in fns}
-        order = list(fns) + list(fns)[::-1]
-        for _ in range(rounds):
-            for k in order:
-                torch.cuda.synchronize()
-                ev0.record()
-                t0 = time.perf_counter()
-                fns[k](X, seed)
-                issue[k].append((time.perf_counter() - t0) * 1e3)
-                ev1.record()
-                torch.cuda.synchronize()
-                ms[k].append(ev0.elapsed_time(ev1))
-        if host is not None:
-            host.update({k: statistics.median(v) for k, v in issue.items()})
-        return {k: statistics.median(v) for k, v in ms.items()}
 
     out = {}
     for key, what, m, g, T_custom, batch, kernels, per_request in cases:
@@ -3443,6 +3712,7 @@ def serving_artifacts(args, card, launches):
                            f'one {what} request, {k}')
                 for k, f in (('artifact', art), ('eager', eager))}
         out[key] = dict(export_s=export_s, nbytes=nbytes, load_s=load_s,
+                        max_batch=art.meta['max_batch'],
                         err_eager=err_eager, err_cpu=err_cpu, ms=ms,
                         busy=busy, launches=d, host=host,
                         ms_routes=ms_routes if key in ('rbf', 'dopri5')
@@ -3506,51 +3776,10 @@ def serving_artifacts(args, card, launches):
     log(f'artifact traced on the CPU at S={ART_REFUSED_S}: the load on the '
         f'card refuses it: {refused}')
 
-    # bdf: its traced Newton Jacobians take the plain per-step evals, so
-    # it exports for the CPU only: an export for the card, a traced
-    # Jacobian on the card and a CPU trace loaded on the card all raise
-    # naming it (at BDF_CONFIG: the refusals read no width, and the CPU
-    # trace of bdf at the main widths takes half a minute)
-    from vae_gp_ode_tpu_torch.dynamics import solvers
-
-    class RowJacobian(torch.nn.Module):
-        def forward(self, z):
-            return solvers.row_jacobian(torch.tanh, z)
-
-    bm, bg = init_model(args.seed, device='cpu', solver='bdf',
-                        **BDF_CONFIG)
-    refusals = []
-    for what, fn in (
-            ('export on the card', lambda: serving.export_forecaster(
-                copy.deepcopy(bm), None, copy.deepcopy(bg), T=3, batch=2,
-                device='cuda')),
-            ('export for the card', lambda: serving.export_forecaster(
-                bm, None, bg, T=3, batch=2, platforms=('cpu', 'cuda'),
-                device='cpu')),
-            ('traced Jacobian on the card', lambda: torch.export.export(
-                RowJacobian(), (torch.zeros((2, 3), device=dev),)))):
-        try:
-            fn()
-        except (ValueError, RuntimeError) as e:
-            refusals.append(f'{what}: {e}')
-        else:
-            raise AssertionError(f'bdf: the {what} did not raise')
-        require('bdf' in refusals[-1], f'bdf refusal: {refusals[-1]}')
-    bpath = os.path.join(work, 'bdf_cpu.pt2')
-    serving.save_forecaster(serving.export_forecaster(
-        bm, None, bg, T=3, batch=2, device='cpu'), bpath)
-    for check in (True, False):
-        try:
-            serving.load_forecaster(bpath, check_platform=check)
-        except RuntimeError as e:
-            refusals.append(f'load on the card (check_platform={check}): '
-                            f'{e}')
-        else:
-            raise AssertionError('a bdf artifact traced on the CPU loaded '
-                                 'on the card')
-    require('bdf' in refusals[-1] and '--platforms' in refusals[-2],
-            f'bdf load refusals: {refusals[-2:]}')
-    log('bdf forecaster: ' + '; '.join(refusals))
+    # bdf: its Newton Jacobians through the Jacobian operators
+    jacobian_operators(args, card)
+    out['bdf'] = bdf_forecaster(args, card, launches, work, m, g,
+                                out['rbf']['max_batch'])
 
     # bf16 against f32
     t0 = time.perf_counter()

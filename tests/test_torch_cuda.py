@@ -726,3 +726,39 @@ def test_rule_at_the_wide_shapes_on_the_card(cuda):
              ops.LAUNCHES[k] != before[k]}
         assert d == {want[0]: 30, want[1]: 15}, (kernel, d)
         assert all(bool(torch.isfinite(v).all()) for v in metrics.values())
+
+
+@pytest.mark.parametrize('kernel', ['RBF', 'DF'])
+def test_jacobian_operators_match_plain(cuda, kernel):
+    """The Jacobian operator of each family (bdf's Newton Jacobians) at
+    L=5, N=20, q=6, S=256: one launch of a VJP kernel, and each VJP kernel
+    of the family through `ops.pathwise.launch_jacobian`, against the
+    plain Jacobian (TOL)."""
+    from vae_gp_ode_tpu_torch.ops import library
+    df = kernel == 'DF'
+    rng = np.random.default_rng(3)
+    gp = init_svgp_params(rng, 6, 6, 100, kernel=kernel, lengthscale=2.0,
+                          variance=0.7, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    with torch.no_grad():
+        operands = (df_pathwise.df_fused_operands if df else
+                    rbf_fused_operands)(gp, draw_fn_sample(gp, gen, 256, L=5))
+    operands = tuple(t.contiguous() for t in operands)
+    x = torch.randn(5, 20, 6, generator=gen, device=cuda)
+    ref = (df_pathwise.df_pathwise_jacobian_reference if df else
+           pathwise.pathwise_jacobian_reference)(x, *operands)
+    op = library.df_pathwise_eval_jac if df else library.pathwise_eval_jac
+    mods = (df_pathwise, df_pathwise_tiled) if df else (pathwise,
+                                                        pathwise_tiled)
+    before = dict(ops.LAUNCHES)
+    J = op(x, *operands)
+    torch.cuda.synchronize()
+    d = {k: ops.LAUNCHES[k] - before[k] for k in before
+         if ops.LAUNCHES[k] != before[k]}
+    assert len(d) == 1 and set(d.values()) == {1}, d
+    assert next(iter(d)) in [m.BWD_KERNEL for m in mods], d
+    torch.testing.assert_close(J, ref, **TOL)
+    for m in mods:
+        torch.testing.assert_close(
+            pathwise.launch_jacobian(m._launch_bwd, x, operands, 6), ref,
+            **TOL)

@@ -20,7 +20,9 @@ import torch
 
 from vae_gp_ode_tpu_torch.core.device import check_device, resolve_device
 from vae_gp_ode_tpu_torch.dynamics.solvers import SOLVERS, odeint
-from vae_gp_ode_tpu_torch.gp.svgp import SVGPParams, FnSample, fn_eval, svgp_kl
+from vae_gp_ode_tpu_torch.gp.svgp import (
+    SVGPParams, FnSample, fn_eval, fn_jacobian, svgp_kl,
+)
 
 
 def make_ode_rhs(gp: SVGPParams, sample: FnSample, order: int):
@@ -28,16 +30,30 @@ def make_ode_rhs(gp: SVGPParams, sample: FnSample, order: int):
 
     order 1: dz = f(z)
     order 2: z = (s, v); d(s, v) = (v, f(s, v))
+
+    `rhs.jacobian(t, z)` gives its per-row Jacobians (..., D, D), a
+    constant of reverse mode (`gp.svgp.fn_jacobian`), which bdf's Newton
+    iterations take: order 1 J_f, order 2 the blocks [[0, I], [J_f]].
     """
     if order == 1:
         def rhs(t, z):
             return fn_eval(gp, sample, z)
+
+        def jacobian(t, z):
+            return fn_jacobian(gp, sample, z)
     elif order == 2:
         def rhs(t, z):
             q = z.shape[-1] // 2
             return torch.cat([z[..., q:], fn_eval(gp, sample, z)], dim=-1)
+
+        def jacobian(t, z):
+            J = fn_jacobian(gp, sample, z)                 # (..., q, 2q)
+            q = z.shape[-1] // 2
+            top = torch.eye(2 * q, dtype=J.dtype, device=J.device)[q:]
+            return torch.cat([top.expand(J.shape), J], dim=-2)
     else:
         raise ValueError(f'ODE order must be 1 or 2, got {order}')
+    rhs.jacobian = jacobian
     return rhs
 
 

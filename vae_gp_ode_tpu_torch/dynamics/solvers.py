@@ -5,7 +5,8 @@ The same methods, step rules and fn-eval counts as the JAX package:
   * fixed-step euler, midpoint and rk4 with `dense` substeps per output
     interval, 4-step explicit/fixed (PECE) Adams with an RK4 bootstrap,
     and BDF2 with a fixed-iteration damped Newton whose per-row (D, D)
-    Jacobians come from D vector-Jacobian products;
+    Jacobians come from the right-hand side's `jacobian` (the flows': one
+    VJP kernel launch each) or else from D vector-Jacobian products;
   * adaptive dopri5 (Hairer initial step, Lund-stabilised PI controller,
     Shampine's dense output at the requested times) and `adams` (VCABM,
     variable step and order), each a bounded loop of `max_steps`
@@ -46,10 +47,6 @@ FIXED_STEP_SOLVERS = (
     'euler', 'midpoint', 'rk4', 'explicit_adams', 'fixed_adams', 'bdf',
 )
 ADAPTIVE_SOLVERS = ('dopri5', 'adams')
-#: the solvers whose steps take per-row Jacobians (`row_jacobian`): a
-#: traced program differentiates their per-step evals' plain versions, so
-#: it is traced, and served, on the CPU only
-JACOBIAN_SOLVERS = ('bdf',)
 SOLVERS = FIXED_STEP_SOLVERS + ADAPTIVE_SOLVERS
 
 #: candidate steps between the adaptive loops' host checks that every
@@ -133,23 +130,26 @@ def row_jacobian(g, z):
     """Per-row Jacobians (..., D, D) of a function g that maps each row of
     z (..., D) on its own: D vector-Jacobian products, the j-th with a
     one-hot cotangent on every row at once, give row j of every row's
-    Jacobian. Not differentiated further (the result is detached).
+    Jacobian. Not differentiated further (the result is detached). bdf
+    takes it for a right-hand side without its own `jacobian` (the flows'
+    have one, `dynamics.flow.make_ode_rhs`), and the bdf adjoint for its
+    linear step.
 
     While `torch.export` traces it, D forward-mode products give the
     columns instead (the same matrix): a traced reverse pass loses the
     outputs that exp and tanh save. No operator of `ops.library` takes a
     tangent, so the trace differentiates the per-step evals' plain
-    versions, and only a trace on the CPU can: on the card it raises
-    (`JACOBIAN_SOLVERS`)."""
+    versions, and only a trace on the CPU can: on the card it raises."""
     D = z.shape[-1]
     eye = torch.eye(D, dtype=z.dtype, device=z.device)
     if torch.compiler.is_exporting():
         if z.device.type != 'cpu':
             raise RuntimeError(
-                f'a traced per-row Jacobian (the Newton iterations of '
-                f'{", ".join(JACOBIAN_SOLVERS)}) differentiates the per-step '
-                f'evals in forward mode, which the kernels do not take: '
-                f'such a program is traced and served on the CPU only')
+                'a traced per-row Jacobian of a right-hand side without '
+                'its own `jacobian` (the Newton iterations of bdf) '
+                'differentiates the per-step evals in forward mode, which '
+                'the kernels do not take: such a program is traced and '
+                'served on the CPU only')
         cols = []
         for j in range(D):
             with fwAD.dual_level():
@@ -169,15 +169,17 @@ def row_jacobian(g, z):
     return torch.stack(rows, dim=-2)
 
 
-def _newton_solve(g, z, iters=6):
+def _newton_solve(g, z, iters=6, jacobian=None):
     """Solve g(z) = 0 for rows z (..., D) with damped per-row Newton: each
     iterate is taken only where it lowers that row's residual norm (step
     fractions 1, 1/2, 1/4, else keep), as the JAX package does. The
-    Jacobian is a constant of each iteration for reverse mode: at
-    convergence the gradient is the implicit-function one either way."""
+    per-row Jacobians of g come from `jacobian(z)` where given, else from
+    `row_jacobian`. The Jacobian is a constant of each iteration for
+    reverse mode: at convergence the gradient is the implicit-function one
+    either way."""
     for _ in range(iters):
         r = g(z)
-        J = row_jacobian(g, z)
+        J = row_jacobian(g, z) if jacobian is None else jacobian(z)
         dz = linalg.solve(J, r[..., None])[..., 0]
         best_z = z
         best_rn = torch.sum(r * r, dim=-1)
@@ -268,7 +270,13 @@ def _fixed_bdf2(f, z0, ts, dense, remat, newton_iters=6):
 
         z_{n+1} = ((1+w)^2 z_n - w^2 z_{n-1}) / (1 + 2w)
                   + h (1+w)/(1+2w) f(t_{n+1}, z_{n+1})
+
+    Where f has per-row Jacobians (`f.jacobian(t, z)`, as
+    `dynamics.flow.make_ode_rhs` gives them) the Newton iterations take
+    I - c_f h J_f (c_f = 1 for backward Euler); otherwise `row_jacobian`
+    differentiates g.
     """
+    f_jacobian = getattr(f, 'jacobian', None)
 
     def interval(z, z_prev, h_prev, t0, t1, have_prev):
         h = (t1 - t0) / dense
@@ -285,10 +293,19 @@ def _fixed_bdf2(f, z0, ts, dense, remat, newton_iters=6):
                       t1s=t1s):
                     return zn - c_zt * zt + c_zp * zp - c_f * h * f(t1s, zn)
             else:
+                c_f = 1.0
+
                 def g(zn, zt=zt, t1s=t1s):
                     return zn - zt - h * f(t1s, zn)
+            jacobian = None
+            if f_jacobian is not None:
+                def jacobian(zn, c=c_f * h, t1s=t1s):
+                    J = f_jacobian(t1s, zn)
+                    eye = torch.eye(J.shape[-1], dtype=J.dtype,
+                                    device=J.device)
+                    return eye - c * J
             z_new = _newton_solve(g, zt + h * f(t0 + i * h, zt),
-                                  iters=newton_iters)
+                                  iters=newton_iters, jacobian=jacobian)
             zt, zp, hp, hpv = z_new, zt, True, h
         return zt, zp, hpv
 

@@ -27,7 +27,7 @@ from vae_gp_ode_tpu_torch.core.transforms import (
 from vae_gp_ode_tpu_torch.kernels import divfree as dfk
 from vae_gp_ode_tpu_torch.kernels import rbf as rbfk
 from vae_gp_ode_tpu_torch.ops import (
-    df_pathwise, df_pathwise_tiled, pathwise, pathwise_tiled,
+    df_pathwise, df_pathwise_tiled, library, pathwise, pathwise_tiled,
 )
 
 @dataclasses.dataclass
@@ -236,6 +236,26 @@ def fn_eval(p: SVGPParams, s: FnSample, x):
             x, *df_pathwise.df_fused_operands(p, s))
     return pathwise_tiled.pathwise_eval(
         x, *pathwise.rbf_fused_operands(p, s))
+
+
+def fn_jacobian(p: SVGPParams, s: FnSample, x):
+    """Per-row Jacobians of the sampled function(s) at x (..., N, D_in):
+    (..., N, D_out, D_in), [n, k, j] = d f_k(x_n) / d x_nj. A constant of
+    reverse mode (its inputs are detached): the Newton iterations' of bdf.
+
+    The registered operators `pathwise_eval_jac` / `df_pathwise_eval_jac`
+    (`ops.library`), eager and traced alike: on CUDA tensors one launch of
+    the VJP kernel that the card's dispatch rule names for the N*D_out
+    rows the Jacobian takes (#4 or #10 for RBF, #6 or #12 for DF), on CPU
+    tensors its plain version. A shared-lengthscale RBF sample takes the
+    dimwise operand block, as in `fn_eval`."""
+    if p.kernel_name == 'DF':
+        return pathwise.library_jacobian(
+            library.df_pathwise_eval_jac, x,
+            df_pathwise.df_fused_operands(p, s), df_pathwise.BASE_DIMS)
+    return pathwise.library_jacobian(
+        library.pathwise_eval_jac, x, pathwise.rbf_fused_operands(p, s),
+        pathwise._BASE_DIMS)
 
 
 def svgp_kl(p: SVGPParams):

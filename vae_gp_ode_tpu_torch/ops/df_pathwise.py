@@ -31,7 +31,7 @@ import torch
 from vae_gp_ode_tpu_torch import ops
 from vae_gp_ode_tpu_torch.ops import _build
 from vae_gp_ode_tpu_torch.ops.pathwise import (
-    _check_tensors, _flat, apply_routed,
+    _check_tensors, _flat, apply_routed, jacobian_rows,
 )
 from vae_gp_ode_tpu_torch.kernels.rbf import rbf_lengthscales, rbf_variance
 
@@ -96,11 +96,27 @@ def df_pathwise_vjp_reference(x, omf, phf, G, Z, nur, ls2, var, g):
     """Plain version of the backward kernel: autograd through
     :func:`df_pathwise_reference` with cotangent g. Returns the cotangents
     of (x, omf, phf, G, Z, nur, ls2, var), each in its operand's shape."""
-    with torch.enable_grad():
+    # identity saved-tensor hooks: inside a checkpointed step (bdf's
+    # Newton Jacobians on the CPU) this graph keeps its own tensors
+    # instead of the checkpoint's placeholders
+    with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(
+            lambda t: t, lambda t: t):
         inputs = [t.detach().requires_grad_() for t in (
             x, omf, phf, G, Z, nur, ls2, var)]
         out = df_pathwise_reference(*inputs)
         return torch.autograd.grad(out, inputs, g)
+
+
+def df_pathwise_jacobian_reference(x, omf, phf, G, Z, nur, ls2, var):
+    """Plain version of the DF Jacobian operator: the per-row Jacobians
+    (..., N, D, D), [n, k, j] = d f_k(x_n) / d x_nj, of
+    :func:`df_pathwise_reference`, from one
+    :func:`df_pathwise_vjp_reference` on the rows and cotangents of
+    `ops.pathwise.jacobian_rows`."""
+    N, D = x.shape[-2:]
+    xr, g = jacobian_rows(x, D)
+    dx = df_pathwise_vjp_reference(xr, omf, phf, G, Z, nur, ls2, var, g)[0]
+    return dx.reshape(tuple(dx.shape[:-2]) + (N, D, D))
 
 
 def pack_df_operands(omega, phase, G, Z, nu, ls, var):

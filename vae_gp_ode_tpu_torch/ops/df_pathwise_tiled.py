@@ -47,7 +47,8 @@ from vae_gp_ode_tpu_torch.ops.df_pathwise import (
     df_pathwise_reference,
 )
 from vae_gp_ode_tpu_torch.ops.pathwise import (
-    _check_tensors, _draws, _flat, apply_routed, library_eval,
+    _check_tensors, _draws, _flat, apply_routed, launch_jacobian,
+    library_eval,
 )
 
 KERNEL = 'df_pathwise_tiled_fwd'
@@ -297,3 +298,22 @@ def df_pathwise_eval(x, omf, phf, G, Z, nur, ls2, var):
     return apply_routed(_launch if fwd else df_pathwise._launch,
                         _launch_bwd if bwd else df_pathwise._launch_bwd, x,
                         operands, BASE_DIMS)
+
+
+def df_pathwise_jacobian(x, omf, phf, G, Z, nur, ls2, var):
+    """Per-row Jacobians (L, N, D, D) of the DF per-step eval at x (L, N,
+    D), operands as :func:`df_pathwise_reference`'s with at most one
+    leading dim of L draws. CPU tensors take the plain version
+    (`df_pathwise.df_pathwise_jacobian_reference`); CUDA tensors launch
+    the VJP kernel that `use_df_tiled` names for the rows the Jacobian
+    takes, (L, N*D, D): #12 or #6, once (`pathwise.launch_jacobian`).
+    Anything else raises."""
+    operands = (omf, phf, G, Z, nur, ls2, var)
+    if all(t.device.type == 'cpu' for t in (x,) + operands):
+        return df_pathwise.df_pathwise_jacobian_reference(x, *operands)
+    if x.device.type != 'cuda':
+        raise ValueError(f'unsupported device {x.device}')
+    L, N, D = x.shape
+    _, bwd = use_df_tiled(L, N * D, D, omf.shape[-1], Z.shape[-2], x.device)
+    return launch_jacobian(_launch_bwd if bwd else df_pathwise._launch_bwd,
+                           x, operands, D)

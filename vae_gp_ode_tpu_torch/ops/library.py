@@ -3,7 +3,7 @@ program (`torch.export`, the serving artifact of `serving.py`) launches
 them.
 
 A kernel launched through ctypes with `data_ptr()` cannot be traced; an
-operator of the dispatcher can. Four operators, in the namespace
+operator of the dispatcher can. Six operators, in the namespace
 `vae_gp_ode_torch`:
 
 * `flow_fused_fwd` (#1): the RBF euler trajectory of `ops.flow_fused`,
@@ -13,7 +13,11 @@ operator of the dispatcher can. Four operators, in the namespace
 * `pathwise_eval_fwd`: the RBF per-step eval, #3 or #9 as
   `ops.pathwise_tiled.use_tiled` picks on the real shapes, (L, N, K);
 * `df_pathwise_eval_fwd`: the DF per-step eval, #5 or #11 as
-  `ops.df_pathwise_tiled.use_df_tiled` picks, (L, N, D).
+  `ops.df_pathwise_tiled.use_df_tiled` picks, (L, N, D);
+* `pathwise_eval_jac` and `df_pathwise_eval_jac`: the per-row Jacobians
+  of those evals, (L, N, K, D) and (L, N, D, D), from one launch of a VJP
+  kernel (#4 or #10, #6 or #12, as the rules pick on the N*K rows the
+  Jacobian takes): bdf's Newton iterations.
 
 Each has three implementations: for CUDA tensors the existing launcher
 (which counts its launch in `ops.LAUNCHES` and raises on a failed build or
@@ -27,7 +31,8 @@ for the batch it is served.
 The operators are forward-only: the wrappers (`packed_euler_flow`,
 `packed_df_euler_flow`, `pathwise_eval`, `df_pathwise_eval`) call them
 when no input needs a gradient and keep their `torch.autograd.Function`s,
-whose backward launches the VJP kernels, otherwise. The CUDA and CPU
+whose backward launches the VJP kernels, otherwise; the Jacobian
+operators take detached inputs (`gp.svgp.fn_jacobian`). The CUDA and CPU
 implementations import the wrappers' modules when called, so importing
 this module registers the operators and loads nothing else.
 """
@@ -210,6 +215,59 @@ df_pathwise_eval_fwd = _define(
     'df_pathwise_eval_fwd', '(Tensor x, Tensor omf, Tensor phf, Tensor G, '
     'Tensor Z, Tensor nur, Tensor ls2, Tensor var) -> Tensor',
     _df_pathwise_cuda, _df_pathwise_cpu, _df_pathwise_fake)
+
+
+# -- #4 / #10: the RBF per-step eval's per-row Jacobians ----------------------
+
+def _pathwise_jac_cuda(x, omega, phase, weights, Z, nu, ls, var):
+    from vae_gp_ode_tpu_torch.ops import pathwise_tiled
+    return pathwise_tiled.pathwise_jacobian(x, omega, phase, weights, Z, nu,
+                                            ls, var)
+
+
+def _pathwise_jac_cpu(x, omega, phase, weights, Z, nu, ls, var):
+    from vae_gp_ode_tpu_torch.ops import pathwise
+    return pathwise.pathwise_jacobian_reference(x, omega, phase, weights, Z,
+                                                nu, ls, var)
+
+
+def _pathwise_jac_fake(x, omega, phase, weights, Z, nu, ls, var):
+    return x.new_empty(tuple(x.shape[:-1]) + (omega.shape[-1], x.shape[-1]))
+
+
+#: the per-row Jacobians of `pathwise_eval_fwd` at x (L, N, D): (L, N, K,
+#: D), one launch of #4 or #10 (`ops.pathwise_tiled.pathwise_jacobian`)
+pathwise_eval_jac = _define(
+    'pathwise_eval_jac', '(Tensor x, Tensor omega, Tensor phase, Tensor '
+    'weights, Tensor Z, Tensor nu, Tensor ls, Tensor var) -> Tensor',
+    _pathwise_jac_cuda, _pathwise_jac_cpu, _pathwise_jac_fake)
+
+
+# -- #6 / #12: the DF per-step eval's per-row Jacobians -----------------------
+
+def _df_pathwise_jac_cuda(x, omf, phf, G, Z, nur, ls2, var):
+    from vae_gp_ode_tpu_torch.ops import df_pathwise_tiled
+    return df_pathwise_tiled.df_pathwise_jacobian(x, omf, phf, G, Z, nur, ls2,
+                                                  var)
+
+
+def _df_pathwise_jac_cpu(x, omf, phf, G, Z, nur, ls2, var):
+    from vae_gp_ode_tpu_torch.ops import df_pathwise
+    return df_pathwise.df_pathwise_jacobian_reference(x, omf, phf, G, Z, nur,
+                                                      ls2, var)
+
+
+def _df_pathwise_jac_fake(x, omf, phf, G, Z, nur, ls2, var):
+    return x.new_empty(tuple(x.shape) + (x.shape[-1],))
+
+
+#: the per-row Jacobians of `df_pathwise_eval_fwd` at x (L, N, D): (L, N,
+#: D, D), one launch of #6 or #12
+#: (`ops.df_pathwise_tiled.df_pathwise_jacobian`)
+df_pathwise_eval_jac = _define(
+    'df_pathwise_eval_jac', '(Tensor x, Tensor omf, Tensor phf, Tensor G, '
+    'Tensor Z, Tensor nur, Tensor ls2, Tensor var) -> Tensor',
+    _df_pathwise_jac_cuda, _df_pathwise_jac_cpu, _df_pathwise_jac_fake)
 
 
 def needs_grad(tensors):

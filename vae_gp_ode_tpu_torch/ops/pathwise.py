@@ -19,6 +19,11 @@ blocks sum their partials within a thread-block cluster, and the VJP's
 library call sums its blocks' terms (and the cotangents of shared
 operands over the draws) in a second kernel, both in a fixed order,
 without atomics, so the wrapper runs no reduction.
+
+The per-row Jacobians of bdf's Newton iterations come from one launch of
+a VJP kernel on rows repeated once per output and one-hot cotangents
+(`jacobian_rows`, `launch_jacobian`; the operators `pathwise_eval_jac`
+and `df_pathwise_eval_jac` of `ops.library`).
 """
 
 import ctypes
@@ -87,11 +92,41 @@ def pathwise_vjp_reference(x, omega, phase, weights, Z, nu, ls, var, g):
     :func:`pathwise_eval_reference` with cotangent g. Returns the
     cotangents of (x, omega, phase, weights, Z, nu, ls, var), each in its
     operand's shape (summed over the draws an operand is shared by)."""
-    with torch.enable_grad():
+    # identity saved-tensor hooks: inside a checkpointed step (bdf's
+    # Newton Jacobians on the CPU) this graph keeps its own tensors
+    # instead of the checkpoint's placeholders
+    with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(
+            lambda t: t, lambda t: t):
         inputs = [t.detach().requires_grad_() for t in (
             x, omega, phase, weights, Z, nu, ls, var)]
         out = pathwise_eval_reference(*inputs)
         return torch.autograd.grad(out, inputs, g)
+
+
+def jacobian_rows(x, K):
+    """The rows and cotangents that turn one VJP of an eval with K outputs
+    into its per-row Jacobians, as the JAX package's vmap(jacrev) does:
+    x (..., N, D) -> x' (..., N*K, D), each row repeated K times, and g'
+    (..., N*K, K), whose row (n, k) is the unit vector e_k; both
+    contiguous, as the kernels read them (at N = 1 the reshape alone would
+    be a view with a zero stride)."""
+    lead, (N, D) = tuple(x.shape[:-2]), x.shape[-2:]
+    xr = x[..., None, :].expand(lead + (N, K, D)).reshape(
+        lead + (N * K, D)).contiguous()
+    g = torch.eye(K, dtype=x.dtype, device=x.device).repeat(N, 1)
+    return xr, g.expand(lead + (N * K, K)).contiguous()
+
+
+def pathwise_jacobian_reference(x, omega, phase, weights, Z, nu, ls, var):
+    """Plain version of the Jacobian operator: the per-row Jacobians
+    (..., N, K, D), [n, k, j] = d f_k(x_n) / d x_nj, of
+    :func:`pathwise_eval_reference`, from one :func:`pathwise_vjp_reference`
+    on the rows and cotangents of `jacobian_rows`."""
+    K, (N, D) = omega.shape[-1], x.shape[-2:]
+    xr, g = jacobian_rows(x, K)
+    dx = pathwise_vjp_reference(xr, omega, phase, weights, Z, nu, ls, var,
+                                g)[0]
+    return dx.reshape(tuple(dx.shape[:-2]) + (N, K, D))
 
 
 def rbf_fused_operands(gp, sample):
@@ -240,6 +275,18 @@ def launch_vjp(name, launcher, workspace_floats, x, operands, g):
                  for part, shape in zip(out.split(sizes), shapes))
 
 
+def launch_jacobian(launch_bwd, x, operands, K):
+    """Per-row Jacobians (L, N, K, D) of a per-step eval with K outputs at
+    x (L, N, D) from one launch of a VJP kernel (`launch_bwd`, a family's
+    `_launch_bwd`: #4, #6, #10 or #12) on the rows and cotangents of
+    `jacobian_rows`: its dx (L, N*K, D) holds row n's d f_k / d x at row
+    (n, k). The operands' cotangents, which the launch sums as well, are
+    dropped."""
+    L, N, D = x.shape
+    xr, g = jacobian_rows(x, K)
+    return launch_bwd(xr, operands, g)[0].view(L, N, K, D)
+
+
 def _launch_bwd(x, operands, g):
     """Launch the VJP kernel #4 and its sums for the cotangent g (L, N,
     K); see `launch_vjp`. Raises for a state dim D past the library's
@@ -314,6 +361,14 @@ def library_eval(op, x, operands, base_dims):
     x3 = x.expand((L or 1,) + tuple(x.shape[-2:])).contiguous()
     out = op(x3, *(t.contiguous() for t in operands))
     return out if L is not None else out[0]
+
+
+def library_jacobian(op, x, operands, base_dims):
+    """`library_eval` of a Jacobian operator of `ops.library` on x and
+    operands detached: the Newton iterations' Jacobian is a constant of
+    reverse mode."""
+    return library_eval(op, x.detach(), [t.detach() for t in operands],
+                        base_dims)
 
 
 def apply_routed(launch, launch_bwd, x, operands, base_dims):

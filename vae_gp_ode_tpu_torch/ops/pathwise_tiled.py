@@ -231,3 +231,23 @@ def pathwise_eval(x, omega, phase, weights, Z, nu, ls, var):
     return apply_routed(_launch if fwd else pathwise._launch,
                         _launch_bwd if bwd else pathwise._launch_bwd, x,
                         operands, pathwise._BASE_DIMS)
+
+
+def pathwise_jacobian(x, omega, phase, weights, Z, nu, ls, var):
+    """Per-row Jacobians (L, N, K, D) of the per-step eval at x (L, N, D),
+    operands as :func:`pathwise_eval_reference`'s with at most one leading
+    dim of L draws. CPU tensors take the plain version
+    (`pathwise_jacobian_reference`); CUDA tensors launch the VJP kernel
+    that `use_tiled` names for the rows the Jacobian takes, (L, N*K, D):
+    #10, or #4, which raises for a D past `pathwise_bwd_max_dim`; once
+    (`pathwise.launch_jacobian`). Anything else raises."""
+    operands = (omega, phase, weights, Z, nu, ls, var)
+    if all(t.device.type == 'cpu' for t in (x,) + operands):
+        return pathwise.pathwise_jacobian_reference(x, *operands)
+    if x.device.type != 'cuda':
+        raise ValueError(f'unsupported device {x.device}')
+    L, N, D = x.shape
+    (S, K), M = omega.shape[-2:], Z.shape[-2]
+    _, bwd = use_tiled(L, N * K, D, K, S, M, x.device)
+    return pathwise.launch_jacobian(
+        _launch_bwd if bwd else pathwise._launch_bwd, x, operands, K)

@@ -9,8 +9,9 @@ The artifact is a `torch.export` program of the forecaster, saved with
     which registers the kernels' operators, not the model code;
   * runs in eval mode (BatchNorm's running statistics);
   * launches the hand-written forward kernels: the euler trajectory (#1,
-    or #7 for the divergence-free kernel) and the per-step evals (#3 or
-    #9, #5 or #11, chosen on the shapes of each call) are registered
+    or #7 for the divergence-free kernel), the per-step evals (#3 or #9,
+    #5 or #11, chosen on the shapes of each call) and bdf's Newton
+    Jacobians (a VJP kernel, #4 or #10, #6 or #12) are registered
     operators (`ops.library`), which the trace keeps as calls;
   * takes ``(X, *noise)``: `torch.export` cannot carry a
     `torch.Generator`, so the raw noise of the z0 reparameterisation and
@@ -261,24 +262,18 @@ def export_forecaster(model, params, gp, *, T, img=_IMG, batch=None, L=1,
     The program takes ``(X, *noise)``, the noise in `noise_spec` order.
     The forward kernels are the operators of `ops.library`; where the
     trace runs on the CPU it takes the fused euler pair at every shape, so
-    `load_forecaster` checks the shapes again on the card. A solver of
-    `dynamics.solvers.JACOBIAN_SOLVERS` (bdf) traces the plain per-step
-    evals into its Newton Jacobians: it exports on the CPU for the CPU
-    only (meta 'plain_evals'), and raises otherwise.
+    `load_forecaster` checks the shapes again on the card. bdf's Newton
+    Jacobians are the Jacobian operators (`pathwise_eval_jac`,
+    `df_pathwise_eval_jac`: one VJP kernel launch each on the card), so a
+    bdf forecaster exports on either device, for either, with a symbolic
+    batch like any other (meta 'plain_evals' false: no plain per-step eval
+    in the program).
     """
     _check_choices(mc_reduce, dtype)
     dev, model, gp = _prepare(copy.deepcopy(model), params, gp, device)
     if DTYPES[dtype] is not None:
         model = model.with_dtype(DTYPES[dtype])
     plats = _platforms(platforms, dev)
-    from vae_gp_ode_tpu_torch.dynamics.solvers import JACOBIAN_SOLVERS
-    plain_evals = model.solver in JACOBIAN_SOLVERS
-    if plain_evals and (dev.type != 'cpu' or plats != ['cpu']):
-        raise ValueError(
-            f'a {model.solver} forecaster traces its Newton Jacobians through '
-            f'the per-step evals\' plain versions (forward mode, which the '
-            f'kernels do not take): export it with --device cpu '
-            f'--platforms cpu and serve it on the CPU')
     spec = noise_spec(model, gp, L)
     names = [name for name, _, _ in spec]
     prog = _Program(model, gp, names, L, T_custom, mc_reduce,
@@ -302,7 +297,7 @@ def export_forecaster(model, params, gp, *, T, img=_IMG, batch=None, L=1,
                     if n.op == 'placeholder'}
     outputs = next(n for n in program.graph.nodes if n.op == 'output')
     meta = {'noise_spec': spec, 'platforms': plats, 'dtype': dtype,
-            'solver': model.solver, 'plain_evals': plain_evals,
+            'solver': model.solver, 'plain_evals': False,
             'in_specs': _specs(placeholders[name] for name in
                                program.graph_signature.user_inputs),
             'out_specs': _specs(outputs.args[0]),
@@ -412,8 +407,10 @@ def load_forecaster(path, device='cuda', check_platform=True):
     moves to `device` (`torch.export.passes.move_to_device_pass`). On the
     card the fused euler trajectories of a program traced on the CPU are
     checked against the pair's rule (an error names a shape it refuses),
-    and a program whose trace holds plain per-step evals (a bdf
-    forecaster, meta 'plain_evals') raises naming its solver.
+    and a program whose trace holds plain per-step evals (meta
+    'plain_evals': a bdf forecaster traced on the CPU before its Newton
+    Jacobians became operators, whose plain evals would run on the card
+    unnoticed) raises naming its solver.
 
     With the sidecar manifest of :func:`save_forecaster`:
 

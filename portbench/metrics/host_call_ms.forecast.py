@@ -1,0 +1,14 @@
+"""host_call_ms.forecast: the host's wall time inside one request's call
+of the forecaster, before the synchronise: the median over the window's
+requests outside the traced slice (host clock). While the card idles
+between launches, as in these host-paced cells, it is the host's cost
+of issuing the work; were the launch queue ever full, it would include
+the wait for the card."""
+
+import statistics
+
+
+def read(run):
+    if run.mode != 'forecast' or not run.call_s:
+        return None
+    return statistics.median(run.call_s) / run.units_per_call * 1e3
